@@ -1,0 +1,133 @@
+"""Polyphonic AMT posteriors: the Basic Pitch CNN and the harmonic salience.
+
+Counterpart of audiotabs_tpu/models/basicpitch.py (``hcqt``, ``cnn_apply``,
+``salience_posteriors``, ``load_params``). The CNN is an nn.Module of Conv2d
+layers in NCHW with the JAX "SAME" padding written out; the host note
+decoder waits for the next slice.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.cqt import hybrid_cqt
+from . import convert
+from .params_io import load_pytree_npz, weights_path
+
+FMIN = 27.5  # A0
+BINS_PER_SEMITONE = 3
+N_SEMITONES = 88
+N_BINS = N_SEMITONES * BINS_PER_SEMITONE  # 264
+HOP = 256
+HARMONICS = (0.5, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0)
+
+
+def hcqt(y: torch.Tensor, sr: int) -> torch.Tensor:
+    """Harmonic CQT [H, n_bins, T] at 3 bins/semitone from A0."""
+    return hybrid_cqt(y, sr, hop=HOP, fmin=FMIN, n_bins=N_BINS, bins_per_octave=12 * BINS_PER_SEMITONE, harmonics=HARMONICS)
+
+
+def same_pad(x: torch.Tensor, kernel: tuple[int, int], stride: tuple[int, int]) -> torch.Tensor:
+    """Pad [N, C, H, W] as XLA's "SAME": out = ceil(in/stride), the odd pixel at the end."""
+    pads = []
+    for size, k, s in zip(x.shape[-2:], kernel, stride):
+        total = max((-(-size // s) - 1) * s + k - size, 0)
+        pads.append((total // 2, total - total // 2))
+    (ht, hb), (wl, wr) = pads
+    return F.pad(x, (wl, wr, ht, hb))
+
+
+class SameConv2d(nn.Conv2d):
+    """Conv2d with XLA "SAME" padding (asymmetric when the kernel is even or strided)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(same_pad(x, self.kernel_size, self.stride))
+
+
+class BasicPitchCNN(nn.Module):
+    """hCQT [H, n_bins, T] → (onset [T, 88], frame [T, 88], contour [T, 264])."""
+
+    def __init__(self, n_harmonics: int = len(HARMONICS)):
+        super().__init__()
+        s = (BINS_PER_SEMITONE, 1)
+        self.c1 = SameConv2d(n_harmonics, 16, (5, 5))
+        self.c2 = SameConv2d(16, 8, (39, 3))
+        self.c3 = SameConv2d(8, 1, (5, 5))
+        self.n1 = SameConv2d(1, 32, (7, 7), stride=s)
+        self.n2 = SameConv2d(32, 1, (7, 3))
+        self.o1 = SameConv2d(n_harmonics, 32, (5, 5), stride=s)
+        self.o2 = SameConv2d(33, 1, (3, 3))
+
+    @classmethod
+    def from_params(cls, params: dict) -> "BasicPitchCNN":
+        net = cls(np.asarray(params["c1_w"]).shape[2])
+        net.load_state_dict(convert.conv_state(params, ("c1", "c2", "c3", "n1", "n2", "o1", "o2")))
+        return net
+
+    def forward(self, hc: torch.Tensor):
+        x = torch.log1p(10.0 * hc)[None]  # [1, H, freq, time]
+        # parity trap: jnp.std is the population std, so correction=0
+        x = (x - x.mean()) / (x.std(correction=0) + 1e-5)
+        c = F.relu(self.c1(x))
+        c = F.relu(self.c2(c))
+        contour = torch.sigmoid(self.c3(c))  # [1, 1, 264, T]
+        note = torch.sigmoid(self.n2(F.relu(self.n1(contour))))  # [1, 1, 88, T]
+        o = torch.cat([F.relu(self.o1(x)), note], dim=1)
+        onset = torch.sigmoid(self.o2(o))
+        return onset[0, 0].T, note[0, 0].T, contour[0, 0].T
+
+
+def cnn_apply(net: BasicPitchCNN, hc: torch.Tensor):
+    """hc [H, n_bins, T] → (onset [T, 88], frame [T, 88], contour [T, 264])."""
+    return net(hc)
+
+
+def load_params(path: str | None = None) -> dict | None:
+    path = weights_path("BASICPITCH_WEIGHTS", "basicpitch.npz") if path is None else path
+    if not path or not os.path.exists(path):
+        return None
+    return load_pytree_npz(path)
+
+
+def salience_posteriors(y: torch.Tensor, sr: int):
+    """Fundamental-gated harmonic salience → (onset [T, 88], frame [T, 88]).
+
+    The bidirectional block-max envelope, two lax.scans in JAX, is two short
+    loops over ~0.75 s blocks here."""
+    hc = hcqt(y, sr)  # [H, 264, T]; rows follow HARMONICS (0.5, 1, 2, ..7)
+    peak = hc[1].max()
+    A = hc / (peak + 1e-8)
+    fundamental = A[1]
+    boost = 1.0 + sum(0.9 ** (i - 1) * A[i] for i in range(2, len(HARMONICS)))
+    sub_penalty = 1.0 - 0.5 * torch.clamp(A[0] - fundamental, 0.0, 1.0)
+    sal = fundamental * boost * sub_penalty  # [264, T]
+    sal = torch.where(peak > 1e-4, sal, torch.zeros_like(sal))
+    sal = sal.reshape(N_SEMITONES, BINS_PER_SEMITONE, -1).max(dim=1).values  # [88, T]
+
+    stride = 64  # frames ≈ 0.75 s at ~86 fps
+    T = sal.shape[-1]
+    nblk = max(1, -(-T // stride))
+    m = F.pad(sal, (0, nblk * stride - T)).reshape(sal.shape[0], nblk, stride).amax(dim=(0, 2))  # [nblk]
+    decay = 0.6  # per block → -20 dB in ~3.4 s
+    fwd, bwd = [], []
+    e = torch.zeros((), device=y.device)
+    for i in range(nblk):
+        e = torch.maximum(m[i], decay * e)
+        fwd.append(e)
+    e = torch.zeros((), device=y.device)
+    for i in reversed(range(nblk)):
+        e = torch.maximum(m[i], decay * e)
+        bwd.append(e)
+    env = torch.maximum(torch.stack(fwd), torch.stack(bwd[::-1]))
+    norm = torch.maximum(env, 0.05 * sal.max())
+    norm_t = norm.repeat_interleave(stride)[:T]
+    frame_post = torch.clamp(sal / (norm_t[None, :] + 1e-2), 0.0, 1.0)
+
+    diff = frame_post[:, 1:] - frame_post[:, :-1]
+    onset_post = torch.clamp(torch.cat([frame_post[:, :1], torch.clamp(diff, min=0.0)], dim=1) * 2.0, 0.0, 1.0)
+    return onset_post.T, frame_post.T

@@ -1,0 +1,78 @@
+"""Carry the JAX package's parameter pytrees (numpy arrays) onto the port's modules.
+
+Every model's weights pass through here, both from the npz checkpoints and
+from the JAX package's ``init_params`` pytrees in the tests. Layouts:
+
+  BLSTM     JAX per direction {W [D, 4H], U [H, 4H], b [4H]}, x @ W + h @ U + b,
+            gates [i, f, g, o] (audiotabs_tpu/models/torch_port.py:36-54);
+            torch nn.LSTM weight_ih [4H, D] = W.T, weight_hh [4H, H] = U.T,
+            bias_ih = b, bias_hh = 0, gates in the same [i, f, g, o] order.
+  conv2d    JAX HWIO [kh, kw, C_in, C_out] → torch OIHW [C_out, C_in, kh, kw].
+  dense     JAX [D_in, D_out] → torch nn.Linear weight [D_out, D_in].
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def conv2d_hwio(w) -> torch.Tensor:
+    return _t(np.transpose(np.asarray(w), (3, 2, 0, 1)))
+
+
+def dense(prefix: str, w, b) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _t(np.asarray(w).T), f"{prefix}.bias": _t(b)}
+
+
+def lstm_state(layers: list[dict], prefix: str = "lstm") -> dict[str, torch.Tensor]:
+    """JAX BLSTM layers [{fwd: {W, U, b}, bwd: {...}}, ...] → nn.LSTM state dict."""
+    out = {}
+    for i, layer in enumerate(layers):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            p = layer[direction]
+            out[f"{prefix}.weight_ih_l{i}{suffix}"] = _t(np.asarray(p["W"]).T)
+            out[f"{prefix}.weight_hh_l{i}{suffix}"] = _t(np.asarray(p["U"]).T)
+            out[f"{prefix}.bias_ih_l{i}{suffix}"] = _t(p["b"])
+            out[f"{prefix}.bias_hh_l{i}{suffix}"] = torch.zeros(np.asarray(p["b"]).shape[0])
+    return out
+
+
+def _norm_state(params: dict) -> dict[str, torch.Tensor]:
+    return {k: _t(params[k]) for k in ("feat_mean", "feat_std") if k in params}
+
+
+def beat_blstm_state(params: dict) -> dict[str, torch.Tensor]:
+    """beat_rnn pytree (one ensemble member) → BeatBLSTM state dict."""
+    return {**lstm_state(params["layers"]), **dense("out", params["out_w"], params["out_b"]), **_norm_state(params)}
+
+
+def conv_state(params: dict, names: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """{<name>_w (HWIO), <name>_b} pytree entries → <name>.weight/.bias of Conv2d modules."""
+    out = {}
+    for n in names:
+        out[f"{n}.weight"] = conv2d_hwio(params[f"{n}_w"])
+        out[f"{n}.bias"] = _t(params[f"{n}_b"])
+    return out
+
+
+def deepchroma_state(params: dict) -> dict[str, torch.Tensor]:
+    out = {}
+    for i, layer in enumerate(params["layers"]):
+        out.update(dense(f"layers.{i}", layer["w"], layer["b"]))
+    out.update(dense("out", params["out_w"], params["out_b"]))
+    out.update(_norm_state(params))
+    return out
+
+
+def key_cnn_state(params: dict) -> dict[str, torch.Tensor]:
+    return {**conv_state(params, ("c1", "c2", "c3")), **dense("out", params["out_w"], params["out_b"])}
+
+
+def crf_tensors(params: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    """CRF emission/transition arrays → float32 tensors on ``device``."""
+    return {k: _t(params[k]).to(device) for k in ("emit_w", "emit_b", "transitions", "initial")}

@@ -1,0 +1,73 @@
+"""Global key classification CNN (counterpart of audiotabs_tpu/models/key_cnn.py).
+
+Log-filtered spectrogram at 5 fps → three ELU convolutions with band-axis
+max pooling → time average (optionally masked) → dense softmax over 24 keys.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from . import convert
+from .basicpitch import SameConv2d
+from .deepchroma import N_BANDS, log_filtered
+from .params_io import load_pytree_npz, weights_path
+
+N_CLASSES = 24  # 12 major then 12 minor
+
+
+def features(y: torch.Tensor, sr: int) -> torch.Tensor:
+    """Log-filtered spectrogram [T, B, 1] at ~5 fps."""
+    return log_filtered(y, sr, 5)[..., None]
+
+
+class KeyCNN(nn.Module):
+    def __init__(self, n_bands: int = N_BANDS):
+        super().__init__()
+        self.c1 = SameConv2d(1, 8, (5, 5))
+        self.c2 = SameConv2d(8, 16, (3, 3))
+        self.c3 = SameConv2d(16, 32, (3, 3))
+        self.out = nn.Linear((n_bands // 4) * 32, N_CLASSES)
+
+    @classmethod
+    def from_params(cls, params: dict) -> "KeyCNN":
+        net = cls(np.asarray(params["out_w"]).shape[0] // 32 * 4)
+        net.load_state_dict(convert.key_cnn_state(params))
+        return net
+
+    def forward(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """[T, B, 1] → [24] probabilities; ``frame_mask`` [T] limits the time average."""
+        x = feats.permute(2, 0, 1)[None]  # [1, 1, T, B]
+        x = F.max_pool2d(F.elu(self.c1(x)), (1, 2))  # pool the band axis only
+        x = F.max_pool2d(F.elu(self.c2(x)), (1, 2))
+        x = F.elu(self.c3(x))[0]  # [32, T, B//4]
+        if frame_mask is None:
+            pooled = x.mean(dim=1)
+        else:
+            m = frame_mask.to(x.dtype)[None, :, None]
+            pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(), min=1.0)
+        # the dense head reads the (band, channel) map flattened band-major
+        return torch.softmax(self.out(pooled.T.reshape(-1)), dim=-1)
+
+
+def apply(net: KeyCNN, feats: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
+    return net(feats, frame_mask)
+
+
+def load_params(path: str | None = None) -> dict | None:
+    path = weights_path("KEY_CNN_WEIGHTS", "key_cnn.npz") if path is None else path
+    if not path or not os.path.exists(path):
+        return None
+    params = load_pytree_npz(path)
+    ow = params.get("out_w")
+    want = ((N_BANDS // 4) * 32, N_CLASSES)
+    if ow is None or ow.shape != want:
+        logging.getLogger(__name__).warning("key_cnn checkpoint %s rejected: out_w shape %s != %s", path, None if ow is None else ow.shape, want)
+        return None
+    return params

@@ -1,0 +1,264 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, time, drive.
+
+    python3 chip_smoke.py
+
+1. Prints the card's name and power limit, and turns TF32 off.
+2. Builds the median kernel (csrc/median_filter.cu) with nvcc into build/.
+3. Holds the kernel against its plain PyTorch version at the main path's
+   shapes (exact equality: a median selects an input element), times both
+   with CUDA events and prints each shape's bound.
+4. Drives ``run_analysis`` on a held-out clip on the card (the median kernel
+   must launch exactly 6 times per song), checks the outputs, times each
+   stage of the fused analysis, and runs the same clip on the CPU, whose
+   discrete outputs must be equal.
+5. Prints the kernel table as one JSON line, then the result line.
+
+Any failed phase raises, and the script exits non-zero without a result. It
+imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+CLIP = REPO / "tests" / "data" / "heldout" / "heldout_strum_band.wav"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# (shape, window, axis) of the 6 median launches per song on the main path:
+# HPSS of the 2048-point STFT (win 31), the content-window masks of the 20
+# batched 3 s windows' 1024-point STFTs (win 17) and the calibration masks of
+# the 1024-point STFT (win 17), each along time and along frequency
+MAIN_PATH_MEDIANS = [
+    ((1025, 1292), 31, -1), ((1025, 1292), 31, -2),
+    ((20, 513, 130), 17, -1), ((20, 513, 130), 17, -2),
+    ((513, 1292), 17, -1), ((513, 1292), 17, -2),
+]
+EXTRA_MEDIANS = [((2, 1025, 1292), 31, -1), ((2, 1025, 1292), 31, -2)]
+FUSED_DEEP_KEYS = {
+    "y_harm", "beat_activation", "amt_onset", "amt_frame", "chroma", "chord_energy", "chord_emissions",
+    "dc_chroma", "crf_path", "crf_conf", "dbn_phases", "dbn_intervals", "strum_envelope", "content_starts",
+    "content_metrics", "key_probs", "char_rms_median", "char_noise_rms", "char_centroid", "char_rolloff",
+    "char_harm_ratio", "char_onset_density",
+}
+DISCRETE = ("crf_path", "dbn_phases", "dbn_intervals", "content_starts")
+F16 = ("y_harm", "amt_onset", "amt_frame", "beat_activation")
+# GPU against CPU: floats rtol 1e-3 / atol 1e-4 (cuFFT, cuBLAS and cuDNN sum
+# in another order than the CPU kernels); f16 outputs within 2 f16 ulps
+FLOAT_TOL = dict(rtol=1e-3, atol=1e-4)
+F16_TOL = dict(rtol=2**-9, atol=2**-13)
+
+
+def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median over ``reps`` of one call's time on the card (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def wall_s(fn, reps: int = 3) -> float:
+    """Median wall time of a call that ends in a device synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def check_kernel(median) -> dict:
+    rng = np.random.default_rng(0)
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    for shape, win, axis in MAIN_PATH_MEDIANS + EXTRA_MEDIANS:
+        x = torch.from_numpy(np.abs(rng.standard_normal(shape)).astype(np.float32)).cuda()
+        got = median.median_filter(x, win, axis)
+        ref = median.median_filter_plain(x, win, axis)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not torch.equal(got, ref):
+            raise AssertionError(f"median kernel differs from the plain version at {shape} win {win} axis {axis}: {err}")
+        ms = cuda_ms(lambda: median.median_filter(x, win, axis))
+        plain_ms = cuda_ms(lambda: median.median_filter_plain(x, win, axis), reps=20)
+        bound_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3  # read once, write once
+        row = dict(shape=list(shape), win=win, axis=axis, ms=ms, plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err)
+        print("median", json.dumps(row))
+        if (shape, win, axis) in MAIN_PATH_MEDIANS:
+            for k in ("ms", "plain_ms", "bound_ms"):
+                total[k] += row[k]
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+    print(f"median per song ({len(MAIN_PATH_MEDIANS)} main-path launches): kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+          f"bound {total['bound_ms']:.4f} ms (bytes at {HBM_BYTES_PER_S / 1e12} TB/s)")
+    return total
+
+
+@torch.inference_mode()
+def stage_times(y_np: np.ndarray, sr: int) -> dict:
+    """Warm wall time of each stage of fused_analysis, called alone on its real inputs."""
+    from audiotabs_tpu_torch.accompaniment.strum import _onset_strength_median
+    from audiotabs_tpu_torch.analysis.content_classifier import _window_metrics
+    from audiotabs_tpu_torch.chords.extract import salience_chroma
+    from audiotabs_tpu_torch.decode.dbn_beats import _dbn_forward
+    from audiotabs_tpu_torch.models import basicpitch, beat_rnn, crf_chords, deepchroma, key_cnn
+    from audiotabs_tpu_torch.ops.hpss import hpss, hpss_masks
+    from audiotabs_tpu_torch.ops.onset import onset_detect_frames, onset_strength
+    from audiotabs_tpu_torch.ops.spectral import stft
+    from audiotabs_tpu_torch.runtime.fused import load_models
+
+    dev = torch.device("cuda")
+    m = load_models(dev)
+    y = torch.from_numpy(y_np).to(dev)
+    y_harm, _ = hpss(y)
+    act = beat_rnn.beat_activation(y, sr, m.beat)
+    dc = deepchroma.apply(m.deepchroma, deepchroma.features(y_harm, sr)[:301])
+    crf_feats = dc / dc.norm(dim=1, keepdim=True).clamp(min=1e-9)
+    n = len(y_np)
+    starts = list(range(0, n - sr // 2, sr + sr // 2))
+    windows = torch.stack([torch.nn.functional.pad(y[s : s + 3 * sr], (0, max(0, s + 3 * sr - n))) for s in starts])
+    S1024 = torch.abs(stft(y, n_fft=1024, hop=512))
+    stages = {
+        "hpss (stft, 2 median launches, 2 istft)": lambda: hpss(y),
+        "blstm (features + ensemble)": lambda: beat_rnn.beat_activation(y, sr, m.beat),
+        "dbn loop (forward + backtrack)": lambda: _dbn_forward(act),
+        "hcqt + basic pitch cnn": lambda: basicpitch.cnn_apply(m.basicpitch, basicpitch.hcqt(y_harm, sr)),
+        "salience posteriors + chroma": lambda: salience_chroma(basicpitch.salience_posteriors(y_harm, sr)[1], 301),
+        "deepchroma (features + dnn)": lambda: deepchroma.apply(m.deepchroma, deepchroma.features(y_harm, sr)[:301]),
+        "crf (emissions + viterbi loop)": lambda: crf_chords.decode(m.crf, crf_feats),
+        "key cnn (features + cnn)": lambda: key_cnn.apply(m.key, key_cnn.features(y_harm, sr)),
+        "strum envelope": lambda: _onset_strength_median(y, sr, 512),
+        "content windows (pyin, onset loop, 2 median launches)": lambda: _window_metrics(windows, sr),
+        "calibration masks (2 median launches)": lambda: hpss_masks(S1024, 17, 17),
+        "calibration onset loop": lambda: onset_detect_frames(onset_strength(y, sr, hop=512, n_fft=1024), delta=0.5, wait=4),
+    }
+    out = {}
+    for name, fn in stages.items():
+        out[name] = wall_s(fn)
+        print(f"stage {name}: {out[name] * 1e3:.2f} ms")
+    return out
+
+
+def profile_busy_share(run) -> None:
+    """Device busy share of one warm song from torch.profiler (CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    launches = sum(e.count for e in events if getattr(e, "self_device_time_total", 0) > 0)
+    dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    print(f"profile: device-to-host copies per song {dtoh}")
+    if device_us <= 0:
+        print("profile: no device time in the trace; busy share not measured")
+        return
+    print(f"profile: wall {wall * 1e3:.1f} ms, device kernel time {device_us / 1e3:.1f} ms, "
+          f"busy share {device_us / 1e6 / wall:.3f}, device ops with time {launches}")
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0))[:8]
+    for e in top:
+        print(f"profile top: {e.key[:80]} count {e.count} device {e.self_device_time_total / 1e3:.2f} ms")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from audiotabs_tpu_torch.ops import median
+    from audiotabs_tpu_torch.runtime.pipeline import run_analysis
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("tf32: off for cuDNN and for matmul")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    median.build()
+    print(f"build: median_filter.cu in {time.perf_counter() - t0:.2f} s")
+
+    kernel = check_kernel(median)
+
+    # the slice on the card: cold (model load, first launches), then warm
+    times = []
+    for _ in range(3):
+        median.LAUNCHES = 0
+        t0 = time.perf_counter()
+        feats, beats = run_analysis(CLIP, device="cuda")
+        times.append(time.perf_counter() - t0)
+        if median.LAUNCHES != len(MAIN_PATH_MEDIANS):
+            raise AssertionError(f"median kernel launched {median.LAUNCHES} times in one song, expected {len(MAIN_PATH_MEDIANS)}")
+    launches = median.LAUNCHES
+    print(f"run_analysis on {CLIP.name}: cold {times[0]:.3f} s, warm {times[1]:.3f} s / {times[2]:.3f} s, median launches per song {launches}")
+    if set(feats) != FUSED_DEEP_KEYS:
+        raise AssertionError(f"output keys differ: {sorted(set(feats) ^ FUSED_DEEP_KEYS)}")
+    for k, v in feats.items():
+        if v.dtype.kind == "f" and not np.isfinite(v).all():
+            raise AssertionError(f"non-finite values in {k}")
+    if beats.size == 0:
+        raise AssertionError("no beats")
+    print(f"beats: {beats.size}, first {beats[:4].tolist()}, crf states {np.unique(feats['crf_path']).tolist()}, key argmax {int(np.argmax(feats['key_probs']))}")
+
+    from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
+    from audiotabs_tpu_torch.runtime.pipeline import ANALYSIS_SR, _pad_to_bucket
+
+    y, sr, _ = decode_for_analysis(CLIP, ANALYSIS_SR)
+    y = peak_normalize(y)
+    stage_times(_pad_to_bucket(y, sr, 30.0), sr)
+    profile_busy_share(lambda: run_analysis(CLIP, device="cuda"))
+
+    # the same clip through the port on the CPU
+    t0 = time.perf_counter()
+    cpu_feats, cpu_beats = run_analysis(CLIP, device="cpu")
+    print(f"cpu run_analysis: {time.perf_counter() - t0:.3f} s")
+    for k in sorted(cpu_feats):
+        a, b = cpu_feats[k], feats[k]
+        if k in DISCRETE:
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{k} differs between cuda and cpu at {int((a != b).sum())} of {a.size}")
+            continue
+        d = float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
+        print(f"cuda vs cpu {k}: max abs diff {d:.3g}")
+        np.testing.assert_allclose(b.astype(np.float32), a.astype(np.float32), err_msg=k, **(F16_TOL if k in F16 else FLOAT_TOL))
+    if not np.array_equal(cpu_beats, beats):
+        raise AssertionError("beat times differ between cuda and cpu")
+    print(f"cuda vs cpu: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
+
+    print(json.dumps({"kernels": [{
+        "name": "median_filter",
+        "route": "cuda",
+        "source": "audiotabs_tpu_torch/csrc/median_filter.cu",
+        "replaces": "audiotabs_tpu/ops/pallas_median.py:31",
+        "launches": launches,
+        "max_abs_err": kernel["max_abs_err"],
+        "ms": kernel["ms"],
+        "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": kernel["plain_ms"],
+    }]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,56 @@
+"""The port stands alone: no JAX and nothing of audiotabs_tpu, and no silent CPU fallback."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "audiotabs_tpu_torch"
+
+
+def _modules() -> list[str]:
+    mods = []
+    for p in sorted(PACKAGE.rglob("*.py")):
+        parts = p.relative_to(REPO).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    mods = _modules()
+    assert "audiotabs_tpu_torch.runtime.pipeline" in mods and "audiotabs_tpu_torch.ops.median" in mods
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and (m == 'audiotabs_tpu' or m.startswith(('audiotabs_tpu.', 'jax'))))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_run_analysis_without_a_device_raises_when_no_gpu(monkeypatch):
+    from audiotabs_tpu_torch.runtime.pipeline import run_analysis
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_analysis(REPO / "tests" / "data" / "heldout" / "heldout_strum_band.wav")
+
+
+@pytest.mark.parametrize("device,ok", [(None, False), ("cuda", False), ("cuda:0", False), ("cpu", True), ("mps", False)])
+def test_resolve_device_takes_the_cpu_only_when_asked(monkeypatch, device, ok):
+    from audiotabs_tpu_torch import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if ok:
+        assert resolve_device(device) == torch.device("cpu")
+    else:
+        with pytest.raises((RuntimeError, ValueError)):
+            resolve_device(device)
+
