@@ -2,8 +2,11 @@
 
 Each ``csrc/<name>.cu`` compiles to ``build/<name>-<hash>.so`` beside the
 package (``build/`` is git-ignored), with a plain C interface loaded through
-ctypes. The hash covers the source and the flags, so an edited source never
-loads a stale library. Nothing here runs at import time.
+ctypes. A source may include headers that Python generates; they are written
+to ``build/<name>-<hash>/`` and put on the include path. The hash covers the
+source, the generated headers and the flags, so an edited source or schedule
+never loads a stale library. ptxas's report of registers and spills for each
+kernel is kept beside the library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -18,7 +22,9 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -35,32 +41,59 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = PACKAGE_DIR / "csrc" / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+def library_path(name: str, headers: dict[str, str] | None = None) -> Path:
+    h = hashlib.sha256((PACKAGE_DIR / "csrc" / f"{name}.cu").read_bytes())
+    for fname, text in sorted((headers or {}).items()):
+        h.update(f"\0{fname}\0{text}".encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the current build exists; return its path."""
-    out = library_path(name)
+def build(name: str, headers: dict[str, str] | None = None) -> Path:
+    """Compile csrc/<name>.cu with the generated ``headers`` unless the current build exists."""
+    out = library_path(name, headers)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    include = out.with_suffix("")
+    include.mkdir(parents=True, exist_ok=True)
+    for fname, text in (headers or {}).items():
+        (include / fname).write_text(text)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(PACKAGE_DIR / "csrc" / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(include), "-o", str(tmp), str(PACKAGE_DIR / "csrc" / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, headers: dict[str, str] | None = None) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu, once per process."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            lib = ctypes.CDLL(str(build(name, headers)))
             _LIBS[name] = lib
         return lib
+
+
+def ptxas_usage(name: str, headers: dict[str, str] | None = None) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each kernel of the built csrc/<name>.cu, by demangled name."""
+    report = library_path(name, headers).with_suffix(".ptxas.txt").read_text()
+    usage: dict[str, dict[str, int]] = {}
+    kernel = None
+    for line in report.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line):
+            kernel = m.group(1)
+            usage.setdefault(kernel, {})
+        elif kernel and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage[kernel].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+            usage[kernel]["registers"] = int(m.group(1))
+    names = list(usage)
+    filt = shutil.which("c++filt")
+    if filt and names:
+        demangled = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True, check=True).stdout.split("\n")
+        return {d.replace("(anonymous namespace)::", ""): usage[n] for n, d in zip(names, demangled)}
+    return usage

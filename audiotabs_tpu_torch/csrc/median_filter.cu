@@ -10,15 +10,39 @@
 // frequency-direction median needs no transposed copy; a batch of
 // spectrograms is the grid's z index.
 //
-// Bound: the bytes are one read and one write of the tensor (about 3 us for
-// [1025, 1292] at 3.35 TB/s), but an odd-even transposition network costs
-// win*(win-1)/2 compare-exchanges per output (465 for win 31), so this kernel
-// is bound by min/max throughput, well above the byte bound. What the design
-// does about the bytes: each block stages its tile plus the (win-1) halo in
-// shared memory once, with edge indices clamped instead of padding a copy,
-// and every thread then reads its window from shared memory into registers
-// and sorts it there; global memory is touched once per element in and once
-// per element out. A cheaper selection network is later work.
+// Bound. The bytes are one read and one write of the tensor: 3.2 us for
+// [1025, 1292] at 3.35 TB/s. A min or max (FMNMX) issues at 64 per SM per
+// clock on compute capability 9.0, half the FP32 FMA rate, so an output that
+// costs c of them takes c * n / (132 * 64 * f_sm) for n outputs. The TPU
+// kernel's odd-even transposition sort costs win*(win-1) min/max per output
+// (930 at win 31: about 74 us for [1025, 1292] at 1.98 GHz), 23 times the
+// byte bound. What the design does about it: each thread computes K adjacent
+// outputs along the median axis from the win+K-1 values their windows span,
+// loaded into registers once, and runs a straight-line selection network
+// generated by ops/median.py::median_schedule (the header median_schedule.h):
+// the K windows share one pruned sort of their common core, a recursive split
+// merges in the values each half of them adds, and only the ranks that can
+// still be a median are kept. At win 31 with K 16 that is 518 min/max for
+// 16 outputs (32.4 per output, about 2.6 us for [1025, 1292] at 1.98 GHz);
+// at win 17 with K 8, 176 for 8 (22 per output). The issue bound is then
+// near the byte bound. Shared-memory reads fall to (win+K-1)/K per output.
+//
+// Layout. A block covers 32 lanes across the median axis (one per thread of
+// a warp) and `along` outputs along it. It stages their window rows, edge
+// indices clamped instead of padding a copy, in shared memory as
+// tile[along position][lane] with a pitch of 33 floats, so a warp's reads of
+// one row hit 32 banks, and so does the transposing store of the along-fast
+// load. Warps take the block's K-output segments in turn. Along the slow
+// axis a warp's 32 outputs are neighbours in memory and go straight out;
+// along the fast axis they are staged in shared memory and written along
+// rows. `along` is chosen per launch: the fewest blocks of at most 128
+// outputs, evened out, so a 130-frame axis is two blocks of 72 rather than
+// 128 + 2. A thread whose segment runs past the edge reads clamped values
+// and its stores are masked.
+//
+// Windows without a network (any other odd window below 128) take a rank
+// selection kernel over the same tile: O(win^2) shared-memory reads per
+// output, off the main path.
 //
 // Interface: a plain C function returning cudaGetLastError() after the
 // launch; it launches on the caller's stream and allocates nothing.
@@ -26,125 +50,118 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "median_schedule.h"  // generated: MedianNet<WIN>, MEDIAN_NET_WINDOWS
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPitch = 33;  // floats per staged row
+constexpr int kMaxAlongNet = 128;
+constexpr int kMaxAlongRank = 64;  // keeps a 127 window's tile under 48 KB
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Tile shape: along the median axis the tile carries the halo.
+// One block's share of one [n_slow, n_fast] plane: lanes c0..c0+31 across
+// the median axis, outputs a0..a0+along-1 along it.
 template <bool ALONG_FAST>
-struct Tile {
-  static constexpr int kFast = ALONG_FAST ? 128 : 32;  // outputs along fast axis
-  static constexpr int kSlow = ALONG_FAST ? 8 : 32;    // outputs along slow axis
+struct Plane {
+  const float* x;
+  float* y;
+  int n_fast, n_along, n_across, a0, c0, along;
+  float* tile;  // [along + win - 1][kPitch] input rows
+  float* out;   // [along][kPitch] staged outputs (ALONG_FAST only)
+
+  __device__ Plane(const float* x_, float* y_, int n_slow, int n_fast_, int along_, int win, float* smem)
+      : n_fast(n_fast_), along(along_), tile(smem), out(smem + (along_ + win - 1) * kPitch) {
+    const int64_t plane = (int64_t)n_slow * n_fast_;
+    x = x_ + blockIdx.z * plane;
+    y = y_ + blockIdx.z * plane;
+    n_along = ALONG_FAST ? n_fast_ : n_slow;
+    n_across = ALONG_FAST ? n_slow : n_fast_;
+    a0 = blockIdx.y * along_;
+    c0 = blockIdx.x * 32;
+  }
+
+  // Stage rows a0-half .. a0+along+half-1, indices clamped (edges
+  // replicated; lanes past the edge read the last line and store nothing).
+  __device__ void load(int win) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int rows = along + win - 1, first = a0 - win / 2;
+    if (ALONG_FAST) {  // a warp reads a run of one line, the along axis
+      for (int c = warp; c < 32; c += kWarps) {
+        const float* line = x + (int64_t)min(c0 + c, n_across - 1) * n_fast;
+        for (int a = lane; a < rows; a += 32) tile[a * kPitch + c] = line[clampi(first + a, 0, n_along - 1)];
+      }
+    } else {  // a warp reads 32 neighbours of one line
+      const int gc = min(c0 + lane, n_across - 1);
+      for (int a = warp; a < rows; a += kWarps)
+        tile[a * kPitch + lane] = x[(int64_t)clampi(first + a, 0, n_along - 1) * n_fast + gc];
+    }
+  }
+
+  __device__ __forceinline__ void put(int a, int lane, float v) {
+    if (ALONG_FAST)
+      out[a * kPitch + lane] = v;
+    else if (a0 + a < n_along && c0 + lane < n_across)
+      y[(int64_t)(a0 + a) * n_fast + c0 + lane] = v;
+  }
+
+  // Along the fast axis: write the staged outputs along their rows.
+  __device__ void flush() {
+    if (!ALONG_FAST) return;
+    __syncthreads();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n = min(along, n_along - a0);
+    for (int c = warp; c < 32 && c0 + c < n_across; c += kWarps) {
+      float* line = y + (int64_t)(c0 + c) * n_fast + a0;
+      for (int a = lane; a < n; a += 32) line[a] = out[a * kPitch + c];
+    }
+  }
 };
 
-// Stage the tile plus halo in shared memory, with clamped (edge-replicated)
-// indices. Threads walk the fast axis fastest, so loads coalesce.
-template <int WIN, bool ALONG_FAST>
-__device__ __forceinline__ void load_tile(const float* __restrict__ xb, float* tile,
-                                          int n_slow, int n_fast, int s0, int f0) {
-  constexpr int HALF = WIN / 2;
-  constexpr int SF = Tile<ALONG_FAST>::kFast + (ALONG_FAST ? WIN - 1 : 0);
-  constexpr int SS = Tile<ALONG_FAST>::kSlow + (ALONG_FAST ? 0 : WIN - 1);
-  for (int i = threadIdx.x; i < SS * SF; i += blockDim.x) {
-    const int ss = i / SF;
-    const int sf = i - ss * SF;
-    const int gs = clampi(s0 + ss - (ALONG_FAST ? 0 : HALF), 0, n_slow - 1);
-    const int gf = clampi(f0 + sf - (ALONG_FAST ? HALF : 0), 0, n_fast - 1);
-    tile[i] = xb[(int64_t)gs * n_fast + gf];
-  }
-}
-
-// Register version for the main-path windows: the window is read into
-// registers and sorted by a fully unrolled odd-even transposition network
-// (the TPU kernel's algorithm); the middle register is the median.
 template <int WIN, bool ALONG_FAST>
 __global__ void __launch_bounds__(kThreads)
-median_net_kernel(const float* __restrict__ x, float* __restrict__ y, int n_slow, int n_fast) {
-  constexpr int TF = Tile<ALONG_FAST>::kFast;
-  constexpr int TS = Tile<ALONG_FAST>::kSlow;
-  constexpr int SF = TF + (ALONG_FAST ? WIN - 1 : 0);
-  constexpr int SS = TS + (ALONG_FAST ? 0 : WIN - 1);
-  __shared__ float tile[SS * SF];
-
-  const int64_t plane = (int64_t)n_slow * n_fast;
-  const float* xb = x + blockIdx.z * plane;
-  float* yb = y + blockIdx.z * plane;
-  const int f0 = blockIdx.x * TF;
-  const int s0 = blockIdx.y * TS;
-  load_tile<WIN, ALONG_FAST>(xb, tile, n_slow, n_fast, s0, f0);
+median_net_kernel(const float* __restrict__ x, float* __restrict__ y, int n_slow, int n_fast, int along) {
+  using Net = MedianNet<WIN>;
+  constexpr int K = Net::kOutputs;
+  extern __shared__ float smem[];
+  Plane<ALONG_FAST> p(x, y, n_slow, n_fast, along, WIN, smem);
+  p.load(WIN);
   __syncthreads();
-
-  for (int o = threadIdx.x; o < TS * TF; o += blockDim.x) {
-    const int os = o / TF;
-    const int of = o - os * TF;
-    const int gs = s0 + os;
-    const int gf = f0 + of;
-    if (gs >= n_slow || gf >= n_fast) continue;
-    float v[WIN];
+  const int lane = threadIdx.x & 31;
+  for (int s = (threadIdx.x >> 5) * K; s < along; s += kWarps * K) {
+    float r[Net::kRegs], m[K];
 #pragma unroll
-    for (int k = 0; k < WIN; ++k)
-      v[k] = ALONG_FAST ? tile[os * SF + of + k] : tile[(os + k) * SF + of];
+    for (int k = 0; k < WIN + K - 1; ++k) r[k] = p.tile[(s + k) * kPitch + lane];
+    Net::run(r, m);
 #pragma unroll
-    for (int rnd = 0; rnd < WIN; ++rnd) {
-#pragma unroll
-      for (int k = rnd & 1; k < WIN - 1; k += 2) {
-        const float a = v[k];
-        const float b = v[k + 1];
-        v[k] = fminf(a, b);
-        v[k + 1] = fmaxf(a, b);
-      }
-    }
-    yb[(int64_t)gs * n_fast + gf] = v[WIN / 2];
+    for (int k = 0; k < K; ++k) p.put(s + k, lane, m[k]);
   }
+  p.flush();
 }
 
-// Any other odd window below 128: rank selection over the staged window.
 // The median is the element whose rank interval [less, less + equal) holds
-// win/2, which is exact for ties too. O(win^2) shared-memory reads, so it
-// is kept off the main path.
+// win/2, which is exact for ties too.
 template <bool ALONG_FAST>
 __global__ void __launch_bounds__(kThreads)
-median_rank_kernel(const float* __restrict__ x, float* __restrict__ y, int n_slow, int n_fast,
+median_rank_kernel(const float* __restrict__ x, float* __restrict__ y, int n_slow, int n_fast, int along,
                    int win) {
-  constexpr int TF = Tile<ALONG_FAST>::kFast;
-  constexpr int TS = Tile<ALONG_FAST>::kSlow;
-  extern __shared__ float tile[];
-  const int half = win / 2;
-  const int SF = TF + (ALONG_FAST ? win - 1 : 0);
-  const int SS = TS + (ALONG_FAST ? 0 : win - 1);
-
-  const int64_t plane = (int64_t)n_slow * n_fast;
-  const float* xb = x + blockIdx.z * plane;
-  float* yb = y + blockIdx.z * plane;
-  const int f0 = blockIdx.x * TF;
-  const int s0 = blockIdx.y * TS;
-  for (int i = threadIdx.x; i < SS * SF; i += blockDim.x) {
-    const int ss = i / SF;
-    const int sf = i - ss * SF;
-    const int gs = clampi(s0 + ss - (ALONG_FAST ? 0 : half), 0, n_slow - 1);
-    const int gf = clampi(f0 + sf - (ALONG_FAST ? half : 0), 0, n_fast - 1);
-    tile[i] = xb[(int64_t)gs * n_fast + gf];
-  }
+  extern __shared__ float smem[];
+  Plane<ALONG_FAST> p(x, y, n_slow, n_fast, along, win, smem);
+  p.load(win);
   __syncthreads();
-
-  const int step = ALONG_FAST ? 1 : SF;
-  for (int o = threadIdx.x; o < TS * TF; o += blockDim.x) {
-    const int os = o / TF;
-    const int of = o - os * TF;
-    const int gs = s0 + os;
-    const int gf = f0 + of;
-    if (gs >= n_slow || gf >= n_fast) continue;
-    const float* w = tile + os * SF + of;
+  const int lane = threadIdx.x & 31, half = win / 2;
+  for (int a = threadIdx.x >> 5; a < along; a += kWarps) {
+    const float* w = p.tile + a * kPitch + lane;
     float med = w[0];
     for (int k = 0; k < win; ++k) {
-      const float c = w[k * step];
+      const float c = w[k * kPitch];
       int less = 0, equal = 0;
       for (int j = 0; j < win; ++j) {
-        const float u = w[j * step];
+        const float u = w[j * kPitch];
         less += u < c;
         equal += u == c;
       }
@@ -153,31 +170,46 @@ median_rank_kernel(const float* __restrict__ x, float* __restrict__ y, int n_slo
         break;
       }
     }
-    yb[(int64_t)gs * n_fast + gf] = med;
+    p.put(a, lane, med);
   }
+  p.flush();
+}
+
+// Outputs along the median axis per block: the fewest blocks of at most
+// max_along, evened out and rounded up to whole segments of k.
+int along_per_block(int n_along, int k, int max_along) {
+  const int blocks = (n_along + max_along - 1) / max_along;
+  const int per = (n_along + blocks - 1) / blocks;
+  return (per + k - 1) / k * k;
 }
 
 template <bool ALONG_FAST>
-cudaError_t launch(const float* x, float* y, int batch, int n_slow, int n_fast, int win,
-                   cudaStream_t stream) {
-  constexpr int TF = Tile<ALONG_FAST>::kFast;
-  constexpr int TS = Tile<ALONG_FAST>::kSlow;
-  const dim3 grid((n_fast + TF - 1) / TF, (n_slow + TS - 1) / TS, batch);
+cudaError_t launch(const float* x, float* y, int batch, int n_slow, int n_fast, int win, cudaStream_t stream) {
+  const int n_along = ALONG_FAST ? n_fast : n_slow;
+  const int n_across = ALONG_FAST ? n_slow : n_fast;
+  int k = 1, max_along = kMaxAlongRank;
   switch (win) {
-    case 5:
-      median_net_kernel<5, ALONG_FAST><<<grid, kThreads, 0, stream>>>(x, y, n_slow, n_fast);
-      break;
-    case 17:
-      median_net_kernel<17, ALONG_FAST><<<grid, kThreads, 0, stream>>>(x, y, n_slow, n_fast);
-      break;
-    case 31:
-      median_net_kernel<31, ALONG_FAST><<<grid, kThreads, 0, stream>>>(x, y, n_slow, n_fast);
-      break;
-    default: {
-      const size_t smem = sizeof(float) * (size_t)(TS + (ALONG_FAST ? 0 : win - 1)) *
-                          (size_t)(TF + (ALONG_FAST ? win - 1 : 0));
-      median_rank_kernel<ALONG_FAST><<<grid, kThreads, smem, stream>>>(x, y, n_slow, n_fast, win);
-    }
+#define NET_OUTPUTS_CASE(W)              \
+  case W:                                \
+    k = MedianNet<W>::kOutputs;          \
+    max_along = kMaxAlongNet;            \
+    break;
+    MEDIAN_NET_WINDOWS(NET_OUTPUTS_CASE)
+#undef NET_OUTPUTS_CASE
+  }
+  const int along = along_per_block(n_along, k, max_along);
+  const dim3 grid((n_across + 31) / 32, (n_along + along - 1) / along, batch);
+  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  const size_t smem = sizeof(float) * kPitch * (size_t)(along + win - 1 + (ALONG_FAST ? along : 0));
+  switch (win) {
+#define NET_LAUNCH_CASE(W)                                                                         \
+  case W:                                                                                          \
+    median_net_kernel<W, ALONG_FAST><<<grid, kThreads, smem, stream>>>(x, y, n_slow, n_fast, along); \
+    break;
+    MEDIAN_NET_WINDOWS(NET_LAUNCH_CASE)
+#undef NET_LAUNCH_CASE
+    default:
+      median_rank_kernel<ALONG_FAST><<<grid, kThreads, smem, stream>>>(x, y, n_slow, n_fast, along, win);
   }
   return cudaGetLastError();
 }

@@ -3,10 +3,17 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, and turns TF32 off.
-2. Builds the median kernel (csrc/median_filter.cu) with nvcc into build/.
-3. Holds the kernel against its plain PyTorch version at the main path's
-   shapes (exact equality: a median selects an input element), times both
-   with CUDA events and prints each shape's bound.
+2. Builds the median kernel (csrc/median_filter.cu, with the selection
+   networks that ops/median.py generates) with nvcc into build/, and prints
+   ptxas's registers and spills for each instantiation (none may spill) and
+   the min/max (FMNMX) per output of each network.
+3. Holds the kernel against its plain PyTorch version exactly (a median
+   selects an input element) at the main path's shapes, on random and
+   tie-heavy inputs, on short and ragged extents at every network window, and
+   at a window that takes the rank kernel; times the main-path shapes with
+   CUDA events and prints each one's byte bound and issue bound (the
+   network's min/max at 64 per SM per clock, at the SM clock that nvidia-smi
+   reads under load).
 4. Drives ``run_analysis`` on a held-out clip on the card (the median kernel
    must launch exactly 6 times per song), checks the outputs, times each
    stage of the fused analysis, and runs the same clip on the CPU, whose
@@ -32,6 +39,10 @@ import torch
 REPO = Path(__file__).resolve().parent
 CLIP = REPO / "tests" / "data" / "heldout" / "heldout_strum_band.wav"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# float min/max per SM per clock on compute capability 9.0 (CUDA C++
+# Programming Guide, throughput of native arithmetic instructions)
+FMNMX_PER_SM_PER_CLOCK = 64
+SPIN_CYCLES = 2_000_000  # about 1 ms of a spin kernel ahead of each timed call
 # (shape, window, axis) of the 6 median launches per song on the main path:
 # HPSS of the 2048-point STFT (win 31), the content-window masks of the 20
 # batched 3 s windows' 1024-point STFTs (win 17) and the calibration masks of
@@ -42,6 +53,11 @@ MAIN_PATH_MEDIANS = [
     ((513, 1292), 17, -1), ((513, 1292), 17, -2),
 ]
 EXTRA_MEDIANS = [((2, 1025, 1292), 31, -1), ((2, 1025, 1292), 31, -2)]
+# exactness only: extents shorter than the window or not a multiple of a
+# thread's outputs (F = 1 and T = 1 among them), at every network window, and
+# window 7, which takes the rank kernel
+SHORT_SHAPES = [(1, 1), (1, 3), (1, 13), (1, 30), (3, 1), (13, 2), (2, 5, 37)]
+RANK_CHECKS = [((3, 37, 70), 7), ((513, 1292), 7)]
 FUSED_DEEP_KEYS = {
     "y_harm", "beat_activation", "amt_onset", "amt_frame", "chroma", "chord_energy", "chord_emissions",
     "dc_chroma", "crf_path", "crf_conf", "dbn_phases", "dbn_intervals", "strum_envelope", "content_starts",
@@ -56,19 +72,41 @@ FLOAT_TOL = dict(rtol=1e-3, atol=1e-4)
 F16_TOL = dict(rtol=2**-9, atol=2**-13)
 
 
-def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median over ``reps`` of one call's time on the card (CUDA events)."""
+def cuda_ms(fn, reps: int = 30, warmup: int = 3, spin: bool = True) -> float:
+    """Median over ``reps`` of one call's time on the card (CUDA events).
+
+    With ``spin``, a spin kernel is queued first, so the card is busy while
+    the host queues the call and the events time the card's work alone.
+    Without it, the time also holds the host's gap between the start event
+    and the launch, which is what a single launch on an idle card costs."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float | None:
+    """Mean duration of one median kernel in torch.profiler's device trace
+    (the kernel alone, without launch gaps), over the launches the trace
+    holds; None if it holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "median_" in e.key]
+    seen = sum(e.count for e in events)
+    return sum(e.self_device_time_total for e in events) / seen / 1e3 if seen else None
 
 
 def wall_s(fn, reps: int = 3) -> float:
@@ -83,28 +121,96 @@ def wall_s(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def tie_heavy(rng, shape) -> np.ndarray:
+    """Four levels, and runs of zeros along both axes."""
+    x = rng.integers(0, 4, shape).astype(np.float32) / 4
+    x[..., rng.random(shape[-1]) < 0.3] = 0.0
+    x[..., rng.random(shape[-2]) < 0.3, :] = 0.0
+    return x
+
+
+def check_exact(median, x: np.ndarray, win: int, axis: int) -> float:
+    xc = torch.from_numpy(x).cuda()
+    got = median.median_filter(xc, win, axis)
+    ref = median.median_filter_plain(xc, win, axis)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"median kernel differs from the plain version at {x.shape} win {win} axis {axis}: {err}")
+    return err
+
+
+def sm_clock_under_load(busy, seconds: float = 1.5) -> list[float]:
+    """SM clocks (MHz) that nvidia-smi samples while the card runs ``busy``."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            busy()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    samples = [float(v) for v in out.split()]
+    return samples[len(samples) // 2 :]  # the first half may predate the load
+
+
 def check_kernel(median) -> dict:
     rng = np.random.default_rng(0)
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    usage = median.ptxas_usage()
+    for kernel, u in sorted(usage.items()):
+        print(f"ptxas {kernel}: {u}")
+        if u.get("spill_stores", 0) or u.get("spill_loads", 0):
+            raise AssertionError(f"{kernel} spills registers: {u}")
+    fmnmx = {w: median.median_schedule(w, k).ops_per_output for w, k in median.NET_OUTPUTS.items()}
+    print(f"FMNMX per output by window (k adjacent outputs): {fmnmx} ({median.NET_OUTPUTS}); odd-even sort: 930 at 31, 272 at 17")
+    if fmnmx[31] > 110 or fmnmx[17] > 60:
+        raise AssertionError(f"min/max per output above 110 / 60: {fmnmx}")
+
+    big = torch.rand(8, 1025, 1292, device="cuda")
+    clocks = sm_clock_under_load(lambda: median.median_filter(big, 31, -1))
+    max_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                   capture_output=True, text=True, check=True).stdout.split()[0])
+    mhz = statistics.median(clocks) if clocks else max_mhz  # no sample: the bound at the highest clock
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_rate = n_sm * FMNMX_PER_SM_PER_CLOCK * mhz * 1e6  # min/max per second
+    print(f"sm clock under load: median {mhz} MHz of {len(clocks)} samples {clocks}, max clock {max_mhz} MHz, {n_sm} SMs")
+    del big
+
+    total = {"ms": 0.0, "single_ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "issue_bound_ms": 0.0, "max_abs_err": 0.0}
+    per_launch = {}
     for shape, win, axis in MAIN_PATH_MEDIANS + EXTRA_MEDIANS:
-        x = torch.from_numpy(np.abs(rng.standard_normal(shape)).astype(np.float32)).cuda()
-        got = median.median_filter(x, win, axis)
-        ref = median.median_filter_plain(x, win, axis)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        if not torch.equal(got, ref):
-            raise AssertionError(f"median kernel differs from the plain version at {shape} win {win} axis {axis}: {err}")
-        ms = cuda_ms(lambda: median.median_filter(x, win, axis))
-        plain_ms = cuda_ms(lambda: median.median_filter_plain(x, win, axis), reps=20)
-        bound_ms = 2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3  # read once, write once
-        row = dict(shape=list(shape), win=win, axis=axis, ms=ms, plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err)
+        x_np = np.abs(rng.standard_normal(shape)).astype(np.float32)
+        err = max(check_exact(median, x_np, win, axis), check_exact(median, tie_heavy(rng, shape), win, axis))
+        x = torch.from_numpy(x_np).cuda()
+        row = dict(
+            shape=list(shape), win=win, axis=axis,
+            ms=cuda_ms(lambda: median.median_filter(x, win, axis)),
+            single_ms=cuda_ms(lambda: median.median_filter(x, win, axis), spin=False),
+            device_ms=device_ms(lambda: median.median_filter(x, win, axis)),
+            plain_ms=cuda_ms(lambda: median.median_filter_plain(x, win, axis), reps=20),
+            bound_ms=2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,  # read once, write once
+            issue_bound_ms=fmnmx[win] * x.numel() / issue_rate * 1e3,
+            max_abs_err=err,
+        )
         print("median", json.dumps(row))
         if (shape, win, axis) in MAIN_PATH_MEDIANS:
-            for k in ("ms", "plain_ms", "bound_ms"):
-                total[k] += row[k]
+            per_launch[f"{'x'.join(map(str, shape))} win {win} axis {axis}"] = row["ms"]
+            for k in ("ms", "single_ms", "device_ms", "plain_ms", "bound_ms", "issue_bound_ms"):
+                total[k] = None if total[k] is None or row[k] is None else total[k] + row[k]
         total["max_abs_err"] = max(total["max_abs_err"], err)
-    print(f"median per song ({len(MAIN_PATH_MEDIANS)} main-path launches): kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-          f"bound {total['bound_ms']:.4f} ms (bytes at {HBM_BYTES_PER_S / 1e12} TB/s)")
+
+    cases = [(s, w) for w in sorted(median.NET_OUTPUTS) for s in SHORT_SHAPES] + RANK_CHECKS
+    for shape, win in cases:
+        for axis in (-1, -2):
+            for x_np in (np.abs(rng.standard_normal(shape)).astype(np.float32), tie_heavy(rng, shape)):
+                total["max_abs_err"] = max(total["max_abs_err"], check_exact(median, x_np, win, axis))
+    print(f"median exact on {len(cases) * 4} short, ragged and rank-kernel cases (random and tie-heavy, both axes)")
+    print(f"median per song ({len(MAIN_PATH_MEDIANS)} main-path launches): kernel {total['ms']:.4f} ms "
+          f"({total['single_ms']:.4f} ms timed without the spin kernel, {total['device_ms']} ms of kernel time in the profiler), plain {total['plain_ms']:.4f} ms, "
+          f"byte bound {total['bound_ms']:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, issue bound {total['issue_bound_ms']:.4f} ms at {mhz} MHz")
+    total.update(per_launch=per_launch, fmnmx_per_output=fmnmx, sm_clock_mhz=mhz, ptxas=usage)
     return total
 
 
@@ -173,6 +279,9 @@ def profile_busy_share(run) -> None:
         return
     print(f"profile: wall {wall * 1e3:.1f} ms, device kernel time {device_us / 1e3:.1f} ms, "
           f"busy share {device_us / 1e6 / wall:.3f}, device ops with time {launches}")
+    for e in events:
+        if "median_" in e.key and getattr(e, "self_device_time_total", 0) > 0:
+            print(f"profile median: {e.key[:90]} count {e.count} device {e.self_device_time_total / e.count:.2f} us per launch")
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0))[:8]
     for e in top:
         print(f"profile top: {e.key[:80]} count {e.count} device {e.self_device_time_total / 1e3:.2f} ms")
@@ -255,6 +364,13 @@ def main() -> int:
         "bound_ms": kernel["bound_ms"],
         "bound_by": "bytes",
         "library_ms": kernel["plain_ms"],
+        "ms_per_launch": kernel["per_launch"],
+        "single_ms": kernel["single_ms"],
+        "device_ms": kernel["device_ms"],
+        "issue_bound_ms": kernel["issue_bound_ms"],
+        "sm_clock_mhz": kernel["sm_clock_mhz"],
+        "fmnmx_per_output": kernel["fmnmx_per_output"],
+        "ptxas": kernel["ptxas"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
