@@ -2,9 +2,10 @@
 
 The JAX package ``audiotabs_tpu`` stays the reference; this package imports
 nothing of it and no JAX. The ported slice so far is the song analysis:
-audio file → fused device features and beat times
-(``runtime.pipeline.run_analysis``), with the HPSS sliding median on a
-hand-written CUDA kernel (``ops/median.py``, ``csrc/median_filter.cu``).
+audio file → htdemucs separation (``models/htdemucs.py``) → fused device
+features and beat times (``runtime.pipeline.run_analysis``), with the HPSS
+sliding median on a hand-written CUDA kernel (``ops/median.py``,
+``csrc/median_filter.cu``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

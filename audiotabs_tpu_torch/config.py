@@ -1,10 +1,14 @@
 """The ``Settings`` fields the ported analysis path reads.
 
 Names, defaults and environment variables are those of
-``audiotabs_tpu/config.py``, so one ``.env`` configures both packages.
-Separation is a later slice of the port: the analysis path here is the
-JAX package's ``ENABLE_DEMUCS=False`` configuration, so that field and the
-others this path does not read are not copied yet.
+``audiotabs_tpu/config.py``, so one ``.env`` configures both packages. The
+shipped configuration separates first (``ENABLE_DEMUCS=True``: htdemucs
+stems, the guitar stem analysed, the drums stem tracked for beats);
+``ENABLE_DEMUCS=False`` analyses the mix. Fields this path does not read are
+not copied: the separation program takes its segment from the checkpoint's
+``meta_segment`` and its overlap from ``models/htdemucs.py::OVERLAP``, so
+``DEMUCS_SEGMENT_SEC`` and ``DEMUCS_OVERLAP`` are not read, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ def _env(name: str, default: Any) -> Any:
 
 @dataclasses.dataclass
 class Settings:
+    ENABLE_DEMUCS: bool = True
+    DEMUCS_MODEL: str = "htdemucs_6s"
+    DEMUCS_SHIFTS: int = 1
+    DEMUCS_BF16: bool = False
+    TRANSCRIPTION_STEM_PRIORITY: str = "guitar,other,vocals"
     CHORD_DETECTION_BACKEND: str = "deep"  # deep|template
     SWITCH_PENALTY: float = 2.5
     PAD_SECONDS_BUCKET: float = 30.0
@@ -36,3 +45,6 @@ class Settings:
     @classmethod
     def from_env(cls) -> "Settings":
         return cls(**{f.name: _env(f.name, f.default) for f in dataclasses.fields(cls)})
+
+    def stem_priority(self) -> list[str]:
+        return [s.strip() for s in self.TRANSCRIPTION_STEM_PRIORITY.split(",") if s.strip()]

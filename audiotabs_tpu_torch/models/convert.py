@@ -9,6 +9,11 @@ from the JAX package's ``init_params`` pytrees in the tests. Layouts:
             bias_ih = b, bias_hh = 0, gates in the same [i, f, g, o] order.
   conv2d    JAX HWIO [kh, kw, C_in, C_out] → torch OIHW [C_out, C_in, kh, kw].
   dense     JAX [D_in, D_out] → torch nn.Linear weight [D_out, D_in].
+  htdemucs  conv and transposed-conv weights, the channel up/down projections
+            ({up,down}_{s,t}_w, [out, in]) and norms are already in torch
+            layout; the attention and feed-forward weights (q/k/v/o_w,
+            lin1/2_w) are stored for x @ W and are transposed; ``freq_emb``
+            already holds the embedding times its scale of 10.
 """
 
 from __future__ import annotations
@@ -71,6 +76,40 @@ def deepchroma_state(params: dict) -> dict[str, torch.Tensor]:
 
 def key_cnn_state(params: dict) -> dict[str, torch.Tensor]:
     return {**conv_state(params, ("c1", "c2", "c3")), **dense("out", params["out_w"], params["out_b"])}
+
+
+def _torch_layout(prefix: str, p: dict, names: tuple[str, ...]) -> dict[str, torch.Tensor]:
+    """{<name>_w or <name>_g, <name>_b} entries, already in torch layout → <prefix>.<name>.weight/.bias."""
+    out = {}
+    for n in names:
+        out[f"{prefix}.{n}.weight"] = _t(p[f"{n}_w"] if f"{n}_w" in p else p[f"{n}_g"])
+        out[f"{prefix}.{n}.bias"] = _t(p[f"{n}_b"])
+    return out
+
+
+def htdemucs_state(params: dict) -> dict[str, torch.Tensor]:
+    """htdemucs pytree (models/htdemucs.py of the JAX package) → HTDemucs state dict."""
+    out = {"freq_emb": _t(params["freq_emb"])}
+    for branch in ("encoder", "tencoder"):
+        for i, layer in enumerate(params[branch]):
+            out.update(_torch_layout(f"{branch}.{i}", layer, ("conv", "rewrite")))
+            for j, blk in enumerate(layer["dconv"]["blocks"]):
+                pre = f"{branch}.{i}.dconv.layers.{j}"
+                out.update(_torch_layout(pre, blk, ("conv1", "gn1", "conv2", "gn2")))
+                out[f"{pre}.scale"] = _t(blk["scale"])
+    for branch in ("decoder", "tdecoder"):
+        for i, layer in enumerate(params[branch]):
+            out.update(_torch_layout(f"{branch}.{i}", layer, ("rewrite", "convtr")))
+    out.update(_torch_layout("", params, ("up_s", "up_t", "down_s", "down_t", "norm_in", "norm_in_t")))
+    for branch in ("tlayers", "tlayers_t"):
+        for i, layer in enumerate(params[branch]):
+            pre = f"{branch}.{i}"
+            for n in ("q", "k", "v", "o", "lin1", "lin2"):
+                out.update(dense(f"{pre}.{n}", layer[f"{n}_w"], layer[f"{n}_b"]))
+            norms = ("norm1", "norm2", "norm3", "normout") if "norm3_g" in layer else ("norm1", "norm2", "normout")
+            out.update(_torch_layout(pre, layer, norms))
+            out[f"{pre}.gamma1"], out[f"{pre}.gamma2"] = _t(layer["gamma1"]), _t(layer["gamma2"])
+    return {k.removeprefix("."): v for k, v in out.items()}
 
 
 def crf_tensors(params: dict, device: torch.device) -> dict[str, torch.Tensor]:

@@ -29,6 +29,13 @@ def as_device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
 
 
+@lru_cache(maxsize=32)
+def device_hann(n: int, device: torch.device) -> torch.Tensor:
+    """The periodic Hann window, uploaded once per device (not per call)."""
+    with torch.inference_mode(False):  # a normal tensor, usable in and out of inference mode
+        return torch.from_numpy(hann_window(n)).to(device)
+
+
 def _pad_last(x: torch.Tensor, left: int, right: int, mode: str) -> torch.Tensor:
     """Pad the last axis of [..., T] (F.pad's reflect needs a [N, C, T] view)."""
     lead = x.shape[:-1]
@@ -56,12 +63,16 @@ def stft(
 ) -> torch.Tensor:
     """STFT → complex [..., n_fft//2+1, n_frames] (librosa axis order)."""
     win_length = win_length or n_fft
-    w = window if window is not None else hann_window(win_length)
-    if win_length < n_fft:
-        lpad = (n_fft - win_length) // 2
-        w = np.pad(np.asarray(w), (lpad, n_fft - win_length - lpad))
+    if window is None and win_length == n_fft:
+        w = device_hann(n_fft, x.device)
+    else:
+        w = window if window is not None else hann_window(win_length)
+        if win_length < n_fft:
+            lpad = (n_fft - win_length) // 2
+            w = np.pad(np.asarray(w), (lpad, n_fft - win_length - lpad))
+        w = as_device(np.asarray(w, dtype=np.float32), x)
     frames = frame(x, n_fft, hop, center=center, pad_mode=pad_mode)  # [..., nf, n_fft]
-    spec = torch.fft.rfft(frames * as_device(np.asarray(w, dtype=np.float32), x), dim=-1)
+    spec = torch.fft.rfft(frames * w, dim=-1)
     return spec.transpose(-1, -2)  # [..., freq, time]
 
 
@@ -76,7 +87,7 @@ def istft(
     spec = spec.transpose(-1, -2)  # [..., time, freq]
     n_fft = 2 * (spec.shape[-1] - 1)
     win_length = win_length or n_fft
-    w = as_device(hann_window(win_length), spec)
+    w = device_hann(win_length, spec.device)
     if win_length < n_fft:
         lpad = (n_fft - win_length) // 2
         w = F.pad(w, (lpad, n_fft - win_length - lpad))

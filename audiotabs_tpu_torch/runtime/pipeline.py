@@ -1,11 +1,17 @@
-"""Song analysis: decode → pad → fused device analysis → one transfer → beats.
+"""Song analysis: decode → pad → separation → fused device analysis → one transfer → beats.
 
 Steps 1–3 of audiotabs_tpu/runtime/pipeline.py::run_pipeline (and the beat
-decode of its tail) under ``ENABLE_DEMUCS=False``: the host decodes and
-peak-normalises the WAV, wrap-pads it to the 30 s bucket, runs
-``fused_analysis`` on the card, copies every output to the host in one
-transfer and picks the beat times there. The artifact-writing tail waits for
-the next slice, so nothing is written.
+decode of its tail): the host decodes and peak-normalises the WAV and
+wrap-pads it to the 30 s bucket; the padded mix is uploaded once; with
+``ENABLE_DEMUCS`` (the shipped setting) htdemucs separates it on the card,
+the first stem of ``TRANSCRIPTION_STEM_PRIORITY`` (guitar) is analysed and
+the drums stem is the beat source behind the fused analysis' RMS gate, with
+the mix as its fallback; ``fused_analysis`` runs on the card, every output
+comes to the host in one transfer and the beat times are picked there.
+Without htdemucs weights (``HTDEMUCS_WEIGHTS=off``) the HPSS split stands in
+for separation. A failed separation is recorded and the mix analysed, as in
+the JAX pipeline. The artifact-writing tail waits for a later slice, so
+nothing is written.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from ..config import Settings
 from ..decode.dbn_beats import beats_from_decoded
 from ..device import resolve_device
 from ..io.wav import decode_for_analysis, peak_normalize
+from ..models.htdemucs import separate_stems_device
 from .fused import fused_analysis
 
 ANALYSIS_SR = 22050
@@ -56,10 +63,13 @@ def features_to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
 
 
 def run_analysis(input_path: str | os.PathLike, device: str | torch.device | None = None, settings: Settings | None = None):
-    """WAV path → (host feature dict, beat times [s] float32).
+    """WAV path → (host feature dict, beat times [s] float32, {"stem_source", "errors"}).
 
-    Runs on the card unless ``device="cpu"``; raises when no GPU is present
-    and the CPU was not asked for."""
+    ``stem_source`` is the analysed signal: a stem name, "hpss_harmonic"
+    (no htdemucs weights) or "mix"; ``errors`` lists the stages that failed
+    and were passed over ("separation: ..."). Runs on the card unless
+    ``device="cpu"``; raises when no GPU is present and the CPU was not
+    asked for."""
     dev = resolve_device(device)
     s = settings or Settings.from_env()
     y, sr, _native = decode_for_analysis(Path(input_path), ANALYSIS_SR)
@@ -70,19 +80,42 @@ def run_analysis(input_path: str | os.PathLike, device: str | torch.device | Non
     y_pad = _pad_to_bucket(y, sr, s.PAD_SECONDS_BUCKET)
 
     backend = s.CHORD_DETECTION_BACKEND
+    errors: list[str] = []
+    stem_source = "mix"
+    hpss_fallback = False
+    y_beat = None
     # parity trap: cuDNN convolutions and the LSTM default to TF32 on the
     # card; the reference is f32 (matmul TF32 stays off, PyTorch's default)
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y_mix = torch.from_numpy(np.ascontiguousarray(y_pad, dtype=np.float32)).to(dev)  # uploaded once
+        stem = y_mix
+        if s.ENABLE_DEMUCS:
+            try:
+                stems = separate_stems_device(y_mix, sr, model_name=s.DEMUCS_MODEL, shifts=s.DEMUCS_SHIFTS, bf16=s.DEMUCS_BF16)
+                if stems is None:
+                    # no weights: fused_analysis' HPSS split stands in (harmonic analysed, percussive tracked)
+                    hpss_fallback = True
+                    stem_source = "hpss_harmonic"
+                else:
+                    name = next((n for n in s.stem_priority() if n in stems), None)
+                    if name is not None:
+                        stem, stem_source = stems[name], name
+                    y_beat = stems.get("drums")
+            except Exception as exc:  # the JAX pipeline records the stage and goes on with the mix
+                errors.append(f"separation: {exc}")
         out = fused_analysis(
-            torch.from_numpy(np.ascontiguousarray(y_pad, dtype=np.float32)).to(dev),
+            stem,
             sr,
             switch_penalty=s.SWITCH_PENALTY,
+            separate=hpss_fallback,
             chord_backend=backend if backend in ("deep", "template") else "both",
             true_len=true_len,
+            y_beat=y_beat,
+            y_mix=y_mix if y_beat is not None else None,
         )
         feats = features_to_host(out)
 
     t100 = int(true_len / sr * 100)
     act = np.asarray(feats["beat_activation"], dtype=np.float32)[:t100]
     beat_times = beats_from_decoded(feats["dbn_phases"][:t100], feats["dbn_intervals"][:t100], act, fps=100)
-    return feats, beat_times
+    return feats, beat_times, {"stem_source": stem_source, "errors": errors}

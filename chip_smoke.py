@@ -14,11 +14,20 @@
    CUDA events and prints each one's byte bound and issue bound (the
    network's min/max at 64 per SM per clock, at the SM clock that nvidia-smi
    reads under load).
-4. Drives ``run_analysis`` on a held-out clip on the card (the median kernel
-   must launch exactly 6 times per song), checks the outputs, times each
-   stage of the fused analysis, and runs the same clip on the CPU, whose
-   discrete outputs must be equal.
-5. Prints the kernel table as one JSON line, then the result line.
+4. Separation at full width: htdemucs (the checked-in htdemucs_6s
+   checkpoint) on a held-out clip's 30 s bucket, 14 windows. Prints the
+   program's warm time (CUDA events), its device-op count and device time
+   (torch.profiler), its peak memory, the FLOP count of its convolutions and
+   matrix products (torch's FlopCounterMode over this call's shapes) and the
+   achieved TFLOP/s; holds each card stem against the port's CPU stem.
+5. Drives ``run_analysis`` with the shipped settings (separation on): 8
+   median launches per song, the guitar stem analysed, no stage error; the
+   card's outputs against a CPU ``fused_analysis`` fed the card's own stems
+   (discrete outputs and beat times equal), and the end-to-end CPU run's
+   agreement printed beside it. Times each stage and profiles one warm song.
+6. Drives ``run_analysis`` with ``ENABLE_DEMUCS=False`` (the mix analysed):
+   6 median launches per song, discrete outputs equal to the CPU run's.
+7. Prints the kernel table as one JSON line, then the result line.
 
 Any failed phase raises, and the script exits non-zero without a result. It
 imports nothing of JAX or of the JAX package.
@@ -26,6 +35,8 @@ imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,15 +54,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # Programming Guide, throughput of native arithmetic instructions)
 FMNMX_PER_SM_PER_CLOCK = 64
 SPIN_CYCLES = 2_000_000  # about 1 ms of a spin kernel ahead of each timed call
-# (shape, window, axis) of the 6 median launches per song on the main path:
-# HPSS of the 2048-point STFT (win 31), the content-window masks of the 20
-# batched 3 s windows' 1024-point STFTs (win 17) and the calibration masks of
-# the 1024-point STFT (win 17), each along time and along frequency
+# (shape, window, axis) of the median launches per song: HPSS of the
+# 2048-point STFT (win 31), the content-window masks of the 20 batched 3 s
+# windows' 1024-point STFTs (win 17) and the calibration masks of the
+# 1024-point STFT (win 17), each along time and along frequency; with
+# separation on, the beat fallback's HPSS of the mix adds the first shape
+# twice more (8 launches)
 MAIN_PATH_MEDIANS = [
     ((1025, 1292), 31, -1), ((1025, 1292), 31, -2),
     ((20, 513, 130), 17, -1), ((20, 513, 130), 17, -2),
     ((513, 1292), 17, -1), ((513, 1292), 17, -2),
 ]
+SEPARATED_LAUNCHES = len(MAIN_PATH_MEDIANS) + 2
 EXTRA_MEDIANS = [((2, 1025, 1292), 31, -1), ((2, 1025, 1292), 31, -2)]
 # exactness only: extents shorter than the window or not a multiple of a
 # thread's outputs (F = 1 and T = 1 among them), at every network window, and
@@ -70,6 +84,11 @@ F16 = ("y_harm", "amt_onset", "amt_frame", "beat_activation")
 # in another order than the CPU kernels); f16 outputs within 2 f16 ulps
 FLOAT_TOL = dict(rtol=1e-3, atol=1e-4)
 F16_TOL = dict(rtol=2**-9, atol=2**-13)
+# card stems against CPU stems: the largest error over the stem's peak (f32
+# on both, TF32 off; cuDNN, cuBLAS and cuFFT sum in another order; the port
+# and the JAX package agree within about 2e-6 on the CPU)
+STEM_TOL = 1e-3
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores (NVIDIA data sheet)
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3, spin: bool = True) -> float:
@@ -216,12 +235,12 @@ def check_kernel(median) -> dict:
 
 @torch.inference_mode()
 def stage_times(y_np: np.ndarray, sr: int) -> dict:
-    """Warm wall time of each stage of fused_analysis, called alone on its real inputs."""
+    """Warm wall time of separation and of each stage of fused_analysis, called alone on its real inputs."""
     from audiotabs_tpu_torch.accompaniment.strum import _onset_strength_median
     from audiotabs_tpu_torch.analysis.content_classifier import _window_metrics
     from audiotabs_tpu_torch.chords.extract import salience_chroma
     from audiotabs_tpu_torch.decode.dbn_beats import _dbn_forward
-    from audiotabs_tpu_torch.models import basicpitch, beat_rnn, crf_chords, deepchroma, key_cnn
+    from audiotabs_tpu_torch.models import basicpitch, beat_rnn, crf_chords, deepchroma, htdemucs, key_cnn
     from audiotabs_tpu_torch.ops.hpss import hpss, hpss_masks
     from audiotabs_tpu_torch.ops.onset import onset_detect_frames, onset_strength
     from audiotabs_tpu_torch.ops.spectral import stft
@@ -239,7 +258,8 @@ def stage_times(y_np: np.ndarray, sr: int) -> dict:
     windows = torch.stack([torch.nn.functional.pad(y[s : s + 3 * sr], (0, max(0, s + 3 * sr - n))) for s in starts])
     S1024 = torch.abs(stft(y, n_fft=1024, hop=512))
     stages = {
-        "hpss (stft, 2 median launches, 2 istft)": lambda: hpss(y),
+        "separation (htdemucs, 14 windows)": lambda: htdemucs.separate_stems_device(y, sr, shifts=1),
+        "hpss (stft, 2 median launches, 2 istft; twice a song with separation on)": lambda: hpss(y),
         "blstm (features + ensemble)": lambda: beat_rnn.beat_activation(y, sr, m.beat),
         "dbn loop (forward + backtrack)": lambda: _dbn_forward(act),
         "hcqt + basic pitch cnn": lambda: basicpitch.cnn_apply(m.basicpitch, basicpitch.hcqt(y_harm, sr)),
@@ -259,6 +279,32 @@ def stage_times(y_np: np.ndarray, sr: int) -> dict:
     return out
 
 
+def device_events(prof) -> list:
+    """The trace's device activities (kernels, copies, sets), without CUPTI's own buffer events."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA and "Buffer" not in e.name]
+
+
+def busy_ms(events: list) -> float:
+    """Time during which at least one device activity ran (the union of their intervals), ms."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
+
+
+def print_top(label: str, events: list, n: int = 8) -> None:
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in events:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n]:
+        print(f"{label}: {name[:80]} count {count} device {us / 1e3:.2f} ms")
+
+
 def profile_busy_share(run) -> None:
     """Device busy share of one warm song from torch.profiler (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
@@ -269,33 +315,140 @@ def profile_busy_share(run) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    device_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
-    launches = sum(e.count for e in events if getattr(e, "self_device_time_total", 0) > 0)
-    dtoh = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    events = device_events(prof)
+    dtoh = sum(e.name.startswith("Memcpy DtoH") for e in events)
     print(f"profile: device-to-host copies per song {dtoh}")
-    if device_us <= 0:
+    if not events:
         print("profile: no device time in the trace; busy share not measured")
         return
-    print(f"profile: wall {wall * 1e3:.1f} ms, device kernel time {device_us / 1e3:.1f} ms, "
-          f"busy share {device_us / 1e6 / wall:.3f}, device ops with time {launches}")
-    for e in events:
-        if "median_" in e.key and getattr(e, "self_device_time_total", 0) > 0:
-            print(f"profile median: {e.key[:90]} count {e.count} device {e.self_device_time_total / e.count:.2f} us per launch")
-    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0))[:8]
-    for e in top:
-        print(f"profile top: {e.key[:80]} count {e.count} device {e.self_device_time_total / 1e3:.2f} ms")
+    busy = busy_ms(events)
+    print(f"profile: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms (kernel time summed {sum(e.time_range.elapsed_us() for e in events) / 1e3:.1f} ms), "
+          f"busy share {busy / 1e3 / wall:.3f}, device ops {len(events)}")
+    print_top("profile median", [e for e in events if "median_" in e.name])
+    print_top("profile top", events)
+
+
+def compare_with_cpu(what: str, cpu: dict, card: dict) -> None:
+    """Discrete outputs equal, floats within FLOAT_TOL, f16 outputs within F16_TOL."""
+    if set(cpu) != set(card):
+        raise AssertionError(f"{what}: output keys differ: {sorted(set(cpu) ^ set(card))}")
+    for k in sorted(cpu):
+        a, b = cpu[k], card[k]
+        if k in DISCRETE or a.dtype == np.bool_:
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what}: {k} differs between cuda and cpu at {int((a != b).sum())} of {a.size}")
+            continue
+        d = float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
+        print(f"{what} {k}: max abs diff {d:.3g}")
+        np.testing.assert_allclose(b.astype(np.float32), a.astype(np.float32), err_msg=f"{what} {k}", **(F16_TOL if k in F16 else FLOAT_TOL))
+
+
+def check_outputs(feats: dict, beats: np.ndarray, keys: set) -> None:
+    if set(feats) != keys:
+        raise AssertionError(f"output keys differ: {sorted(set(feats) ^ keys)}")
+    for k, v in feats.items():
+        if v.dtype.kind == "f" and not np.isfinite(v).all():
+            raise AssertionError(f"non-finite values in {k}")
+    if beats.size == 0:
+        raise AssertionError("no beats")
+    print(f"beats: {beats.size}, first {beats[:4].tolist()}, crf states {np.unique(feats['crf_path']).tolist()}, key argmax {int(np.argmax(feats['key_probs']))}")
+
+
+def drive(median, settings, expect_launches: int) -> tuple:
+    """run_analysis on the card: cold, then twice warm, each song with the launch count set to 0 just before it."""
+    from audiotabs_tpu_torch.runtime.pipeline import run_analysis
+
+    times = []
+    for _ in range(3):
+        median.LAUNCHES = 0
+        t0 = time.perf_counter()
+        feats, beats, info = run_analysis(CLIP, device="cuda", settings=settings)
+        times.append(time.perf_counter() - t0)
+        if median.LAUNCHES != expect_launches:
+            raise AssertionError(f"median kernel launched {median.LAUNCHES} times in one song, expected {expect_launches}")
+    print(f"run_analysis on {CLIP.name} (ENABLE_DEMUCS={settings.ENABLE_DEMUCS}): cold {times[0]:.3f} s, "
+          f"warm {times[1]:.3f} s / {times[2]:.3f} s, median launches per song {median.LAUNCHES}, {info}")
+    return feats, beats, info, median.LAUNCHES
+
+
+def separation_phase(y_pad: np.ndarray, sr: int) -> dict:
+    """htdemucs on the 30 s bucket: card against CPU stems; time, device ops, peak memory, FLOP rate."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.models import htdemucs
+
+    s = Settings()
+    cfg = htdemucs.program_config(htdemucs.load_params(), s.DEMUCS_MODEL, s.stem_priority())
+    n_windows = s.DEMUCS_SHIFTS * len(htdemucs._segment_windows(2 * len(y_pad), cfg["seg"], cfg["stride"]))
+    y = torch.from_numpy(y_pad).cuda()
+
+    def sep():
+        return htdemucs.separate_stems_device(y, sr, model_name=s.DEMUCS_MODEL, shifts=s.DEMUCS_SHIFTS, bf16=s.DEMUCS_BF16)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stems = sep()
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    ms = cuda_ms(sep, reps=5, warmup=1)
+    warm_s = wall_s(sep)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sep()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with FlopCounterMode(display=False) as counter:
+        sep()
+    flops = counter.get_total_flops()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sep()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    ops = len(events)
+    dev_ms = busy_ms(events)
+    print_top("separation top", events, 12)
+
+    t0 = time.perf_counter()
+    cpu = htdemucs.separate_stems_device(torch.from_numpy(y_pad), sr, model_name=s.DEMUCS_MODEL, shifts=s.DEMUCS_SHIFTS, bf16=s.DEMUCS_BF16)
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for name, a in cpu.items():
+        b = stems[name].cpu()
+        if b.shape != a.shape or not torch.isfinite(b).all():
+            raise AssertionError(f"stem {name}: shape {tuple(b.shape)} or non-finite values")
+        errs[name] = float((b - a).abs().max() / a.abs().max())
+    row = dict(windows=n_windows, seg=cfg["seg"], cold_s=cold_s, ms=ms, wall_ms=warm_s * 1e3, device_busy_ms=dev_ms, device_ops=ops,
+               peak_mb=peak / 2**20, peak_over_resident_mb=(peak - before) / 2**20, flops=flops,
+               flops_per_window=flops / n_windows, tflops_per_s=flops / (ms * 1e-3) / 1e12,
+               fp32_bound_ms=flops / FP32_FLOPS_PER_S * 1e3, cpu_s=cpu_s, stem_err_over_peak=errs)
+    print("separation", json.dumps(row))
+    print(f"separation ({n_windows} windows of {cfg['seg']}): {ms:.2f} ms by events, {warm_s * 1e3:.2f} ms wall, "
+          f"{dev_ms:.2f} ms of device busy time in {ops} device ops, peak {peak / 2**30:.3f} GiB, "
+          f"{flops / 1e9:.1f} GFLOP of convolutions and matrix products ({row['tflops_per_s']:.2f} TFLOP/s; "
+          f"float32 floor {row['fp32_bound_ms']:.2f} ms at 67 TFLOP/s), cold {cold_s:.2f} s, cpu {cpu_s:.2f} s")
+    print(f"separation cuda vs cpu, largest error over the stem's peak: {errs} (tolerance {STEM_TOL})")
+    bad = {k: v for k, v in errs.items() if not v < STEM_TOL}
+    if bad:
+        raise AssertionError(f"card stems differ from the CPU stems beyond {STEM_TOL}: {bad}")
+    return row
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
     from audiotabs_tpu_torch.ops import median
-    from audiotabs_tpu_torch.runtime.pipeline import run_analysis
+    from audiotabs_tpu_torch.runtime import pipeline
+    from audiotabs_tpu_torch.runtime.fused import fused_analysis
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("tf32: off for cuDNN and for matmul")
@@ -307,50 +460,69 @@ def main() -> int:
 
     kernel = check_kernel(median)
 
-    # the slice on the card: cold (model load, first launches), then warm
-    times = []
-    for _ in range(3):
-        median.LAUNCHES = 0
-        t0 = time.perf_counter()
-        feats, beats = run_analysis(CLIP, device="cuda")
-        times.append(time.perf_counter() - t0)
-        if median.LAUNCHES != len(MAIN_PATH_MEDIANS):
-            raise AssertionError(f"median kernel launched {median.LAUNCHES} times in one song, expected {len(MAIN_PATH_MEDIANS)}")
-    launches = median.LAUNCHES
-    print(f"run_analysis on {CLIP.name}: cold {times[0]:.3f} s, warm {times[1]:.3f} s / {times[2]:.3f} s, median launches per song {launches}")
-    if set(feats) != FUSED_DEEP_KEYS:
-        raise AssertionError(f"output keys differ: {sorted(set(feats) ^ FUSED_DEEP_KEYS)}")
-    for k, v in feats.items():
-        if v.dtype.kind == "f" and not np.isfinite(v).all():
-            raise AssertionError(f"non-finite values in {k}")
-    if beats.size == 0:
-        raise AssertionError("no beats")
-    print(f"beats: {beats.size}, first {beats[:4].tolist()}, crf states {np.unique(feats['crf_path']).tolist()}, key argmax {int(np.argmax(feats['key_probs']))}")
-
-    from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
-    from audiotabs_tpu_torch.runtime.pipeline import ANALYSIS_SR, _pad_to_bucket
-
-    y, sr, _ = decode_for_analysis(CLIP, ANALYSIS_SR)
+    y, sr, _ = decode_for_analysis(CLIP, pipeline.ANALYSIS_SR)
     y = peak_normalize(y)
-    stage_times(_pad_to_bucket(y, sr, 30.0), sr)
-    profile_busy_share(lambda: run_analysis(CLIP, device="cuda"))
+    y_pad = np.ascontiguousarray(pipeline._pad_to_bucket(y, sr, 30.0), dtype=np.float32)
+    separation_phase(y_pad, sr)
+    print(f"separation measured on {card}")
 
-    # the same clip through the port on the CPU
-    t0 = time.perf_counter()
-    cpu_feats, cpu_beats = run_analysis(CLIP, device="cpu")
-    print(f"cpu run_analysis: {time.perf_counter() - t0:.3f} s")
-    for k in sorted(cpu_feats):
-        a, b = cpu_feats[k], feats[k]
-        if k in DISCRETE:
-            if not np.array_equal(a, b):
-                raise AssertionError(f"{k} differs between cuda and cpu at {int((a != b).sum())} of {a.size}")
-            continue
-        d = float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
-        print(f"cuda vs cpu {k}: max abs diff {d:.3g}")
-        np.testing.assert_allclose(b.astype(np.float32), a.astype(np.float32), err_msg=k, **(F16_TOL if k in F16 else FLOAT_TOL))
+    # the main path: shipped settings, separation on; the stems run_analysis
+    # separates are kept, so the CPU can run the fused analysis on the same inputs
+    shipped = Settings()
+    if not shipped.ENABLE_DEMUCS:
+        raise AssertionError("the shipped settings do not separate")
+    used = {}
+    separate = pipeline.separate_stems_device
+
+    def keep_stems(*args, **kwargs):
+        used.clear()
+        used.update(separate(*args, **kwargs))
+        return used
+
+    pipeline.separate_stems_device = keep_stems
+    try:
+        feats, beats, info, launches = drive(median, shipped, SEPARATED_LAUNCHES)
+    finally:
+        pipeline.separate_stems_device = separate
+    if info != {"stem_source": "guitar", "errors": []}:
+        raise AssertionError(f"the shipped path did not separate cleanly: {info}")
+    check_outputs(feats, beats, FUSED_DEEP_KEYS | {"beat_from_drums"})
+    print(f"beat_from_drums {bool(feats['beat_from_drums'])}")
+
+    with torch.inference_mode():
+        cpu_out = fused_analysis(used["guitar"].cpu(), sr, chord_backend="deep", true_len=len(y),
+                                 y_beat=used["drums"].cpu(), y_mix=torch.from_numpy(y_pad))
+        cpu_feats = pipeline.features_to_host(cpu_out)
+    compare_with_cpu("card stems, cuda vs cpu fused", cpu_feats, feats)
+    t100 = int(len(y) / sr * 100)
+    cpu_beats = pipeline.beats_from_decoded(cpu_feats["dbn_phases"][:t100], cpu_feats["dbn_intervals"][:t100],
+                                            np.asarray(cpu_feats["beat_activation"], dtype=np.float32)[:t100], fps=100)
     if not np.array_equal(cpu_beats, beats):
+        raise AssertionError("beat times differ between cuda and cpu on the card's stems")
+    print(f"card stems, cuda vs cpu fused: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
+
+    stage_times(y_pad, sr)
+    profile_busy_share(lambda: pipeline.run_analysis(CLIP, device="cuda", settings=shipped))
+
+    t0 = time.perf_counter()
+    e2e_feats, e2e_beats, e2e_info = pipeline.run_analysis(CLIP, device="cpu", settings=shipped)
+    print(f"cpu run_analysis (shipped settings, own stems): {time.perf_counter() - t0:.3f} s, {e2e_info}")
+    agree = {k: f"{int((e2e_feats[k] == feats[k]).sum())} of {feats[k].size}" for k in DISCRETE + ("beat_from_drums",)}
+    print(f"end to end, cuda vs cpu (each on its own stems): equal elements {agree}, beat times equal {np.array_equal(e2e_beats, beats)}")
+
+    # the ENABLE_DEMUCS=False path, as before
+    off = dataclasses.replace(shipped, ENABLE_DEMUCS=False)
+    off_feats, off_beats, off_info, off_launches = drive(median, off, len(MAIN_PATH_MEDIANS))
+    if off_info != {"stem_source": "mix", "errors": []}:
+        raise AssertionError(f"unexpected ENABLE_DEMUCS=False run: {off_info}")
+    check_outputs(off_feats, off_beats, FUSED_DEEP_KEYS)
+    t0 = time.perf_counter()
+    cpu_feats, cpu_beats, _ = pipeline.run_analysis(CLIP, device="cpu", settings=off)
+    print(f"cpu run_analysis (ENABLE_DEMUCS=False): {time.perf_counter() - t0:.3f} s")
+    compare_with_cpu("mix, cuda vs cpu", cpu_feats, off_feats)
+    if not np.array_equal(cpu_beats, off_beats):
         raise AssertionError("beat times differ between cuda and cpu")
-    print(f"cuda vs cpu: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
+    print(f"mix, cuda vs cpu: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
 
     print(json.dumps({"kernels": [{
         "name": "median_filter",
@@ -358,6 +530,7 @@ def main() -> int:
         "source": "audiotabs_tpu_torch/csrc/median_filter.cu",
         "replaces": "audiotabs_tpu/ops/pallas_median.py:31",
         "launches": launches,
+        "launches_without_separation": off_launches,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],

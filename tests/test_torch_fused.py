@@ -1,13 +1,19 @@
 """The ported slice as a whole against the JAX ``fused_analysis``, real checkpoints.
 
-Two inputs: a synthetic chord clip with a wrap-padded tail, and a 5 s crop
-of a held-out clip (44.1 kHz stereo) driven through ``run_analysis`` on the
-CPU, whose decode, resample and bucket padding feed both packages.
+Two kinds of input: a synthetic chord clip with a wrap-padded tail, and a
+5 s crop of each of the six held-out clips (44.1 kHz stereo or 22.05 kHz
+mono) driven through ``run_analysis`` on the CPU with ``ENABLE_DEMUCS=False``
+(the mix analysed; separation is held against JAX in
+tests/test_torch_separation.py), whose decode, resample and bucket padding
+feed both packages.
 Tolerances: discrete outputs (``crf_path``, ``dbn_phases``,
 ``dbn_intervals``, ``content_starts``) and beat times exactly; the f16
 outputs within one f16 ulp (rtol 2^-10); other floats rtol 1e-3, atol 1e-5.
-Each JAX configuration compiles once per module.
+Each JAX configuration compiles once per module (every crop shares the
+6 s bucket).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,8 +31,20 @@ from audiotabs_tpu_torch.runtime.fused import F16_OUTPUTS, fused_analysis
 from audiotabs_tpu_torch.runtime.pipeline import ANALYSIS_SR, _pad_to_bucket, features_to_host, run_analysis
 
 SR = ANALYSIS_SR
-HELDOUT = "tests/data/heldout/heldout_strum_band.wav"
+HELDOUT = sorted(p.name for p in (Path(__file__).parent / "data" / "heldout").glob("*.wav"))
 DISCRETE = ("crf_path", "dbn_phases", "dbn_intervals", "content_starts")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """Two intra-op threads for this module: the suite runs files in parallel
+    workers, and torch's default of one thread per core oversubscribes the
+    cores (a 5 s crop's run_analysis took 270 s beside five busy processes,
+    12 s with 2 threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _chord(pitches, dur, amp=0.25):
@@ -46,15 +64,16 @@ def synthetic():
     return ref, got
 
 
-@pytest.fixture(scope="module")
-def heldout(tmp_path_factory):
+@pytest.fixture(scope="module", params=HELDOUT)
+def heldout(request, tmp_path_factory):
     from audiotabs_tpu.io.wav import read_wav
 
-    x, sr = read_wav(HELDOUT)
+    x, sr = read_wav(Path(__file__).parent / "data" / "heldout" / request.param)
     path = tmp_path_factory.mktemp("heldout") / "crop.wav"
     write_wav(path, x[3 * sr : 8 * sr], sr)
-    settings = Settings(PAD_SECONDS_BUCKET=6.0)
-    feats, beats = run_analysis(path, device="cpu", settings=settings)
+    settings = Settings(ENABLE_DEMUCS=False, PAD_SECONDS_BUCKET=6.0)
+    feats, beats, info = run_analysis(path, device="cpu", settings=settings)
+    assert info == {"stem_source": "mix", "errors": []}
     # the JAX reference on the same decoded, normalised, padded input
     y, _, _ = decode_for_analysis(path, SR)
     y = peak_normalize(y)

@@ -28,6 +28,7 @@ from audiotabs_tpu_torch.models import beat_rnn as tbr
 from audiotabs_tpu_torch.models import crf_chords as tcrf
 from audiotabs_tpu_torch.models import deepchroma as tdc
 from audiotabs_tpu_torch.models import key_cnn as tkc
+from test_torch_fused import torch_threads  # noqa: F401 (an autouse fixture)
 
 SR = 22050
 TOL = dict(rtol=1e-4, atol=1e-5)
