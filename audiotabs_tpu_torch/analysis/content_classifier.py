@@ -1,12 +1,22 @@
-"""Content-classifier window metrics (counterpart of
-audiotabs_tpu/analysis/content_classifier.py::_window_metrics).
+"""Content classification: melodic vs chordal vs hybrid sections.
 
-All windows run as one batch (the JAX package vmaps one window's program).
-The rule-based scoring on the host waits for the next slice.
+Counterpart of audiotabs_tpu/analysis/content_classifier.py. The window
+metrics (``_window_metrics``) run on the device with all windows as one
+batch (the JAX package vmaps one window's program); the rule-based scoring
+(``classify_metrics``, ``analyze_musical_content``,
+``_segments_from_metrics``) is host numpy, arithmetic unchanged. The
+pipeline always passes the fused analysis' metrics as ``precomputed``; the
+standalone pass over raw audio is not ported (ROADMAP.md, queue 1, item 14).
 """
 
 from __future__ import annotations
 
+import logging
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Literal
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -14,6 +24,30 @@ from ..ops.hpss import hpss_masks
 from ..ops.onset import onset_detect_frames, onset_strength
 from ..ops.pyin import pyin
 from ..ops.spectral import stft
+
+_LOG = logging.getLogger(__name__)
+
+PITCH_DISPERSION_MELODIC = 4.0
+PITCH_DISPERSION_CHORDAL = 2.0
+ONSET_DENSITY_CHORDAL = 6.0
+ONSET_DENSITY_MELODIC = 3.0
+PERIODICITY_CHORDAL = 0.4
+HARMONIC_RATIO_MELODIC = 0.6
+
+
+class ContentType(str, Enum):
+    MELODIC = "melodic"
+    CHORDAL = "chordal"
+    HYBRID = "hybrid"
+
+
+@dataclass(frozen=True)
+class ContentSegment:
+    start_time_s: float
+    end_time_s: float
+    content_type: Literal["melodic", "chordal", "hybrid"]
+    confidence: float
+    metrics: dict = field(default_factory=dict)
 
 
 def _window_metrics(windows: torch.Tensor, sr: int):
@@ -57,3 +91,120 @@ def _window_metrics(windows: torch.Tensor, sr: int):
     ep = ((S * mp) ** 2).sum(dim=(-2, -1))
     ratio = torch.where(eh + ep > 1e-9, eh / (eh + ep), torch.full_like(eh, 0.5))
     return dispersion, onset_density, periodicity, ratio
+
+
+def classify_metrics(
+    pitch_dispersion: float, onset_density: float, periodicity: float, harmonic_ratio: float
+) -> tuple[ContentType, float]:
+    """Rule-based scoring (reference: content_classifier.py:136-193)."""
+    melodic = chordal = 0.0
+    if pitch_dispersion >= PITCH_DISPERSION_MELODIC:
+        melodic += 2.0
+    elif pitch_dispersion <= PITCH_DISPERSION_CHORDAL:
+        chordal += 2.0
+    else:
+        melodic += 0.5
+        chordal += 0.5
+    if onset_density >= ONSET_DENSITY_CHORDAL:
+        chordal += 1.5
+    elif onset_density <= ONSET_DENSITY_MELODIC:
+        melodic += 1.0
+    else:
+        melodic += 0.5
+        chordal += 0.5
+    if periodicity >= PERIODICITY_CHORDAL:
+        chordal += 1.5
+    else:
+        melodic += 0.5
+    if harmonic_ratio >= HARMONIC_RATIO_MELODIC:
+        melodic += 1.0
+    else:
+        chordal += 0.5
+
+    total = melodic + chordal
+    if total < 1e-6:
+        return ContentType.HYBRID, 0.5
+    confidence = min(1.0, abs(melodic - chordal) / total + 0.3)
+    if melodic > chordal * 1.3:
+        return ContentType.MELODIC, confidence
+    if chordal > melodic * 1.3:
+        return ContentType.CHORDAL, confidence
+    return ContentType.HYBRID, max(0.3, confidence - 0.2)
+
+
+def analyze_musical_content(
+    y: np.ndarray,
+    sr: int,
+    *,
+    window_sec: float = 3.0,
+    hop_sec: float = 1.5,
+    min_segment_sec: float = 1.0,
+    precomputed: tuple[np.ndarray, np.ndarray] | None = None,
+) -> list[ContentSegment]:
+    """Classify sections from ``precomputed`` = (window start samples, [W, 4]
+    metric matrix) of the fused analysis; ``y`` gives the song's length."""
+    y = np.asarray(y)
+    if precomputed is not None:
+        starts_s, metrics = precomputed
+        spans = [(int(p) / sr, min((int(p) + int(window_sec * sr)), len(y)) / sr) for p in starts_s]
+        disp, dens, per, harm = (np.asarray(metrics)[:, i] for i in range(4))
+        return _segments_from_metrics(spans, disp, dens, per, harm, min_segment_sec)
+
+    raise NotImplementedError(
+        "analyze_musical_content without precomputed window metrics is not ported (ROADMAP.md, queue 1, item 14)"
+    )
+
+
+def _segments_from_metrics(
+    spans, disp, dens, per, harm, min_segment_sec: float
+) -> list[ContentSegment]:
+    raw = []
+    for i, (t0, t1) in enumerate(spans):
+        ctype, conf = classify_metrics(float(disp[i]), float(dens[i]), float(per[i]), float(harm[i]))
+        raw.append((t0, t1, ctype, conf, {
+            "pitch_dispersion": float(disp[i]), "onset_density": float(dens[i]),
+            "periodicity": float(per[i]), "harmonic_ratio": float(harm[i]),
+        }))
+
+    if not raw:
+        return [ContentSegment(0.0, 0.0, ContentType.HYBRID.value, 0.5, {})]
+
+    # merge consecutive same-type windows
+    merged: list[ContentSegment] = []
+    cs, ce, ct, conf_sum, mlist, cnt = raw[0][0], raw[0][1], raw[0][2], raw[0][3], [raw[0][4]], 1
+    for t0, t1, ctype, conf, m in raw[1:]:
+        if ctype == ct:
+            ce, conf_sum, cnt = t1, conf_sum + conf, cnt + 1
+            mlist.append(m)
+        else:
+            avg = {k: float(np.mean([mm[k] for mm in mlist])) for k in mlist[0]}
+            merged.append(ContentSegment(cs, ce, ct.value, conf_sum / cnt, avg))
+            cs, ce, ct, conf_sum, mlist, cnt = t0, t1, ctype, conf, [m], 1
+    avg = {k: float(np.mean([mm[k] for mm in mlist])) for k in mlist[0]}
+    merged.append(ContentSegment(cs, ce, ct.value, conf_sum / cnt, avg))
+
+    # absorb short segments into the longer neighbor
+    final: list[ContentSegment] = []
+    for seg in merged:
+        if seg.end_time_s - seg.start_time_s < min_segment_sec and final:
+            prev = final[-1]
+            keep = (
+                prev.content_type
+                if prev.end_time_s - prev.start_time_s >= seg.end_time_s - seg.start_time_s
+                else seg.content_type
+            )
+            final[-1] = ContentSegment(
+                prev.start_time_s, seg.end_time_s, keep,
+                (prev.confidence + seg.confidence) / 2, prev.metrics,
+            )
+        else:
+            final.append(seg)
+
+    _LOG.info(
+        "content analysis: %d segments (melodic=%d chordal=%d hybrid=%d)",
+        len(final),
+        sum(1 for s in final if s.content_type == "melodic"),
+        sum(1 for s in final if s.content_type == "chordal"),
+        sum(1 for s in final if s.content_type == "hybrid"),
+    )
+    return final

@@ -1,4 +1,4 @@
-"""The ``Settings`` fields the ported analysis path reads.
+"""The ``Settings`` fields the port reads: the song analysis and the host tail.
 
 Names, defaults and environment variables are those of
 ``audiotabs_tpu/config.py``, so one ``.env`` configures both packages. The
@@ -8,7 +8,12 @@ stems, the guitar stem analysed, the drums stem tracked for beats);
 not copied: the separation program takes its segment from the checkpoint's
 ``meta_segment`` and its overlap from ``models/htdemucs.py::OVERLAP``, so
 ``DEMUCS_SEGMENT_SEC`` and ``DEMUCS_OVERLAP`` are not read, as in the JAX
-package.
+package. ``FUSED_SPLIT_FETCH`` and ``PROFILE_DIR`` are the JAX package's
+device→host transfer and trace knobs: the port always copies the fused
+outputs in one transfer, and is traced with ``torch.profiler`` from outside.
+
+There is no module-global ``settings``: every entry point takes a
+``Settings`` (``Settings.from_env()`` when none is given).
 """
 
 from __future__ import annotations
@@ -38,9 +43,20 @@ class Settings:
     DEMUCS_SHIFTS: int = 1
     DEMUCS_BF16: bool = False
     TRANSCRIPTION_STEM_PRIORITY: str = "guitar,other,vocals"
+    BASIC_PITCH_ONSET_THRESHOLD: float = 0.5
+    BASIC_PITCH_FRAME_THRESHOLD: float = 0.3
+    BASIC_PITCH_MIN_NOTE_MS: float = 127.70
+    ENABLE_AUTO_THRESHOLD_CALIBRATION: bool = True
+    GUITAR_TUNING: str = "standard"
     CHORD_DETECTION_BACKEND: str = "deep"  # deep|template
+    CHORD_VOCAB: str = "majmin7"  # majmin|majmin7|majmin7plus
     SWITCH_PENALTY: float = 2.5
+    MIN_SEGMENT_SEC: float = 0.25
+    TRANSCRIPTION_MODE: str = "guitar"  # guitar|accompaniment (notes: not ported)
+    CONTENT_ANALYSIS_WINDOW_SEC: float = 3.0
+    CONTENT_ANALYSIS_HOP_SEC: float = 1.5
     PAD_SECONDS_BUCKET: float = 30.0
+    DATA_DIR: str = "./data"
 
     @classmethod
     def from_env(cls) -> "Settings":

@@ -1,7 +1,8 @@
 """DBN beat tracking: the madmom bar-pointer model.
 
 Counterpart of audiotabs_tpu/decode/dbn_beats.py (``_tempo_grid``,
-``_tempo_transition``, ``_dbn_forward``, ``beats_from_decoded``). The state
+``_tempo_transition``, ``_dbn_forward``, ``beats_from_decoded``,
+``estimate_tempo``, ``normalize_beat_times``). The state
 space is (tempo, phase) stored as a padded [n_tempi, max_interval] score
 matrix; each frame is a phase roll plus a max-plus tempo transition at
 phase 0. The forward pass and the backtrack, lax.scans in JAX, are plain
@@ -128,3 +129,29 @@ def beats_from_decoded(
         above = np.nonzero(act >= thr)[0]
         frames = frames[(frames >= above[0]) & (frames <= above[-1] + 1)] if above.size else frames[:0]
     return (frames / float(fps)).astype(np.float32)
+
+
+def estimate_tempo(beat_times: np.ndarray) -> float:
+    """Tempo = 60 / mean beat interval (reference: grid/beats.py:36-43)."""
+    bt = np.asarray(beat_times, dtype=np.float64)
+    if bt.size < 2:
+        return 0.0
+    diffs = np.diff(bt)
+    diffs = diffs[np.isfinite(diffs) & (diffs > 0)]
+    if diffs.size == 0:
+        return 0.0
+    return float(60.0 / np.mean(diffs))
+
+
+def normalize_beat_times(beat_times: np.ndarray | None) -> tuple[np.ndarray | None, float]:
+    """Shift beats to start at t=0, returning (beats, offset)
+    (reference: grid/beats.py:92-101)."""
+    if beat_times is None:
+        return None, 0.0
+    bt = np.asarray(beat_times, dtype=np.float32)
+    bt = bt[np.isfinite(bt)]
+    if bt.size == 0:
+        return None, 0.0
+    bt = np.sort(bt)
+    offset = float(bt[0])
+    return (bt - offset).astype(np.float32), offset

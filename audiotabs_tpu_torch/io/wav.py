@@ -1,14 +1,18 @@
-"""Host-side WAV decoding (numpy): the decode step of the analysis path.
+"""Host-side WAV decoding and writing (numpy).
 
-A copy of the WAV path of audiotabs_tpu/io/wav.py (``read_wav``,
-``peak_normalize``, ``decode_for_analysis``). Other containers (mp3, the
-FFmpeg shim) and the 44.1 kHz work artifact wait for a later slice.
+A copy of the WAV path of audiotabs_tpu/io/wav.py: ``read_wav``,
+``write_wav``, ``peak_normalize``, ``decode_for_analysis``, and
+``write_artifact_async``, the thread that writes the 44.1 kHz mono work
+artifact while the card runs (the JAX ``decode_for_analysis`` starts it
+itself). Other containers (mp3, the FFmpeg shim) are not ported
+(ROADMAP.md, queue 1, item 14).
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -77,6 +81,26 @@ def read_wav(path: str | os.PathLike) -> tuple[np.ndarray, int]:
     return x[:usable].reshape(-1, channels), int(sample_rate)
 
 
+def write_wav(path: str | os.PathLike, x: np.ndarray, sr: int, *, pcm16: bool = False) -> None:
+    """Write float32 (or int16) audio as a WAV. x is [samples] or [samples, ch]."""
+    x = np.asarray(x)
+    if x.ndim == 1:
+        x = x[:, None]
+    channels = x.shape[1]
+    if pcm16:
+        body = np.clip(np.round(x * 32767.0), -32768, 32767).astype("<i2").tobytes()
+        fmt_tag, bits = _WAVE_FORMAT_PCM, 16
+    else:
+        body = x.astype("<f4").tobytes()
+        fmt_tag, bits = _WAVE_FORMAT_IEEE_FLOAT, 32
+    byte_rate = sr * channels * bits // 8
+    block_align = channels * bits // 8
+    hdr = b"RIFF" + struct.pack("<I", 36 + len(body)) + b"WAVE"
+    hdr += b"fmt " + struct.pack("<IHHIIHH", 16, fmt_tag, channels, sr, byte_rate, block_align, bits)
+    hdr += b"data" + struct.pack("<I", len(body))
+    Path(path).write_bytes(hdr + body)
+
+
 def peak_normalize(x: np.ndarray, peak: float = 0.95) -> np.ndarray:
     """Scale so max |x| == peak (reference: audio.py:24-26)."""
     m = float(np.max(np.abs(x))) if x.size else 0.0
@@ -95,3 +119,21 @@ def decode_for_analysis(input_path: str | os.PathLike, analysis_sr: int) -> tupl
     x = np.ascontiguousarray(x.mean(axis=1), dtype=np.float32)  # mono: mean of the channels
     y = resample_poly_host(x, sr, analysis_sr) if sr != analysis_sr else x
     return y, analysis_sr, (x, sr)
+
+
+def write_artifact_async(x: np.ndarray, sr: int, out_path: str | os.PathLike) -> threading.Thread:
+    """Resample mono ``x`` to 44.1 kHz and write it to ``out_path`` on a
+    daemon thread, so the resample and the disk write overlap the device
+    work. Join the thread before relying on ``out_path``; a failure is left
+    in its ``error`` attribute."""
+
+    def _write_artifact():
+        try:
+            write_wav(out_path, resample_poly_host(x, sr, 44100) if sr != 44100 else x, 44100)
+        except Exception as exc:  # surfaced by the caller after join()
+            t.error = exc
+
+    t = threading.Thread(target=_write_artifact, daemon=True)
+    t.error = None  # type: ignore[attr-defined]
+    t.start()
+    return t

@@ -1,9 +1,9 @@
 """Polyphonic AMT posteriors: the Basic Pitch CNN and the harmonic salience.
 
 Counterpart of audiotabs_tpu/models/basicpitch.py (``hcqt``, ``cnn_apply``,
-``salience_posteriors``, ``load_params``). The CNN is an nn.Module of Conv2d
-layers in NCHW with the JAX "SAME" padding written out; the host note
-decoder waits for the next slice.
+``salience_posteriors``, ``load_params``, and the host note decoder
+``notes_from_posteriors``, numpy, arithmetic unchanged). The CNN is an
+nn.Module of Conv2d layers in NCHW with the JAX "SAME" padding written out.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cqt import hybrid_cqt
+from ..theory.events import NoteEvent
 from . import convert
 from .params_io import load_pytree_npz, weights_path
 
@@ -25,6 +26,7 @@ N_SEMITONES = 88
 N_BINS = N_SEMITONES * BINS_PER_SEMITONE  # 264
 HOP = 256
 HARMONICS = (0.5, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0)
+MIDI_A0 = 21
 
 
 def hcqt(y: torch.Tensor, sr: int) -> torch.Tensor:
@@ -131,3 +133,115 @@ def salience_posteriors(y: torch.Tensor, sr: int):
     diff = frame_post[:, 1:] - frame_post[:, :-1]
     onset_post = torch.clamp(torch.cat([frame_post[:, :1], torch.clamp(diff, min=0.0)], dim=1) * 2.0, 0.0, 1.0)
     return onset_post.T, frame_post.T
+
+
+def notes_from_posteriors(
+    onset: np.ndarray,
+    frame: np.ndarray,
+    *,
+    fps: float,
+    onset_threshold: float = 0.5,
+    frame_threshold: float = 0.3,
+    min_note_ms: float = 127.70,
+    melodia_trick: bool = True,
+    gap_tolerance_frames: int = 3,
+) -> list[NoteEvent]:
+    """Posteriors [T, 88] → note events (Basic Pitch decoding semantics)."""
+    onset = np.asarray(onset)
+    frame = np.asarray(frame)
+    T, P = frame.shape
+    min_frames = max(1, int(round(min_note_ms / 1000.0 * fps)))
+    remaining = frame.copy()
+    events: list[NoteEvent] = []
+
+    # local onset peaks per pitch
+    peaks = (
+        (onset >= onset_threshold)
+        & (onset >= np.roll(onset, 1, axis=0))
+        & (onset >= np.roll(onset, -1, axis=0))
+    )
+    peaks[0] = onset[0] >= onset_threshold
+    peaks[-1] &= False
+
+    def track(t0: int, p: int) -> int:
+        """Extend a note from frame t0 while the frame posterior stays on.
+        Returns the EXCLUSIVE end frame (one past the last on-frame)."""
+        t = t0
+        gap = 0
+        while t < T:
+            if remaining[t, p] >= frame_threshold:
+                gap = 0
+            else:
+                gap += 1
+                if gap > gap_tolerance_frames:
+                    t += 1  # uniform exit: t is one past the examined frame
+                    break
+            t += 1
+        return t - gap
+
+    for t0, p in zip(*np.nonzero(peaks)):
+        if remaining[t0, p] < frame_threshold and onset[t0, p] < onset_threshold:
+            continue
+        t1 = track(t0, p)
+        if t1 - t0 >= min_frames:
+            amp = float(np.clip(np.mean(frame[t0:t1, p]), 0.0, 1.0))
+            events.append(
+                NoteEvent(
+                    start_time_s=t0 / fps,
+                    end_time_s=t1 / fps,
+                    pitch_midi=MIDI_A0 + int(p),
+                    velocity=int(np.clip(40 + 87 * amp, 1, 127)),
+                    amplitude=amp,
+                )
+            )
+            remaining[t0:t1, p] = 0.0
+
+    if melodia_trick:
+        # recover onset-less notes from leftover frame energy, loudest first
+        masked = remaining.copy()
+        while True:
+            t0, p = np.unravel_index(np.argmax(masked), masked.shape)
+            if masked[t0, p] < frame_threshold:
+                break
+            # walk backwards to the note start
+            s = t0
+            gap = 0
+            while s > 0:
+                if remaining[s - 1, p] >= frame_threshold:
+                    gap = 0
+                else:
+                    gap += 1
+                    if gap > gap_tolerance_frames:
+                        s -= 1  # uniform exit: s is one past the examined frame
+                        break
+                s -= 1
+            s = min(t0, s + gap)  # undo the tolerated gap, never past the seed
+            t1 = track(t0, p)
+            masked[s : max(t1, t0 + 1), p] = 0.0  # always clear the seed frame
+            if t1 - s >= min_frames:
+                amp = float(np.clip(np.mean(frame[s:t1, p]), 0.0, 1.0))
+                events.append(
+                    NoteEvent(
+                        start_time_s=s / fps,
+                        end_time_s=t1 / fps,
+                        pitch_midi=MIDI_A0 + int(p),
+                        velocity=int(np.clip(40 + 87 * amp, 1, 127)),
+                        amplitude=amp,
+                    )
+                )
+                remaining[s:t1, p] = 0.0
+
+    # suppress spectral-leakage neighbors: an event loses to a co-occurring
+    # event one semitone away with clearly higher amplitude
+    keep = [True] * len(events)
+    for i, a in enumerate(events):
+        for j, b in enumerate(events):
+            if i == j or abs(a.pitch_midi - b.pitch_midi) != 1:
+                continue
+            ov = min(a.end_time_s, b.end_time_s) - max(a.start_time_s, b.start_time_s)
+            if ov > 0.8 * (a.end_time_s - a.start_time_s) and b.amplitude > 1.4 * a.amplitude:
+                keep[i] = False
+                break
+    events = [e for e, k in zip(events, keep) if k]
+
+    return sorted(events, key=lambda e: e.start_time_s)

@@ -1,7 +1,8 @@
 """Global key classification CNN (counterpart of audiotabs_tpu/models/key_cnn.py).
 
 Log-filtered spectrogram at 5 fps → three ELU convolutions with band-axis
-max pooling → time average (optionally masked) → dense softmax over 24 keys.
+max pooling → time average (optionally masked) → dense softmax over 24 keys;
+``key_prediction_to_label`` (host numpy) names the argmax.
 """
 
 from __future__ import annotations
@@ -14,12 +15,22 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..theory.vocabulary import NOTE_NAMES_SHARP
 from . import convert
 from .basicpitch import SameConv2d
 from .deepchroma import N_BANDS, log_filtered
 from .params_io import load_pytree_npz, weights_path
 
 N_CLASSES = 24  # 12 major then 12 minor
+
+
+def key_prediction_to_label(probs: np.ndarray) -> str:
+    """argmax over 24 classes → 'C major' style label (madmom ordering)."""
+    probs = np.asarray(probs).reshape(-1)
+    idx = int(np.argmax(probs))
+    tonic = NOTE_NAMES_SHARP[idx % 12]
+    mode = "major" if idx < 12 else "minor"
+    return f"{tonic} {mode}"
 
 
 def features(y: torch.Tensor, sr: int) -> torch.Tensor:

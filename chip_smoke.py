@@ -20,14 +20,24 @@
    (torch.profiler), its peak memory, the FLOP count of its convolutions and
    matrix products (torch's FlopCounterMode over this call's shapes) and the
    achieved TFLOP/s; holds each card stem against the port's CPU stem.
-5. Drives ``run_analysis`` with the shipped settings (separation on): 8
+5. The main path: the CLI (``runtime/cli.py::main``, what a user runs) on
+   the clip with the shipped settings, cold and then twice warm, each song
+   with the launch count set to 0 just before it: 8 median launches per
+   song, no ``transcription_error``, ``stem_source`` guitar with the drums
+   as beat source and no separation error, the whole artifact set in
+   ``out/`` and ``work/``; one device-to-host copy per song (profiler); the
+   CPU ``_pipeline_tail`` fed the card's own host features and native audio
+   writes byte-equal artifacts. Prints the cold and warm wall and every
+   ``profile.json`` stage.
+6. Drives ``run_analysis`` with the shipped settings (separation on): 8
    median launches per song, the guitar stem analysed, no stage error; the
    card's outputs against a CPU ``fused_analysis`` fed the card's own stems
-   (discrete outputs and beat times equal), and the end-to-end CPU run's
-   agreement printed beside it. Times each stage and profiles one warm song.
-6. Drives ``run_analysis`` with ``ENABLE_DEMUCS=False`` (the mix analysed):
+   (discrete outputs and beat times equal). Times each stage and profiles one
+   warm song. A CPU ``run_pipeline`` on its own stems must give the card's
+   chords, key, time signature and beat times; its note agreement is printed.
+7. Drives ``run_analysis`` with ``ENABLE_DEMUCS=False`` (the mix analysed):
    6 median launches per song, discrete outputs equal to the CPU run's.
-7. Prints the kernel table as one JSON line, then the result line.
+8. Prints the kernel table as one JSON line, then the result line.
 
 Any failed phase raises, and the script exits non-zero without a result. It
 imports nothing of JAX or of the JAX package.
@@ -38,6 +48,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -89,6 +100,16 @@ F16_TOL = dict(rtol=2**-9, atol=2**-13)
 # and the JAX package agree within about 2e-6 on the CPU)
 STEM_TOL = 1e-3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores (NVIDIA data sheet)
+JOBS = REPO / "build" / "chip_smoke_jobs"  # git-ignored
+# what run_pipeline writes for this clip under the shipped settings (guitar mode)
+OUT_ARTIFACTS = {
+    "result.json", "beat_times.json", "chords.json", "threshold_calibration.json", "content_segments.json",
+    "strum_onsets.json", "chosen_shapes.json", "tab_positions.json", "note_events.csv", "result.musicxml",
+    "transcription.mid", "score.ly", "score.pdf", "profile.json",
+}
+WORK_ARTIFACTS = {"audio_mono_44k.wav", "audio_harmonic.wav"}
+STAGES = ("decode", "separation", "analysis", "beats", "calibration", "transcription", "beat_select", "chords", "key",
+          "mode", "quantize", "artifacts", "export")
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3, spin: bool = True) -> float:
@@ -305,8 +326,9 @@ def print_top(label: str, events: list, n: int = 8) -> None:
         print(f"{label}: {name[:80]} count {count} device {us / 1e3:.2f} ms")
 
 
-def profile_busy_share(run) -> None:
-    """Device busy share of one warm song from torch.profiler (CUPTI)."""
+def profile_busy_share(run) -> int:
+    """Device busy share of one warm song from torch.profiler (CUPTI); returns
+    the song's device-to-host copies."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -320,12 +342,13 @@ def profile_busy_share(run) -> None:
     print(f"profile: device-to-host copies per song {dtoh}")
     if not events:
         print("profile: no device time in the trace; busy share not measured")
-        return
+        return dtoh
     busy = busy_ms(events)
     print(f"profile: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms (kernel time summed {sum(e.time_range.elapsed_us() for e in events) / 1e3:.1f} ms), "
           f"busy share {busy / 1e3 / wall:.3f}, device ops {len(events)}")
     print_top("profile median", [e for e in events if "median_" in e.name])
     print_top("profile top", events)
+    return dtoh
 
 
 def compare_with_cpu(what: str, cpu: dict, card: dict) -> None:
@@ -369,6 +392,128 @@ def drive(median, settings, expect_launches: int) -> tuple:
     print(f"run_analysis on {CLIP.name} (ENABLE_DEMUCS={settings.ENABLE_DEMUCS}): cold {times[0]:.3f} s, "
           f"warm {times[1]:.3f} s / {times[2]:.3f} s, median launches per song {median.LAUNCHES}, {info}")
     return feats, beats, info, median.LAUNCHES
+
+
+def read_out(job: Path) -> dict:
+    """A job's ``out/`` files: JSON parsed, the rest as bytes."""
+    return {p.name: json.loads(p.read_text()) if p.suffix == ".json" else p.read_bytes() for p in sorted((job / "out").iterdir())}
+
+
+class Capture:
+    """Wraps a module function and keeps what its last call returned and how long it took."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.fn, self.last, self.seconds = module, name, getattr(module, name), None, None
+
+    def __enter__(self):
+        def keep(*args, **kwargs):
+            t0 = time.perf_counter()
+            self.last = self.fn(*args, **kwargs)
+            self.seconds = time.perf_counter() - t0
+            return self.last
+
+        setattr(self.module, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+        return False
+
+
+def cli_phase(median, card: str) -> dict:
+    """The main path: the port's CLI on the card under the shipped settings,
+    cold and then twice warm; the artifacts checked, one warm song profiled,
+    and the CPU tail run on the card's own host features."""
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
+    from audiotabs_tpu_torch.runtime import cli, pipeline
+
+    shutil.rmtree(JOBS, ignore_errors=True)
+    walls, cli_walls = [], []
+    with Capture(pipeline, "features_to_host") as feats, Capture(pipeline, "run_pipeline") as result:
+        for run in range(3):
+            job = JOBS / f"cli{run}"
+            median.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc = cli.main([str(CLIP), "--job-dir", str(job), "--keep"])
+            cli_walls.append(time.perf_counter() - t0)
+            launches = median.LAUNCHES
+            walls.append(result.seconds)
+            if rc != 0:
+                raise AssertionError(f"cli exited {rc}")
+            if launches != SEPARATED_LAUNCHES:
+                raise AssertionError(f"median kernel launched {launches} times in one CLI song, expected {SEPARATED_LAUNCHES}")
+            out = read_out(job)
+            bt = out["beat_times.json"]
+            if out["result.json"]["transcription_error"] is not None:
+                raise AssertionError(f"stage errors on the card: {out['result.json']['transcription_error']}")
+            if (bt["stem_source"], bt["beat_source"], bt["demucs_error"], bt["errors"]) != ("guitar", "drums", None, []):
+                raise AssertionError(f"unexpected beat_times.json: stem {bt['stem_source']}, beats {bt['beat_source']}, "
+                                     f"demucs_error {bt['demucs_error']}, errors {bt['errors']}")
+            if set(out) != OUT_ARTIFACTS or {p.name for p in (job / "work").iterdir()} != WORK_ARTIFACTS:
+                raise AssertionError(f"artifact set: out {sorted(out)}, work {sorted(p.name for p in (job / 'work').iterdir())}")
+            prof = out["profile.json"]
+            if set(STAGES) - set(prof):
+                raise AssertionError(f"profile.json lacks stages {sorted(set(STAGES) - set(prof))}")
+            tail_s = sum(prof[k] for k in STAGES[STAGES.index("beats") :])
+            print(f"cli song {run} ({'cold' if run == 0 else 'warm'}): run_pipeline {walls[-1]:.3f} s, cli main {cli_walls[-1]:.3f} s, "
+                  f"host tail (beats to export) {tail_s:.4f} s, median launches {launches}, stages (s) {json.dumps(prof)} [{card}]")
+        res = result.last
+    if res.key_signature is None or not res.chords or res.score is None or res.transcription_backend != "guitar_hybrid":
+        raise AssertionError(f"incomplete result: {res.to_json()[:400]}")
+    print(f"cli on {CLIP.name}: run_pipeline cold {walls[0]:.3f} s, warm {walls[1]:.3f} s / {walls[2]:.3f} s; "
+          f"key {res.key_signature.name}, {res.time_signature}, tempo {res.tempo_bpm:.2f}, {len(res.chords)} chords, "
+          f"{len(res.score.measures)} measures, artifacts {sorted(OUT_ARTIFACTS)} + work {sorted(WORK_ARTIFACTS)} [{card}]")
+
+    # one device-to-host copy per song
+    dtoh = profile_busy_share(lambda: cli.main([str(CLIP), "--job-dir", str(JOBS / "cli_profiled"), "--keep"]))
+    if dtoh != 1:
+        raise AssertionError(f"{dtoh} device-to-host copies in one run_pipeline, expected 1")
+
+    # the host tail on the CPU, on the card's own host features and native audio
+    job = JOBS / "cli2"
+    y, sr, (x_nat, sr_nat) = decode_for_analysis(CLIP, pipeline.ANALYSIS_SR)
+    cpu_job = JOBS / "tail_cpu" / job.name
+    tail = pipeline._pipeline_tail(
+        feats=feats.last, y_harm=np.asarray(feats.last["y_harm"], dtype=np.float32)[: len(y)], true_len=len(y), sr=sr,
+        out=cpu_job / "out", job_id=job.name, timer=pipeline.StageTimer(), errors=[], stem_source="guitar",
+        beat_act_from_feats=True, y_native=(peak_normalize(x_nat), sr_nat), settings=Settings(),
+    )
+    card_out, cpu_out = read_out(job), read_out(cpu_job)
+    if json.loads(tail.to_json()) != card_out.pop("result.json"):
+        raise AssertionError("the CPU tail's JobResult differs from the card's result.json")
+    names = sorted(set(card_out) - {"profile.json"})
+    if sorted(set(cpu_out) - {"profile.json"}) != names:
+        raise AssertionError(f"CPU tail artifacts {sorted(cpu_out)} against the card's {sorted(card_out)}")
+    for name in names:
+        a, b = (job / "out" / name).read_bytes(), (cpu_job / "out" / name).read_bytes()
+        if a != b:
+            raise AssertionError(f"{name}: the CPU tail on the card's features writes other bytes")
+    print(f"cpu _pipeline_tail on the card's host features: {len(names)} artifacts byte-equal ({', '.join(names)})")
+    return {"walls": walls, "launches": launches, "out": read_out(job)}
+
+
+def compare_pipelines(card_out: dict, cpu_res, cpu_out: dict) -> None:
+    """The card CLI's artifacts against a CPU run_pipeline's (each on its own
+    stems): beat times, chords, key and time signature equal (confidences and
+    the key score within FLOAT_TOL); the notes' agreement printed."""
+    for field in ("raw_beat_times", "beat_times", "downbeat_times", "time_signature", "tempo_bpm", "offset"):
+        if cpu_out["beat_times.json"][field] != card_out["beat_times.json"][field]:
+            raise AssertionError(f"beat_times.json {field} differs between the card and the CPU run_pipeline")
+    card_chords, cpu_chords = card_out["chords.json"], cpu_out["chords.json"]
+    if [(c["start"], c["end"], c["label"]) for c in cpu_chords] != [(c["start"], c["end"], c["label"]) for c in card_chords]:
+        raise AssertionError(f"chords differ between the card and the CPU run_pipeline: {card_chords} / {cpu_chords}")
+    np.testing.assert_allclose([c["confidence"] for c in cpu_chords], [c["confidence"] for c in card_chords], err_msg="chord confidence", **FLOAT_TOL)
+    card_key, cpu_key = dict(card_out["result.json"]["key_signature"]), cpu_res.key_signature.to_dict()
+    np.testing.assert_allclose(cpu_key.pop("score"), card_key.pop("score"), err_msg="key score", **FLOAT_TOL)
+    if (cpu_key, cpu_res.time_signature) != (card_key, card_out["result.json"]["time_signature"]):
+        raise AssertionError(f"key or time signature differs: card {card_key}, cpu {cpu_key}")
+    card_rows = card_out["note_events.csv"].decode().splitlines()[1:]
+    cpu_rows = cpu_out["note_events.csv"].decode().splitlines()[1:]
+    same = sum(a.split(",")[:3] == b.split(",")[:3] for a, b in zip(card_rows, cpu_rows))
+    print(f"end to end, card CLI vs cpu run_pipeline: beat times, {len(card_chords)} chords, key {card_key['name']} and "
+          f"{cpu_res.time_signature} equal; note events {len(card_rows)} on the card, {len(cpu_rows)} on the cpu, "
+          f"{same} rows with equal start, end and pitch")
 
 
 def separation_phase(y_pad: np.ndarray, sr: int) -> dict:
@@ -466,7 +611,10 @@ def main() -> int:
     separation_phase(y_pad, sr)
     print(f"separation measured on {card}")
 
-    # the main path: shipped settings, separation on; the stems run_analysis
+    # the main path: the CLI under the shipped settings
+    main_path = cli_phase(median, card)
+
+    # run_analysis under the shipped settings, separation on; the stems it
     # separates are kept, so the CPU can run the fused analysis on the same inputs
     shipped = Settings()
     if not shipped.ENABLE_DEMUCS:
@@ -504,11 +652,15 @@ def main() -> int:
     stage_times(y_pad, sr)
     profile_busy_share(lambda: pipeline.run_analysis(CLIP, device="cuda", settings=shipped))
 
+    # the whole pipeline on the CPU, on its own stems, against the card's CLI run
     t0 = time.perf_counter()
-    e2e_feats, e2e_beats, e2e_info = pipeline.run_analysis(CLIP, device="cpu", settings=shipped)
-    print(f"cpu run_analysis (shipped settings, own stems): {time.perf_counter() - t0:.3f} s, {e2e_info}")
+    with Capture(pipeline, "features_to_host") as cpu_host:
+        cpu_res = pipeline.run_pipeline(JOBS / "cpu", CLIP, device="cpu", settings=shipped)
+    print(f"cpu run_pipeline (shipped settings, own stems): {time.perf_counter() - t0:.3f} s, errors {cpu_res.transcription_error}")
+    e2e_feats = cpu_host.last
     agree = {k: f"{int((e2e_feats[k] == feats[k]).sum())} of {feats[k].size}" for k in DISCRETE + ("beat_from_drums",)}
-    print(f"end to end, cuda vs cpu (each on its own stems): equal elements {agree}, beat times equal {np.array_equal(e2e_beats, beats)}")
+    print(f"end to end, cuda vs cpu (each on its own stems): equal elements {agree}")
+    compare_pipelines(main_path["out"], cpu_res, read_out(JOBS / "cpu"))
 
     # the ENABLE_DEMUCS=False path, as before
     off = dataclasses.replace(shipped, ENABLE_DEMUCS=False)
@@ -529,7 +681,8 @@ def main() -> int:
         "route": "cuda",
         "source": "audiotabs_tpu_torch/csrc/median_filter.cu",
         "replaces": "audiotabs_tpu/ops/pallas_median.py:31",
-        "launches": launches,
+        "launches": main_path["launches"],
+        "launches_run_analysis": launches,
         "launches_without_separation": off_launches,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],

@@ -1,4 +1,4 @@
-"""The port stands alone: no JAX and nothing of audiotabs_tpu, and no silent CPU fallback."""
+"""The port stands alone: no JAX, no pydantic and nothing of audiotabs_tpu, and no silent CPU fallback."""
 
 import subprocess
 import sys
@@ -21,13 +21,19 @@ def _modules() -> list[str]:
 
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
-    assert {"audiotabs_tpu_torch.runtime.pipeline", "audiotabs_tpu_torch.ops.median", "audiotabs_tpu_torch.models.htdemucs"} <= set(mods)
+    assert {
+        "audiotabs_tpu_torch.runtime.pipeline", "audiotabs_tpu_torch.ops.median", "audiotabs_tpu_torch.models.htdemucs",
+        "audiotabs_tpu_torch.runtime.cli", "audiotabs_tpu_torch.runtime.modes", "audiotabs_tpu_torch.schemas",
+        "audiotabs_tpu_torch.score.musicxml",
+    } <= set(mods)
+    # the GPU machine has no pydantic: the port must not need it
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['pydantic'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and (m == 'audiotabs_tpu' or m.startswith(('audiotabs_tpu.', 'jax'))))\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and (m == 'audiotabs_tpu' or m.startswith(('audiotabs_tpu.', 'jax', 'pydantic'))))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -41,6 +47,20 @@ def test_run_analysis_without_a_device_raises_when_no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_analysis(REPO / "tests" / "data" / "heldout" / "heldout_strum_band.wav")
+
+
+def test_run_pipeline_and_cli_without_a_device_raise_when_no_gpu(monkeypatch, tmp_path):
+    from audiotabs_tpu_torch.runtime.cli import main
+    from audiotabs_tpu_torch.runtime.pipeline import run_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clip = REPO / "tests" / "data" / "heldout" / "heldout_strum_band.wav"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_pipeline(tmp_path / "job", clip)
+    assert not (tmp_path / "job").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([str(clip), "--job-dir", str(tmp_path / "cli")])
+    assert not (tmp_path / "cli" / "out").exists() or not any((tmp_path / "cli" / "out").iterdir())
 
 
 @pytest.mark.parametrize("device,ok", [(None, False), ("cuda", False), ("cuda:0", False), ("cpu", True), ("mps", False)])

@@ -1,0 +1,461 @@
+"""The port's host-tail modules against the JAX package's, module by module.
+
+Seeded numpy inputs go through the JAX function and the port's; the host
+code is a copy with its arithmetic unchanged, so every output must be equal
+exactly: the same values of the same Python and numpy types (``_canon``),
+and byte-equal files from the exporters. Schema objects are compared as
+dumps (pydantic's ``model_dump()`` against the dataclasses' ``to_dict()``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import json
+import math
+
+import numpy as np
+import pytest
+
+from audiotabs_tpu import schemas as J
+from audiotabs_tpu_torch import schemas as P
+
+SR = 22050
+NATIVE_SR = 44100
+
+
+def _canon(x):
+    """A comparable form of an output: schema objects dumped, dataclasses as
+    field dicts, arrays and numpy scalars tagged with their dtype."""
+    if hasattr(x, "model_dump"):
+        return _canon(x.model_dump())
+    if isinstance(x, P._Schema):
+        return _canon(x.to_dict())
+    if dataclasses.is_dataclass(x):
+        return {f.name: _canon(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if isinstance(x, enum.Enum):
+        return x.value
+    if isinstance(x, np.ndarray):
+        return ("ndarray", str(x.dtype), x.shape, _canon(x.tolist()))
+    if isinstance(x, np.generic):
+        return (str(x.dtype), _canon(x.item()))
+    if isinstance(x, (list, tuple)):
+        return [_canon(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _canon(v) for k, v in x.items()}
+    if isinstance(x, float) and math.isnan(x):
+        return "nan"
+    return x
+
+
+def _same(a, b):
+    assert _canon(a) == _canon(b)
+
+
+def _port(obj):
+    """A JAX-package schema object (or a list of them) as the port's."""
+    if isinstance(obj, list):
+        return [_port(o) for o in obj]
+    return getattr(P, type(obj).__name__)(**obj.model_dump())
+
+
+def _events(rng, n: int, dur: float = 8.0):
+    from audiotabs_tpu.theory.events import NoteEvent as JN
+    from audiotabs_tpu_torch.theory.events import NoteEvent as PN
+
+    rows = []
+    for _ in range(n):
+        t0 = float(rng.uniform(0.0, dur))
+        rows.append((t0, t0 + float(rng.uniform(0.06, 1.2)), int(rng.integers(40, 84)), int(rng.integers(30, 127)), float(rng.uniform(0.05, 1.0))))
+    rows.sort()
+    return [JN(*r) for r in rows], [PN(*r) for r in rows]
+
+
+def _chords(rng, n: int, labels=("G:maj", "D:maj", "A:min", "C:maj", "E:min7", "B:7", "F#:min", "N", "D:maj7")):
+    bounds = np.cumsum(rng.uniform(0.3, 3.0, n + 1))
+    js = [
+        J.ChordSegment(start=float(bounds[i]), end=float(bounds[i + 1]), label=str(rng.choice(labels)), confidence=float(rng.uniform(0.0, 1.0)))
+        for i in range(n)
+    ]
+    return js, _port(js)
+
+
+def _beats(rng, n: int = 24, period: float = 0.5, jitter: float = 0.02, start: float = 0.3):
+    return (start + period * np.arange(n) + rng.normal(0, jitter, n)).astype(np.float32)
+
+
+def _strums(sr: int, dur: float, period: float = 0.25, seed: int = 1) -> np.ndarray:
+    """Repeated percussive strums of one chord with noise attacks."""
+    rng = np.random.default_rng(seed)
+    n = int(sr * dur)
+    y = np.zeros(n, dtype=np.float32)
+    p = int(period * sr)
+    for start in range(0, n - p, p):
+        t = np.arange(p) / sr
+        burst = sum(0.2 * np.sin(2 * np.pi * 440.0 * 2 ** ((m - 69) / 12) * t) for m in (48, 52, 55)) * np.exp(-t * 12)
+        burst[: sr // 100] += 0.4 * rng.standard_normal(sr // 100)
+        y[start : start + p] += burst.astype(np.float32)
+    return y
+
+
+# ---------------------------------------------------------------- schemas --
+
+
+def test_schemas_coerce_and_dump_as_pydantic():
+    kw = dict(tonic="G", mode="major", fifths=np.int64(1), name="G major", vexflow="G", use_flats=False, score=np.float32(0.7))
+    item = dict(keys=("g/3", "b/3"), duration="8", dots=np.int64(1), tuplet={"num_notes": 3, "notes_occupied": 2}, tie="start")
+    score = dict(grid_q=np.float32(0.25), grid_kind="straight", measures=[dict(number=np.int64(1), items=[item, dict(rest=True, duration="q")])])
+    chords = [dict(start=np.float32(0.1), end=2, label=np.str_("G:maj"), confidence=np.float64(0.5))]
+    args = dict(job_id="job", tempo_bpm=np.float32(68.5), time_signature="3/4", key_signature=kw, chords=chords, transcription_backend="guitar_hybrid", score=score)
+    ref = J.JobResult(**args)
+    got = P.JobResult(**args)
+    assert json.loads(got.to_json()) == json.loads(ref.model_dump_json())
+    assert got.to_dict() == ref.model_dump()
+    _same(ref, got)
+    assert type(got.chords[0].end) is float and type(got.key_signature.fifths) is int and type(got.score.grid_q) is float
+    empty = dict(job_id="j", tempo_bpm=120, time_signature="4/4")
+    assert json.loads(P.JobResult(**empty).to_json()) == json.loads(J.JobResult(**empty).model_dump_json())
+    with pytest.raises(ValueError):
+        P.TupletSpec(num_notes=2.5, notes_occupied=2)
+
+
+# --------------------------------------------------------- note decoding --
+
+
+@pytest.mark.parametrize("seed,onset_thr,frame_thr,melodia", [(0, 0.5, 0.3, True), (1, 0.4, 0.25, True), (2, 0.62, 0.41, False), (3, 0.25, 0.15, True)])
+def test_notes_from_posteriors_matches_jax(seed, onset_thr, frame_thr, melodia):
+    from audiotabs_tpu.models.basicpitch import notes_from_posteriors as jax_notes
+    from audiotabs_tpu_torch.models.basicpitch import notes_from_posteriors
+
+    rng = np.random.default_rng(seed)
+    T = 430
+    # smooth posteriors with plateaus around the thresholds, rounded through f16 as the fused outputs are
+    frame = np.clip(np.cumsum(rng.normal(0, 0.08, (T, 88)), axis=0) * 0.2 + rng.uniform(0, 0.45, (1, 88)), 0, 1)
+    onset = np.where(rng.random((T, 88)) < 0.02, rng.uniform(0.2, 1.0, (T, 88)), 0.1 * rng.random((T, 88)))
+    onset = onset.astype(np.float16).astype(np.float32)
+    frame = frame.astype(np.float16).astype(np.float32)
+    kw = dict(fps=SR / 256, onset_threshold=onset_thr, frame_threshold=frame_thr, min_note_ms=127.7, melodia_trick=melodia)
+    ref = jax_notes(onset, frame, **kw)
+    got = notes_from_posteriors(onset, frame, **kw)
+    assert len(ref) > 5
+    _same(ref, got)
+
+
+# ---------------------------------------------------- quantize, beat grid --
+
+
+@pytest.mark.parametrize("seed,time_sig,with_beats", [(0, "4/4", True), (1, "3/4", True), (2, "4/4", False), (3, "6/8", True)])
+def test_quantize_note_events_to_score_matches_jax(seed, time_sig, with_beats):
+    from audiotabs_tpu.theory.quantize import quantize_note_events_to_score as jax_quantize
+    from audiotabs_tpu_torch.theory.quantize import quantize_note_events_to_score
+
+    rng = np.random.default_rng(seed)
+    jev, pev = _events(rng, 40)
+    beats = _beats(rng) - 0.3 if with_beats else None
+    kw = dict(tempo_bpm=112.0, beat_times=beats, time_signature=time_sig, guitar_tuning="standard")
+    ref = jax_quantize(jev, **kw)
+    got = quantize_note_events_to_score(pev, **kw)
+    assert ref.tab_positions and ref.score.measures
+    _same(ref, got)
+
+
+@pytest.mark.parametrize("seed,time_sig,period", [(0, "4/4", 0.5), (1, "3/4", 0.25), (2, "4/4", 1.1), (3, "4/4", 0.35)])
+def test_pick_best_beat_times_matches_jax(seed, time_sig, period):
+    from audiotabs_tpu.theory.chord_simplify import pick_best_beat_times as jax_pick
+    from audiotabs_tpu.theory.chord_simplify import tempo_from_beat_times as jax_tempo
+    from audiotabs_tpu_torch.theory.chord_simplify import pick_best_beat_times, tempo_from_beat_times
+
+    rng = np.random.default_rng(seed)
+    jev, pev = _events(rng, 300 if seed == 3 else 50)  # seed 3 takes the loudest-250 sample
+    beats = _beats(rng, n=int(8 / period), period=period)
+    ref = jax_pick(jev, beats, time_signature=time_sig)
+    got = pick_best_beat_times(pev, beats, time_signature=time_sig)
+    _same(ref, got)
+    _same(jax_tempo(ref), tempo_from_beat_times(got))
+
+
+@pytest.mark.parametrize("case", ["44_accented", "34_waltz", "random", "few_beats"])
+def test_infer_meter_and_downbeats_matches_jax(case):
+    from audiotabs_tpu.decode.downbeats import infer_meter_and_downbeats as jax_meter
+    from audiotabs_tpu_torch.decode.downbeats import infer_meter_and_downbeats
+
+    rng = np.random.default_rng(len(case))
+    beats = np.arange(0.5, 12.0, 0.5)
+    act = np.full(int(beats[-1] * 100) + 10, 0.05)
+    accent = {"44_accented": 4, "34_waltz": 3}.get(case)
+    for i, t in enumerate(beats):
+        act[int(t * 100)] = 0.9 if accent and i % accent == 1 else (rng.uniform(0.2, 0.9) if case == "random" else 0.5)
+    if case == "few_beats":
+        beats = beats[:3]
+    beats = beats.astype(np.float32)
+    act = act.astype(np.float32)
+    _same(jax_meter(beats, act, fps=100), infer_meter_and_downbeats(beats, act, fps=100))
+
+
+@pytest.mark.parametrize("beats", [None, [], [np.nan, 1.0], [3.2, 0.4, 1.0, np.inf, 1.6], [0.0, 0.5]])
+def test_normalize_beat_times_and_tempo_match_jax(beats):
+    from audiotabs_tpu.decode.dbn_beats import estimate_tempo as jax_tempo
+    from audiotabs_tpu.decode.dbn_beats import normalize_beat_times as jax_norm
+    from audiotabs_tpu_torch.decode.dbn_beats import estimate_tempo, normalize_beat_times
+
+    bt = None if beats is None else np.asarray(beats, dtype=np.float32)
+    _same(jax_norm(bt), normalize_beat_times(bt))
+    if bt is not None:
+        _same(jax_tempo(bt), estimate_tempo(bt))
+
+
+# ----------------------------------------------------------- chords, key --
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_simplify_chords_match_jax(seed):
+    from audiotabs_tpu.theory.chord_simplify import simplify_chord_segments as jax_simplify
+    from audiotabs_tpu.theory.chord_simplify import simplify_chords_for_accompaniment as jax_acc
+    from audiotabs_tpu_torch.theory.chord_simplify import simplify_chord_segments, simplify_chords_for_accompaniment
+
+    rng = np.random.default_rng(seed)
+    jc, pc = _chords(rng, 14)
+    times = np.arange(400, dtype=np.float32) / 10.0
+    chroma = rng.random((12, 400)).astype(np.float32)
+    kw = dict(chroma=chroma, times=times, min_confidence=0.02, min_duration=1.0, seventh_ratio=0.5)
+    _same(jax_simplify(jc, **kw), simplify_chord_segments(pc, **kw))
+    _same(jax_simplify(jc, chroma=None, times=None), simplify_chord_segments(pc, chroma=None, times=None))
+    _same(jax_acc(jc), simplify_chords_for_accompaniment(pc))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_key_from_probs_and_chords_matches_jax(seed):
+    from audiotabs_tpu.models.key_cnn import key_prediction_to_label as jax_label
+    from audiotabs_tpu.theory import key as jk
+    from audiotabs_tpu_torch.models.key_cnn import key_prediction_to_label
+    from audiotabs_tpu_torch.theory import key as pk
+    from audiotabs_tpu_torch.theory.vocabulary import NOTE_TO_PC
+
+    rng = np.random.default_rng(seed)
+    jc, pc = _chords(rng, 10)
+    probs = rng.dirichlet(np.full(24, 0.3)).astype(np.float32)
+    ref = jk.rescore_key_with_chords(probs, jc)
+    got = pk.rescore_key_with_chords(probs, pc)
+    _same(ref, got)
+    label = key_prediction_to_label(got)
+    assert label == jax_label(ref)
+    tonic, mode = label.split()
+    _same(jk._make_estimate(NOTE_TO_PC[tonic], mode, float(ref.max())).to_schema(), pk._make_estimate(NOTE_TO_PC[tonic], mode, float(got.max())).to_schema())
+    chroma = rng.random((12, 50)).astype(np.float32)
+    _same(jk.estimate_key_from_chroma(chroma), pk.estimate_key_from_chroma(chroma))
+    jev, pev = _events(rng, 30)
+    _same(jk.estimate_key_from_events(jev), pk.estimate_key_from_events(pev))
+    for c in pc:
+        for flats in (False, True):
+            assert pk.spell_chord_label(c.label, flats) == jk.spell_chord_label(c.label, flats)
+
+
+# ------------------------------------------------- calibration, content --
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_calibrate_thresholds_matches_jax(seed):
+    from audiotabs_tpu.analysis.audio_quality import _to_db as jax_db
+    from audiotabs_tpu.analysis.audio_quality import calibrate_thresholds as jax_cal
+    from audiotabs_tpu_torch.analysis.audio_quality import _to_db, calibrate_thresholds
+
+    rng = np.random.default_rng(seed)
+    rms = float(rng.uniform(0.0, 0.4))
+    chars = {
+        "rms_db": _to_db(rms), "spectral_centroid": float(rng.uniform(500, 4000)),
+        "spectral_rolloff": float(rng.uniform(2000, 9000)), "harmonic_ratio": float(rng.uniform(0.3, 0.8)),
+        "onset_density": float(rng.uniform(1.0, 10.0)), "noise_floor_db": _to_db(float(rng.uniform(0, 0.05))),
+    }
+    assert _to_db(rms) == jax_db(rms) and _to_db(0.0) == jax_db(0.0)
+    _same(jax_cal(chars), calibrate_thresholds(chars))
+    _same(jax_cal({}), calibrate_thresholds({}))
+
+
+def _content_metrics(rng, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Window starts and [W, 4] metrics that fall melodic, chordal and hybrid."""
+    starts = (np.arange(n) * (SR + SR // 2)).astype(np.int32)
+    kinds = rng.integers(0, 3, n)
+    base = np.array([[6.0, 2.0, 0.2, 0.8], [1.0, 8.0, 0.6, 0.4], [3.0, 4.5, 0.3, 0.55]], dtype=np.float32)
+    metrics = base[kinds] + rng.normal(0, 0.3, (n, 4)).astype(np.float32)
+    return starts, metrics.astype(np.float32)
+
+
+@pytest.mark.parametrize("seed,n", [(0, 9), (1, 20), (2, 1)])
+def test_analyze_musical_content_precomputed_matches_jax(seed, n):
+    from audiotabs_tpu.analysis.content_classifier import analyze_musical_content as jax_content
+    from audiotabs_tpu_torch.analysis.content_classifier import analyze_musical_content
+
+    rng = np.random.default_rng(seed)
+    starts, metrics = _content_metrics(rng, n)
+    y = np.zeros(int(starts[-1]) + 2 * SR, dtype=np.float32)
+    ref = jax_content(y, SR, precomputed=(starts, metrics))
+    got = analyze_musical_content(y, SR, precomputed=(starts, metrics))
+    _same(ref, got)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        analyze_musical_content(y, SR)
+
+
+# ------------------------------------------------------------------ strum --
+
+
+@pytest.mark.parametrize("sr,period,use_beats", [(NATIVE_SR, 0.25, True), (NATIVE_SR, 0.4, False), (SR, 0.3, True)])
+def test_detect_strum_onsets_host_envelope_matches_jax(sr, period, use_beats):
+    from audiotabs_tpu.accompaniment.strum import _onset_strength_median_host as jax_env
+    from audiotabs_tpu.accompaniment.strum import detect_strum_onsets as jax_detect
+    from audiotabs_tpu_torch.accompaniment.strum import _onset_strength_median_host, detect_strum_onsets
+
+    y = _strums(sr, 4.0, period, seed=int(period * 100))
+    _same(jax_env(y, sr), _onset_strength_median_host(y, sr))
+    beats = np.arange(0.0, 4.0, 0.5) if use_beats else None
+    ref = jax_detect(y, sr, beat_times=beats, tempo_bpm=120.0)
+    got = detect_strum_onsets(y, sr, beat_times=beats, tempo_bpm=120.0)
+    assert len(ref) >= 4
+    _same(ref, got)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_detect_strum_onsets_given_envelope_matches_jax(seed):
+    from audiotabs_tpu.accompaniment.strum import detect_strum_onsets as jax_detect
+    from audiotabs_tpu_torch.accompaniment.strum import detect_strum_onsets
+
+    rng = np.random.default_rng(seed)
+    env = np.abs(rng.normal(0, 0.05, 300)).astype(np.float32)
+    env[rng.choice(300, 40, replace=False)] += rng.uniform(0.2, 1.0, 40).astype(np.float32)
+    y = np.zeros(300 * 512, dtype=np.float32)
+    kw = dict(beat_times=None, tempo_bpm=96.0, envelope=env, min_interval_s=0.12 + 0.08 * seed, onset_delta=0.2 + 0.05 * seed)
+    ref = jax_detect(y, SR, **kw)
+    got = detect_strum_onsets(y, SR, **kw)
+    assert len(ref) >= 4
+    _same(ref, got)
+
+
+# ------------------------------------------------------------------ modes --
+
+
+def _mode_inputs(seed: int):
+    rng = np.random.default_rng(seed)
+    dur = 12.0
+    y_nat = _strums(NATIVE_SR, dur, 0.25 + 0.05 * seed, seed=seed)
+    y = y_nat[::2].copy()  # the 22.05 kHz stand-in for the harmonic stem
+    jc, pc = _chords(rng, 6)
+    beats = (0.25 + 0.5 * np.arange(int(dur / 0.5) - 1)).astype(np.float32)
+    jev, pev = _events(rng, 40, dur)
+    starts, metrics = _content_metrics(rng, 7)
+    return y, y_nat, jc, pc, beats, jev, pev, (starts, metrics)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("native", [True, False])
+def test_run_guitar_mode_matches_jax(seed, native):
+    from audiotabs_tpu.runtime.modes import run_guitar_mode as jax_guitar
+    from audiotabs_tpu_torch.accompaniment.strum import _onset_strength_median_host
+    from audiotabs_tpu_torch.runtime.modes import run_guitar_mode
+
+    y, y_nat, jc, pc, beats, jev, pev, content = _mode_inputs(seed)
+    env = _onset_strength_median_host(y, SR)
+    env = (env / (env.max() + 1e-9)).astype(np.float32)
+    kw = dict(use_flats=bool(seed), precomputed_content=content, y_strum=(y_nat, NATIVE_SR) if native else None, strum_envelope=None if native else env)
+    ref = jax_guitar(y, SR, jc, beats, 120.0, base_note_events=jev, **kw)
+    got = run_guitar_mode(y, SR, pc, beats, 120.0, base_note_events=pev, **kw)
+    assert ref.strum_onsets and ref.note_events and {c.content_type for c in ref.content_segments} >= {"melodic", "chordal"}
+    _same(ref, got)
+
+
+@pytest.mark.parametrize("seed,time_sig", [(0, "4/4"), (1, "3/4")])
+def test_run_accompaniment_mode_matches_jax(seed, time_sig):
+    from audiotabs_tpu.runtime.modes import run_accompaniment_mode as jax_acc
+    from audiotabs_tpu.theory.chord_simplify import simplify_chords_for_accompaniment as jax_simplify
+    from audiotabs_tpu_torch.runtime.modes import run_accompaniment_mode
+    from audiotabs_tpu_torch.theory.chord_simplify import simplify_chords_for_accompaniment
+
+    _y, y_nat, jc, pc, beats, _jev, _pev, _content = _mode_inputs(seed)
+    ref = jax_acc(y_nat, NATIVE_SR, jax_simplify(jc), beats, 120.0, use_flats=bool(seed), time_signature=time_sig)
+    got = run_accompaniment_mode(y_nat, NATIVE_SR, simplify_chords_for_accompaniment(pc), beats, 120.0, use_flats=bool(seed), time_signature=time_sig)
+    assert ref.score_override.measures and ref.strum_onsets
+    _same(ref, got)
+
+
+def test_run_guitar_mode_without_base_events_is_not_ported():
+    from audiotabs_tpu_torch.runtime.modes import run_guitar_mode
+
+    y, _y_nat, _jc, pc, beats, _jev, _pev, content = _mode_inputs(0)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        run_guitar_mode(y, SR, pc, beats, 120.0, precomputed_content=content)
+
+
+# -------------------------------------------------------------- exporters --
+
+
+def _score_case(seed: int, accompaniment: bool):
+    """A score, its tab positions and chords from the JAX quantiser or the strum path."""
+    rng = np.random.default_rng(seed)
+    jc, pc = _chords(rng, 8)
+    beats = (0.5 * np.arange(30)).astype(np.float32)
+    if accompaniment:
+        from audiotabs_tpu.runtime.modes import run_accompaniment_mode
+
+        res = run_accompaniment_mode(_strums(SR, 12.0, 0.3, seed), SR, jc, beats, 120.0, time_signature="4/4")
+        return res.score_override, res.pickup_quarters, res.tab_positions, jc, pc, beats
+    from audiotabs_tpu.theory.quantize import quantize_note_events_to_score
+
+    jev, _ = _events(rng, 40)
+    q = quantize_note_events_to_score(jev, tempo_bpm=120.0, beat_times=beats, time_signature="4/4")
+    return q.score, q.pickup_quarters, q.tab_positions, jc, pc, beats
+
+
+@pytest.mark.parametrize("seed,accompaniment", [(0, False), (1, False), (2, True)])
+def test_musicxml_and_midi_bytes_match_jax(tmp_path, seed, accompaniment):
+    from audiotabs_tpu.score.musicxml import export_musicxml as jax_xml
+    from audiotabs_tpu.tab.fretboard import get_tuning
+    from audiotabs_tpu_torch.score.musicxml import export_musicxml
+
+    score, pickup, tabs, jc, pc, beats = _score_case(seed, accompaniment)
+    kw = dict(tempo_bpm=120.0, time_signature="4/4", key_signature_fifths=seed - 1, title="job", instrument="guitar",
+              beat_times=beats, pickup_quarters=pickup, slash_notation=accompaniment, tab_positions=tabs, tab_tuning=get_tuning("standard"))
+    jax_xml(tmp_path / "a.musicxml", score, chords=jc, midi_path=tmp_path / "a.mid", **kw)
+    export_musicxml(tmp_path / "b.musicxml", _port(score), chords=pc, midi_path=tmp_path / "b.mid", **kw)
+    for ext in ("musicxml", "mid"):
+        assert (tmp_path / f"b.{ext}").read_bytes() == (tmp_path / f"a.{ext}").read_bytes(), ext
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_midi_writers_bytes_match_jax(tmp_path, seed):
+    from audiotabs_tpu.score import midi as jm
+    from audiotabs_tpu_torch.score import midi as pm
+
+    score, _pickup, _tabs, jc, pc, beats = _score_case(seed, False)
+    rng = np.random.default_rng(seed)
+    jev, pev = _events(rng, 20)
+    jm.write_midi_from_score(tmp_path / "a1.mid", score, tempo_bpm=100.0)
+    pm.write_midi_from_score(tmp_path / "b1.mid", _port(score), tempo_bpm=100.0)
+    jm.write_midi_from_note_events(tmp_path / "a2.mid", jev, tempo_bpm=120.0)
+    pm.write_midi_from_note_events(tmp_path / "b2.mid", pev, tempo_bpm=120.0)
+    jm.export_chords_midi(tmp_path / "a3.mid", jc, tempo_bpm=120.0, beat_times=list(beats), per_beat=True)
+    pm.export_chords_midi(tmp_path / "b3.mid", pc, tempo_bpm=120.0, beat_times=list(beats), per_beat=True)
+    for i in (1, 2, 3):
+        assert (tmp_path / f"b{i}.mid").read_bytes() == (tmp_path / f"a{i}.mid").read_bytes(), i
+
+
+@pytest.mark.parametrize("seed,with_key,with_beats", [(0, True, True), (1, False, True), (2, True, False)])
+def test_lilypond_pdf_and_csv_bytes_match_jax(tmp_path, seed, with_key, with_beats):
+    from audiotabs_tpu.score.csvout import save_note_events_csv as jax_csv
+    from audiotabs_tpu.score.lilypond import build_lilypond_score as jax_ly
+    from audiotabs_tpu.score.pdfwriter import render_pdf_lead_sheet as jax_pdf
+    from audiotabs_tpu_torch.score.csvout import save_note_events_csv
+    from audiotabs_tpu_torch.score.lilypond import build_lilypond_score
+    from audiotabs_tpu_torch.score.pdfwriter import render_pdf_lead_sheet
+
+    rng = np.random.default_rng(seed)
+    jc, pc = _chords(rng, 40)  # long enough for more than one PDF page
+    jks = J.KeySignature(tonic="F", mode="major", fifths=-1, name="F major", vexflow="F", use_flats=True, score=0.8) if with_key else None
+    pks = _port(jks) if with_key else None
+    beats = (0.5 * np.arange(200)).astype(np.float32) if with_beats else None
+    kw = dict(tempo_bpm=96.0, beat_times=beats, title="job")
+    assert build_lilypond_score(pc, key_signature=pks, **kw) == jax_ly(jc, key_signature=jks, **kw)
+    jax_pdf(tmp_path / "a.pdf", jc, key_signature=jks, **kw)
+    render_pdf_lead_sheet(tmp_path / "b.pdf", pc, key_signature=pks, **kw)
+    assert (tmp_path / "b.pdf").read_bytes() == (tmp_path / "a.pdf").read_bytes()
+    jev, pev = _events(rng, 25)
+    jax_csv(jev, tmp_path / "a.csv")
+    save_note_events_csv(pev, tmp_path / "b.csv")
+    assert (tmp_path / "b.csv").read_bytes() == (tmp_path / "a.csv").read_bytes()
