@@ -1,4 +1,4 @@
-"""The ``Settings`` fields the port reads: the song analysis and the host tail.
+"""The ``Settings`` fields the port reads: the song analysis, the host tail and serving.
 
 Names, defaults and environment variables are those of
 ``audiotabs_tpu/config.py``, so one ``.env`` configures both packages. The
@@ -11,6 +11,13 @@ not copied: the separation program takes its segment from the checkpoint's
 package. ``FUSED_SPLIT_FETCH`` and ``PROFILE_DIR`` are the JAX package's
 device→host transfer and trace knobs: the port always copies the fused
 outputs in one transfer, and is traced with ``torch.profiler`` from outside.
+The serving knobs (``FRONTEND_ORIGIN`` to ``BATCH_SONGS_PER_DEVICE``) are read
+by ``runtime/{jobs,server,celery_integration,batch_runner}.py``. The JAX
+package's ``JOB_WORKERS`` is not copied: no code reads it there. ``MESH_SHAPE``
+and ``MESH_AXES`` are not copied either: the port runs on one device, and
+``BATCH_SONGS_PER_DEVICE`` is the batch runner's chunk size on it;
+data parallelism over several cards is not ported (ROADMAP.md, queue 1,
+item 15).
 
 There is no module-global ``settings``: every entry point takes a
 ``Settings`` (``Settings.from_env()`` when none is given).
@@ -57,6 +64,11 @@ class Settings:
     CONTENT_ANALYSIS_HOP_SEC: float = 1.5
     PAD_SECONDS_BUCKET: float = 30.0
     DATA_DIR: str = "./data"
+    FRONTEND_ORIGIN: str = "http://localhost:3000"
+    MAX_UPLOAD_MB: int = 500
+    CELERY_ENABLED: bool = False
+    REDIS_URL: str = "redis://localhost:6379/0"
+    BATCH_SONGS_PER_DEVICE: int = 4
 
     @classmethod
     def from_env(cls) -> "Settings":

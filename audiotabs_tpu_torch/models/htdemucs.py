@@ -449,10 +449,18 @@ def _triangle(seg: int, device: torch.device) -> torch.Tensor:
 
 def separate_program(model: HTDemucs, y: torch.Tensor, sr: int, seg: int, stride: int, shifts: int,
                      bf16: bool = False) -> torch.Tensor:
-    """y [L] mono at sr (MODEL_SR or MODEL_SR // 2) → stems [n_sources, L] on y's device."""
+    """y [L] or a batch of songs [B, L], mono at sr (MODEL_SR or MODEL_SR // 2)
+    → stems [n_sources, L] or [B, n_sources, L] on y's device.
+
+    The windows of every song go through the net together, ``_FWD_CHUNK`` at
+    a time (the JAX batch runner vmaps the one-song program instead); each
+    song's overlap-add is the one-song order, so a row of a batch is the
+    one-song result up to the GEMM blocking of the net."""
+    single = y.dim() == 1
     y44 = y if sr == MODEL_SR else _up2(y)
-    L44 = y44.shape[0]
-    mix = torch.stack([y44, y44])  # pseudo-stereo [2, L44]
+    y44 = y44[None] if single else y44
+    n_songs, L44 = y44.shape
+    mix = torch.stack([y44, y44], dim=1)  # pseudo-stereo [B, 2, L44]
 
     # deterministic shift offsets, as the JAX program
     max_shift = int(0.5 * MODEL_SR)
@@ -461,23 +469,25 @@ def separate_program(model: HTDemucs, y: torch.Tensor, sr: int, seg: int, stride
     for soff in shift_offs:
         offs = _segment_windows(L44 + soff, seg, stride)
         # every window fits: the shifted signal carries seg zeros at its end
-        windows.append(F.pad(mix, (soff, seg)).unfold(-1, seg, stride)[:, : len(offs)].transpose(0, 1))
+        windows.append(F.pad(mix, (soff, seg)).unfold(-1, seg, stride)[:, :, : len(offs)].transpose(1, 2))
         metas += [o - soff for o in offs]
-    batch = torch.cat(windows)  # [B, 2, seg]
+    batch = torch.cat(windows, dim=1).reshape(-1, 2, seg)  # [B·W, 2, seg], song-major
     stems = torch.cat([model(batch[i : i + _FWD_CHUNK], bf16=bf16) for i in range(0, batch.shape[0], _FWD_CHUNK)])
 
-    # triangular-weighted overlap-add of every window in one index_add_
+    # triangular-weighted overlap-add of every window of a song in one index_add_
     n_sources = stems.shape[1]
+    stems = stems.reshape(n_songs, len(metas), n_sources, 2, seg)
     tri = _triangle(seg, y.device)
     lead = max(0, -min(metas))
     pos = torch.tensor(metas, device=y.device) + lead
     idx = (pos[:, None] + torch.arange(seg, device=y.device)).reshape(-1)
-    src = (stems * tri).permute(1, 2, 0, 3).reshape(n_sources, 2, -1)
-    acc = stems.new_zeros(n_sources, 2, lead + L44 + seg).index_add_(-1, idx, src)
+    src = (stems * tri).permute(0, 2, 3, 1, 4).reshape(n_songs, n_sources, 2, -1)
+    acc = stems.new_zeros(n_songs, n_sources, 2, lead + L44 + seg).index_add_(-1, idx, src)
     wacc = tri.new_zeros(lead + L44 + seg).index_add_(0, idx, tri.repeat(len(metas)))
-    out44 = acc[:, :, lead : lead + L44] / torch.clamp(wacc[lead : lead + L44], min=1e-8)
-    mono = out44.mean(dim=1)  # [S, L44]
-    return mono if sr == MODEL_SR else _down2(mono)
+    out44 = acc[..., lead : lead + L44] / torch.clamp(wacc[lead : lead + L44], min=1e-8)
+    mono = out44.mean(dim=2)  # [B, S, L44]
+    mono = mono if sr == MODEL_SR else _down2(mono)
+    return mono[0] if single else mono
 
 
 # ------------------------------------------------------------- weights ------

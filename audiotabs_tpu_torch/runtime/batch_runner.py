@@ -1,0 +1,230 @@
+"""Batch transcription: many songs through one batched analysis on the card.
+
+The port of audiotabs_tpu/runtime/batch_runner.py. Songs are decoded, padded
+to one common bucket multiple and stacked into a [B, T] batch; chunks of
+``BATCH_SONGS_PER_DEVICE`` songs each go through htdemucs separation
+(``separate_program`` on [B, L]) and ``fused_analysis_batch`` as one batched
+call. Every chunk is dispatched first; then each comes to the host in one
+transfer and its songs' host tails (``run_pipeline_from_features``) run in a
+thread pool. Dispatch holds the host (the row-looped stages), so the tails
+start after the last chunk is dispatched and overlap no device work
+(PERF.md §7).
+
+    from audiotabs_tpu_torch.runtime.batch_runner import transcribe_batch
+    results = transcribe_batch(["a.wav", "b.wav"], "out_root")  # on the card
+
+Runs on the card unless ``device="cpu"``; raises when no GPU is present and
+the CPU was not asked for. The JAX package shards a batch over a device
+mesh; the port runs on one device (ROADMAP.md, queue 1, item 15).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import Settings
+from ..device import resolve_device
+from ..schemas import JobResult
+from .fused import fused_analysis_batch
+from .pipeline import features_to_host
+
+_LOG = logging.getLogger(__name__)
+
+ANALYSIS_SR = 22050
+
+
+def _load_and_bucket(paths: list[Path], bucket_s: float) -> tuple[np.ndarray, list[int], int]:
+    """Load all songs, resample to the analysis rate, pad to ONE common
+    bucket multiple → ([B, T] batch, true lengths, sr).
+
+    The JAX batch path's decode order: mono mean, peak-normalise at the
+    native rate, then resample (the single-song path resamples first)."""
+    from ..io.resample import resample_poly_host
+    from ..io.wav import peak_normalize, read_wav
+
+    signals = []
+    for p in paths:
+        x, sr = read_wav(p)
+        y = peak_normalize(np.ascontiguousarray(x.mean(axis=1), dtype=np.float32))
+        if sr != ANALYSIS_SR:
+            y = resample_poly_host(y, sr, ANALYSIS_SR)
+        signals.append(y)
+    true_lens = [len(y) for y in signals]
+    bucket = int(bucket_s * ANALYSIS_SR)
+    T = ((max(true_lens) + bucket - 1) // bucket) * bucket
+    batch = np.zeros((len(signals), T), dtype=np.float32)
+    for i, y in enumerate(signals):
+        batch[i, : len(y)] = y
+        # wrap-pad the tail with the song itself
+        rem = T - len(y)
+        if rem > 0 and len(y) > 0:
+            reps = int(np.ceil(rem / len(y)))
+            batch[i, len(y) :] = np.tile(y, reps)[:rem]
+    return batch, true_lens, ANALYSIS_SR
+
+
+def _resolve_separation(s: Settings, sr: int, device: torch.device):
+    """→ (sep_cfg, the htdemucs module on ``device``, chosen stem name), or
+    (None, None, None) when separation is off or has no weights.
+
+    ``sep_cfg`` = (seg, stride, shifts, n_sources, stem_idx, drums_idx), from
+    ``htdemucs.program_config``, the single-song path's source of truth."""
+    if not (s.ENABLE_DEMUCS and sr in (44100, 22050)):
+        return None, None, None
+    from ..models import htdemucs as hd
+
+    params = hd.load_params()
+    if params is None:
+        return None, None, None
+    cfg = hd.program_config(params, s.DEMUCS_MODEL, s.stem_priority())
+    sep_cfg = (
+        cfg["seg"], cfg["stride"], int(s.DEMUCS_SHIFTS),
+        cfg["n_sources"], cfg["stem_idx"], cfg["drums_idx"],
+    )
+    return sep_cfg, hd.load_model(device), cfg["names"][cfg["stem_idx"]]
+
+
+def _analyse_chunk(y: torch.Tensor, true_lens: np.ndarray, sr: int, s: Settings, sep_cfg, model) -> dict:
+    """One chunk [b, T] on the device: separation (when configured) and the
+    batched fused analysis. As in the JAX batch program, the net runs in
+    float32 whatever ``DEMUCS_BF16`` says."""
+    backend = s.CHORD_DETECTION_BACKEND
+    kwargs = dict(
+        switch_penalty=s.SWITCH_PENALTY,
+        separate=s.ENABLE_DEMUCS,
+        chord_backend=backend if backend in ("deep", "template") else "both",
+        true_lens=true_lens,
+    )
+    if sep_cfg is None:
+        return fused_analysis_batch(y, sr, **kwargs)
+    from ..models.htdemucs import separate_program
+
+    seg, stride, shifts, _n_sources, stem_idx, drums_idx = sep_cfg
+    stems = separate_program(model, y, sr, seg, stride, shifts)  # [b, S, T]
+    kwargs["separate"] = False
+    return fused_analysis_batch(
+        stems[:, stem_idx].contiguous(), sr, y_beat=stems[:, drums_idx].contiguous(), y_mix=y, **kwargs
+    )
+
+
+def batched_fused_analysis_stream(
+    batch: np.ndarray,
+    sr: int,
+    true_lens=None,
+    *,
+    device: str | torch.device | None = None,
+    settings: Settings | None = None,
+):
+    """Yield (start_row, host feature dict) per chunk of
+    ``BATCH_SONGS_PER_DEVICE`` songs.
+
+    A tail chunk runs at its own smaller B (no zero rows). Every chunk is
+    dispatched before the first transfer, as in the JAX package; each chunk
+    then comes to the host in one device→host copy. Dispatch is host-bound
+    here, so the caller's work on chunk i starts only after the last chunk's
+    dispatch and overlaps no device work (PERF.md §7)."""
+    dev = resolve_device(device)
+    s = settings or Settings.from_env()
+    B = batch.shape[0]
+    if true_lens is None:
+        true_lens = np.full((B,), batch.shape[1], dtype=np.int32)
+    true_lens = np.asarray(true_lens, dtype=np.int32)
+    chunk = max(1, int(s.BATCH_SONGS_PER_DEVICE))
+
+    # real htdemucs separation when the checkpoint exists (same priority
+    # logic as the single-song pipeline); else the weight-free HPSS fallback
+    sep_cfg, model, _stem_name = _resolve_separation(s, sr, dev)
+    outs = []
+    # parity trap: cuDNN convolutions and the LSTM default to TF32 on the card
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for a in range(0, B, chunk):
+            rows = min(chunk, B - a)
+            y = torch.from_numpy(np.ascontiguousarray(batch[a : a + rows], dtype=np.float32)).to(dev)
+            outs.append((a, _analyse_chunk(y, true_lens[a : a + rows], sr, s, sep_cfg, model)))
+    for a, o in outs:
+        yield a, features_to_host(o)
+
+
+def batched_fused_analysis(
+    batch: np.ndarray,
+    sr: int,
+    true_lens=None,
+    *,
+    device: str | torch.device | None = None,
+    settings: Settings | None = None,
+) -> dict[str, np.ndarray]:
+    """[B, T] → host fused feature dict with a leading B axis.
+
+    ``true_lens`` [B] (samples) masks each song's chord decode past its true
+    end (defaults to the full row). See batched_fused_analysis_stream for
+    the chunking contract; this wrapper concatenates the chunks."""
+    parts = [h for _a, h in batched_fused_analysis_stream(batch, sr, true_lens, device=device, settings=settings)]
+    if len(parts) == 1:
+        return parts[0]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def transcribe_batch(
+    paths: list[Path | str],
+    out_root: Path | str,
+    *,
+    device: str | torch.device | None = None,
+    settings: Settings | None = None,
+    host_workers: int = 4,
+) -> list[JobResult]:
+    """Transcribe a batch of songs; writes the usual artifact layout under
+    out_root/jobs/<stem>/ and returns the JobResults."""
+    from .pipeline import run_pipeline_from_features
+
+    dev = resolve_device(device)
+    s = settings or Settings.from_env()
+    paths = [Path(p) for p in paths]
+    out_root = Path(out_root)
+    t0 = time.perf_counter()
+    batch, true_lens, sr = _load_and_bucket(paths, s.PAD_SECONDS_BUCKET)
+    t_load = time.perf_counter() - t0
+
+    _cfg, _model, batch_stem_source = _resolve_separation(s, sr, dev)
+
+    # unique job ids even when different directories share a filename
+    stems = [p.stem for p in paths]
+    job_ids = [
+        stem if stems.count(stem) == 1 else f"{stem}-{i}" for i, stem in enumerate(stems)
+    ]
+
+    def one(i: int, feats_i: dict) -> JobResult:
+        job_id = job_ids[i]
+        job_dir = out_root / "jobs" / job_id
+        for sub in ("input", "work", "out"):
+            (job_dir / sub).mkdir(parents=True, exist_ok=True)
+        return run_pipeline_from_features(
+            feats_i, true_lens[i], sr, job_dir, job_id, stem_source=batch_stem_source, settings=s
+        )
+
+    # every chunk is dispatched before the stream yields its first transfer;
+    # each chunk's songs then go to the host pool as its transfer lands, and
+    # their tails overlap each other and the later transfers, not device work
+    t0 = time.perf_counter()
+    futures = []
+    with ThreadPoolExecutor(max_workers=host_workers) as pool:
+        for a, feats_chunk in batched_fused_analysis_stream(batch, sr, true_lens, device=dev, settings=s):
+            n = next(iter(feats_chunk.values())).shape[0]
+            for j in range(min(n, len(paths) - a)):
+                feats_i = {k: np.asarray(v[j]) for k, v in feats_chunk.items()}
+                futures.append(pool.submit(one, a + j, feats_i))
+        results = [f.result() for f in futures]
+    t_run = time.perf_counter() - t0
+
+    total_audio = sum(true_lens) / sr
+    wall = t_load + t_run
+    _LOG.info(
+        "batch: %d songs, %.0fs audio in %.2fs (load %.2f device+host %.2f) = %.1f audio-s/s",
+        len(paths), total_audio, wall, t_load, t_run, total_audio / wall,
+    )
+    return results

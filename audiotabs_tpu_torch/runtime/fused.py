@@ -1,11 +1,13 @@
-"""The per-song device analysis: every device stage of the pipeline in one call.
+"""The device analysis: every device stage of the pipeline in one call.
 
 Counterpart of audiotabs_tpu/runtime/fused.py::fused_analysis, with the same
-arguments, output keys and dtypes: HPSS (median kernel), BLSTM beat
-activation and DBN decode, Basic Pitch posteriors, salience and DeepChroma
-chroma, template emissions and the CRF decode, the key CNN, the strum
-envelope, content-window metrics and calibration statistics. All outputs
-stay on the input's device; the caller makes one transfer to the host.
+arguments, output keys and dtypes, and of the JAX batch runner's vmap of it
+(``fused_analysis_batch``: a batch of songs in one call): HPSS (median
+kernel), BLSTM beat activation and DBN decode, Basic Pitch posteriors,
+salience and DeepChroma chroma, template emissions and the CRF decode, the
+key CNN, the strum envelope, content-window metrics and calibration
+statistics. All outputs stay on the input's device; the caller makes one
+transfer to the host.
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ def fused_analysis(
     y_mix: torch.Tensor | None = None,
     models: AnalysisModels | None = None,
 ) -> dict[str, torch.Tensor]:
-    """y [T] float32 on the device → dict of every device-computed feature.
+    """y [T] float32 on the device → dict of every device-computed feature:
+    the B = 1 case of ``fused_analysis_batch``.
 
     ``separate`` makes the HPSS percussive component the beat source;
     ``y_beat`` (a drums stem) is the beat source when its RMS exceeds 15 %
@@ -82,23 +85,116 @@ def fused_analysis(
     ``chord_backend`` ("template" | "deep" | "both") selects the chord
     decode(s). ``true_len`` (samples) masks chord emissions, CRF features and
     the key average past the true song end."""
+    def row(x):
+        return None if x is None else x[None]
+
+    out = fused_analysis_batch(
+        y[None], sr, switch_penalty, separate, chord_backend,
+        None if true_len is None else [true_len], row(y_beat), row(y_mix), models,
+    )
+    return {k: v[0] for k, v in out.items()}
+
+
+def fused_analysis_batch(
+    y: torch.Tensor,
+    sr: int,
+    switch_penalty: float = 2.5,
+    separate: bool = False,
+    chord_backend: str = "both",
+    true_lens=None,
+    y_beat: torch.Tensor | None = None,
+    y_mix: torch.Tensor | None = None,
+    models: AnalysisModels | None = None,
+) -> dict[str, torch.Tensor]:
+    """A batch of songs y [B, T] → the outputs of ``fused_analysis``, each
+    with a leading B axis; ``true_lens`` [B], ``y_beat`` and ``y_mix`` [B, T]
+    are per song.
+
+    The HPSS splits, the content-window metrics (all songs' windows in one
+    call), the strum envelope and the calibration statistics run once on the
+    whole batch: 8 median launches per batch with ``y_beat``, whatever B is.
+    The nets and the sequential decodes run song by song. Every reduction
+    (energy and envelope maxima, quantiles, masks) stays within its row."""
     models = models or load_models(y.device)
+    n_songs, n = y.shape
+    lens = [None] * n_songs if true_lens is None else [int(t) for t in true_lens]
     out: dict[str, torch.Tensor] = {}
 
     # 1. harmonic/percussive split
     y_harm, y_perc = hpss(y)
     out["y_harm"] = y_harm
 
-    # 2. beat activation at 100 fps
+    # 2. the beat source
     if y_beat is not None:
         fallback = hpss(y_mix)[1] if y_mix is not None else y_perc
-        r_beat = torch.sqrt(torch.mean(y_beat**2))
-        r_ref = torch.sqrt(torch.mean((y_mix if y_mix is not None else y) ** 2))
+        r_beat = torch.sqrt(torch.mean(y_beat**2, dim=-1))
+        r_ref = torch.sqrt(torch.mean((y_mix if y_mix is not None else y) ** 2, dim=-1))
         use_drums = r_beat > 0.15 * r_ref
         out["beat_from_drums"] = use_drums
-        beat_src = torch.where(use_drums, y_beat, fallback)
+        beat_src = torch.where(use_drums[:, None], y_beat, fallback)
     else:
         beat_src = y_perc if separate else y
+
+    # 3-4c. the nets and the sequential decodes, song by song
+    rows = [
+        _song_stages(y[b], y_harm[b], beat_src[b], sr, switch_penalty, chord_backend, lens[b], models)
+        for b in range(n_songs)
+    ]
+    out.update({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+
+    # 4d. full-track strum envelope, from the input (not the harmonic) signal
+    strum_env = _onset_strength_median(y, sr, 512)
+    out["strum_envelope"] = strum_env / (strum_env.amax(dim=-1, keepdim=True) + 1e-9)
+
+    # 5. content-classifier window metrics on the 3 s / 1.5 s window grid;
+    # every song's windows are one [B·W, win] batch
+    win = 3 * sr
+    hop_w = sr + sr // 2
+    starts = [p for p in range(0, max(1, n - sr // 2), hop_w) if p + sr // 2 <= n]
+    if starts:
+        st = torch.tensor(starts, dtype=torch.int32, device=y.device)
+        idx = st[:, None].long() + torch.arange(win, device=y.device)[None, :]
+        windows = torch.where(idx < n, y[:, torch.clamp(idx, 0, n - 1)], torch.zeros((), device=y.device))
+        metrics = torch.stack(_window_metrics(windows.reshape(-1, win), sr), dim=1)
+        out["content_starts"] = st.expand(n_songs, -1)
+        out["content_metrics"] = metrics.reshape(n_songs, len(starts), -1)
+
+    # 6. calibration characteristics
+    r = rms(y, 2048, 512)
+    S = torch.abs(stft(y, n_fft=1024, hop=512))
+    mh, mp = hpss_masks(S, 17, 17)
+    eh = torch.sum((S * mh) ** 2, dim=(-2, -1))
+    ep = torch.sum((S * mp) ** 2, dim=(-2, -1))
+    onsets = onset_detect_frames(onset_strength(y, sr, hop=512, n_fft=1024), delta=0.5, wait=4)
+    # parity trap: jnp.percentile interpolates linearly, as torch.quantile does
+    out["char_rms_median"] = torch.quantile(r, 0.5, dim=-1)
+    out["char_noise_rms"] = torch.quantile(r, 0.1, dim=-1)
+    out["char_centroid"] = spectral_centroid(y, sr, 2048, 512).mean(dim=-1)
+    out["char_rolloff"] = spectral_rolloff(y, sr, 2048, 512).mean(dim=-1)
+    out["char_harm_ratio"] = torch.where(eh + ep > 1e-9, eh / (eh + ep), torch.full_like(eh, 0.5))
+    out["char_onset_density"] = onsets.sum(dim=-1).to(torch.float32) / (n / sr)
+
+    # halve the big device→host transfers (unit-scale posteriors and waveforms)
+    for k in F16_OUTPUTS:
+        out[k] = out[k].to(torch.float16)
+    return out
+
+
+def _song_stages(
+    y: torch.Tensor,
+    y_harm: torch.Tensor,
+    beat_src: torch.Tensor,
+    sr: int,
+    switch_penalty: float,
+    chord_backend: str,
+    true_len: int | None,
+    models: AnalysisModels,
+) -> dict[str, torch.Tensor]:
+    """One song's nets and sequential decodes: beat activation and the DBN,
+    the AMT posteriors, chroma and the chord decodes, the key CNN."""
+    out: dict[str, torch.Tensor] = {}
+
+    # 2. beat activation at 100 fps
     out["beat_activation"] = beat_rnn.beat_activation(beat_src, sr, models.beat, 100)
 
     # 3. AMT posteriors on the harmonic component
@@ -147,22 +243,6 @@ def fused_analysis(
     out["dbn_phases"] = phases.to(torch.int32)
     out["dbn_intervals"] = intervals.to(torch.int32)
 
-    # 4d. full-track strum envelope, from the input (not the harmonic) signal
-    strum_env = _onset_strength_median(y, sr, 512)
-    out["strum_envelope"] = strum_env / (strum_env.max() + 1e-9)
-
-    # 5. content-classifier window metrics on the 3 s / 1.5 s window grid
-    win = 3 * sr
-    hop_w = sr + sr // 2
-    n = y.shape[-1]
-    starts = [p for p in range(0, max(1, n - sr // 2), hop_w) if p + sr // 2 <= n]
-    if starts:
-        st = torch.tensor(starts, dtype=torch.int32, device=y.device)
-        idx = st[:, None].long() + torch.arange(win, device=y.device)[None, :]
-        windows = torch.where(idx < n, y[torch.clamp(idx, 0, n - 1)], torch.zeros((), device=y.device))
-        out["content_starts"] = st
-        out["content_metrics"] = torch.stack(_window_metrics(windows, sr), dim=1)
-
     # 5b. key CNN: 24-class key probabilities
     if models.key is not None:
         key_feats = key_cnn.features(y_harm, sr)
@@ -170,23 +250,4 @@ def fused_analysis(
         if true_len is not None:
             key_mask = torch.arange(key_feats.shape[0], device=y.device) * (sr // 5) < true_len
         out["key_probs"] = key_cnn.apply(models.key, key_feats, key_mask)
-
-    # 6. calibration characteristics
-    r = rms(y, 2048, 512)
-    S = torch.abs(stft(y, n_fft=1024, hop=512))
-    mh, mp = hpss_masks(S, 17, 17)
-    eh = torch.sum((S * mh) ** 2)
-    ep = torch.sum((S * mp) ** 2)
-    onsets = onset_detect_frames(onset_strength(y, sr, hop=512, n_fft=1024), delta=0.5, wait=4)
-    # parity trap: jnp.percentile interpolates linearly, as torch.quantile does
-    out["char_rms_median"] = torch.quantile(r, 0.5)
-    out["char_noise_rms"] = torch.quantile(r, 0.1)
-    out["char_centroid"] = spectral_centroid(y, sr, 2048, 512).mean()
-    out["char_rolloff"] = spectral_rolloff(y, sr, 2048, 512).mean()
-    out["char_harm_ratio"] = torch.where(eh + ep > 1e-9, eh / (eh + ep), torch.full_like(eh, 0.5))
-    out["char_onset_density"] = onsets.sum().to(torch.float32) / (y.shape[-1] / sr)
-
-    # halve the big device→host transfers (unit-scale posteriors and waveforms)
-    for k in F16_OUTPUTS:
-        out[k] = out[k].to(torch.float16)
     return out

@@ -4,8 +4,7 @@ The fields, defaults and nesting of ``audiotabs_tpu/schemas.py`` (pydantic
 models there; the port's machines have no pydantic), so ``result.json`` is
 the same artifact: a ScoreData is a list of measures of VexFlow-style items
 (keys like "f#/4", duration tokens w/h/q/8/16/32, dots, tuplets, ties).
-The job API's models (``JobCreateResponse``, ``JobInfo``) come with the
-serving slice.
+The job API's bodies are ``JobCreateResponse`` and ``JobInfo``.
 
 Construction coerces as pydantic's lax mode does: numpy scalars become
 Python numbers, integers given to a ``float`` field become floats, whole
@@ -68,6 +67,22 @@ class _Schema:
     def to_json(self) -> str:
         """The text of pydantic's ``model_dump_json()`` (compare it parsed)."""
         return json.dumps(self.to_dict(), separators=(",", ":"), allow_nan=False)
+
+
+JobStatus = Literal["queued", "running", "done", "error"]
+
+
+@dataclasses.dataclass
+class JobCreateResponse(_Schema):
+    job_id: str
+    status: JobStatus
+
+
+@dataclasses.dataclass
+class JobInfo(_Schema):
+    job_id: str
+    status: JobStatus
+    error: Optional[str] = None
 
 
 @dataclasses.dataclass

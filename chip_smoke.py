@@ -37,10 +37,30 @@
    chords, key, time signature and beat times; its note agreement is printed.
 7. Drives ``run_analysis`` with ``ENABLE_DEMUCS=False`` (the mix analysed):
    6 median launches per song, discrete outputs equal to the CPU run's.
-8. Prints the kernel table as one JSON line, then the result line.
+8. Serving (between 5 and 6): the job API (``runtime/server.py::serve``) on
+   a free port with a data directory in build/: ``heldout_strum_band.wav``
+   inline and ``heldout_picked_melody.wav`` queued and drained by
+   ``worker.main(["--once"])`` on the card, 8 median launches each (the
+   count set to 0 just before each job); every artifact route of both jobs
+   answers 200 with its content type; the inline job's ``result.json``
+   equals the CLI's (``job_id`` aside).
+9. The batch runner (after 8): ``transcribe_batch`` over the six held-out
+   clips (all in the 30 s bucket) in chunks of 4 and 2 songs, cold and warm:
+   8 median launches per chunk, and in the profiler 8 median launches and 1
+   device-to-host copy per chunk; each row's stems within STEM_TOL of a 1-D
+   ``separate_program`` of the row, and its fused outputs against
+   ``fused_analysis`` on the row and the batch's stems; the artifact set of
+   every song. Prints the batch's wall, audio seconds per wall second, busy
+   share, each chunk alone in the profiler, and the six songs one at a time
+   through ``run_pipeline`` with their chords, key, beats and notes against
+   the batch's (printed, not checked). Step 3 also holds the kernel exactly
+   at every batched shape ([B, 1025, 1292], [B·20, 513, 130], [B, 513, 1292]
+   for B = 4 and 2, both axes) and times each against its byte bound.
+10. Prints the kernel table as one JSON line, then the result line.
 
-Any failed phase raises, and the script exits non-zero without a result. It
-imports nothing of JAX or of the JAX package.
+Each phase prints its wall time. Any failed phase raises, and the script
+exits non-zero without a result. It imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -77,7 +97,15 @@ MAIN_PATH_MEDIANS = [
     ((513, 1292), 17, -1), ((513, 1292), 17, -2),
 ]
 SEPARATED_LAUNCHES = len(MAIN_PATH_MEDIANS) + 2
-EXTRA_MEDIANS = [((2, 1025, 1292), 31, -1), ((2, 1025, 1292), 31, -2)]
+# the batch runner's chunks: the same sites on [B, ...] (the content windows
+# of B songs as one [B·20, ...] batch), 8 launches per chunk whatever B is
+CHUNK_SONGS = (4, 2)
+BATCHED_MEDIANS = [
+    (shape, win, axis)
+    for b in CHUNK_SONGS
+    for shape, win in (((b, 1025, 1292), 31), ((b * 20, 513, 130), 17), ((b, 513, 1292), 17))
+    for axis in (-1, -2)
+]
 # exactness only: extents shorter than the window or not a multiple of a
 # thread's outputs (F = 1 and T = 1 among them), at every network window, and
 # window 7, which takes the rank kernel
@@ -101,6 +129,15 @@ F16_TOL = dict(rtol=2**-9, atol=2**-13)
 STEM_TOL = 1e-3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores (NVIDIA data sheet)
 JOBS = REPO / "build" / "chip_smoke_jobs"  # git-ignored
+BATCH_JOBS = REPO / "build" / "chip_smoke_batch"
+SERVE_DATA = REPO / "build" / "chip_smoke_serve"
+HELDOUT = sorted((REPO / "tests" / "data" / "heldout").glob("*.wav"))
+# the job API's artifact routes and their content types (runtime/server.py::_ARTIFACTS)
+ROUTES = {
+    "result.json": "application/json", "musicxml": "application/vnd.recordare.musicxml+xml",
+    "score.pdf": "application/pdf", "transcription.mid": "audio/midi", "note_events.csv": "text/csv",
+    "tab_positions.json": "application/json",
+}
 # what run_pipeline writes for this clip under the shipped settings (guitar mode)
 OUT_ARTIFACTS = {
     "result.json", "beat_times.json", "chords.json", "threshold_calibration.json", "content_segments.json",
@@ -220,7 +257,8 @@ def check_kernel(median) -> dict:
 
     total = {"ms": 0.0, "single_ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "issue_bound_ms": 0.0, "max_abs_err": 0.0}
     per_launch = {}
-    for shape, win, axis in MAIN_PATH_MEDIANS + EXTRA_MEDIANS:
+    batched = {}
+    for shape, win, axis in MAIN_PATH_MEDIANS + BATCHED_MEDIANS:
         x_np = np.abs(rng.standard_normal(shape)).astype(np.float32)
         err = max(check_exact(median, x_np, win, axis), check_exact(median, tie_heavy(rng, shape), win, axis))
         x = torch.from_numpy(x_np).cuda()
@@ -235,10 +273,13 @@ def check_kernel(median) -> dict:
             max_abs_err=err,
         )
         print("median", json.dumps(row))
+        label = f"{'x'.join(map(str, shape))} win {win} axis {axis}"
         if (shape, win, axis) in MAIN_PATH_MEDIANS:
-            per_launch[f"{'x'.join(map(str, shape))} win {win} axis {axis}"] = row["ms"]
+            per_launch[label] = row["ms"]
             for k in ("ms", "single_ms", "device_ms", "plain_ms", "bound_ms", "issue_bound_ms"):
                 total[k] = None if total[k] is None or row[k] is None else total[k] + row[k]
+        else:
+            batched[label] = {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "issue_bound_ms")}
         total["max_abs_err"] = max(total["max_abs_err"], err)
 
     cases = [(s, w) for w in sorted(median.NET_OUTPUTS) for s in SHORT_SHAPES] + RANK_CHECKS
@@ -250,7 +291,15 @@ def check_kernel(median) -> dict:
     print(f"median per song ({len(MAIN_PATH_MEDIANS)} main-path launches): kernel {total['ms']:.4f} ms "
           f"({total['single_ms']:.4f} ms timed without the spin kernel, {total['device_ms']} ms of kernel time in the profiler), plain {total['plain_ms']:.4f} ms, "
           f"byte bound {total['bound_ms']:.4f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, issue bound {total['issue_bound_ms']:.4f} ms at {mhz} MHz")
-    total.update(per_launch=per_launch, fmnmx_per_output=fmnmx, sm_clock_mhz=mhz, ptxas=usage)
+    per_chunk = {}
+    for b in CHUNK_SONGS:
+        # the chunk's 8 launches: its 6 sites, and the mix's HPSS pair again
+        rows = [batched[f"{'x'.join(map(str, shape))} win {win} axis {axis}"] for shape, win, axis in BATCHED_MEDIANS if shape[0] in (b, b * 20)]
+        rows += rows[:2]
+        per_chunk[b] = {k: None if any(r[k] is None for r in rows) else sum(r[k] for r in rows) for k in rows[0]}
+        print(f"median per chunk of {b} songs (8 launches): kernel {per_chunk[b]['ms']:.4f} ms by events, {per_chunk[b]['device_ms']} ms in the profiler, "
+              f"plain {per_chunk[b]['plain_ms']:.4f} ms, byte bound {per_chunk[b]['bound_ms']:.4f} ms, issue bound {per_chunk[b]['issue_bound_ms']:.4f} ms")
+    total.update(per_launch=per_launch, batched=batched, per_chunk=per_chunk, fmnmx_per_output=fmnmx, sm_clock_mhz=mhz, ptxas=usage)
     return total
 
 
@@ -300,17 +349,31 @@ def stage_times(y_np: np.ndarray, sr: int) -> dict:
     return out
 
 
-def device_events(prof) -> list:
-    """The trace's device activities (kernels, copies, sets), without CUPTI's own buffer events."""
-    from torch.autograd import DeviceType
+# The profiler keeps running this long after a traced call's last synchronise:
+# with the trace stopped right after it, a chunk's last device records (its one
+# device-to-host copy among them) were missing from three traces in a row.
+TRACE_TAIL_S = 0.5
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA and "Buffer" not in e.name]
+
+def device_events(prof) -> list[tuple[str, float, float]]:
+    """The trace's device activities (kernels, copies, sets) as (name, start µs,
+    end µs), read from the Chrome trace the profiler writes: torch's Python
+    event list takes minutes to build for a batch's hundreds of thousands of
+    launches."""
+    path = REPO / "build" / "chip_smoke_trace.json"
+    prof.export_chrome_trace(str(path))
+    try:
+        trace = json.loads(path.read_text())
+    finally:
+        path.unlink()
+    return [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in trace["traceEvents"]
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
 
 
 def busy_ms(events: list) -> float:
     """Time during which at least one device activity ran (the union of their intervals), ms."""
     total, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+    for start, stop in sorted((start, stop) for _, start, stop in events):
         if stop > end:
             total += stop - max(start, end)
             end = stop
@@ -319,9 +382,9 @@ def busy_ms(events: list) -> float:
 
 def print_top(label: str, events: list, n: int = 8) -> None:
     by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in events:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
+    for name, start, stop in events:
+        by_name[name][0] += 1
+        by_name[name][1] += stop - start
     for name, (count, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n]:
         print(f"{label}: {name[:80]} count {count} device {us / 1e3:.2f} ms")
 
@@ -331,27 +394,28 @@ def profile_busy_share(run) -> int:
     the song's device-to-host copies."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(TRACE_TAIL_S)
     events = device_events(prof)
-    dtoh = sum(e.name.startswith("Memcpy DtoH") for e in events)
+    dtoh = sum(name.startswith("Memcpy DtoH") for name, _, _ in events)
     print(f"profile: device-to-host copies per song {dtoh}")
     if not events:
         print("profile: no device time in the trace; busy share not measured")
         return dtoh
     busy = busy_ms(events)
-    print(f"profile: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms (kernel time summed {sum(e.time_range.elapsed_us() for e in events) / 1e3:.1f} ms), "
+    print(f"profile: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms (kernel time summed {sum(stop - start for _, start, stop in events) / 1e3:.1f} ms), "
           f"busy share {busy / 1e3 / wall:.3f}, device ops {len(events)}")
-    print_top("profile median", [e for e in events if "median_" in e.name])
+    print_top("profile median", [e for e in events if "median_" in e[0]])
     print_top("profile top", events)
     return dtoh
 
 
-def compare_with_cpu(what: str, cpu: dict, card: dict) -> None:
+def compare_with_cpu(what: str, cpu: dict, card: dict, quiet: bool = False) -> None:
     """Discrete outputs equal, floats within FLOAT_TOL, f16 outputs within F16_TOL."""
     if set(cpu) != set(card):
         raise AssertionError(f"{what}: output keys differ: {sorted(set(cpu) ^ set(card))}")
@@ -362,7 +426,8 @@ def compare_with_cpu(what: str, cpu: dict, card: dict) -> None:
                 raise AssertionError(f"{what}: {k} differs between cuda and cpu at {int((a != b).sum())} of {a.size}")
             continue
         d = float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max()) if a.size else 0.0
-        print(f"{what} {k}: max abs diff {d:.3g}")
+        if not quiet:
+            print(f"{what} {k}: max abs diff {d:.3g}")
         np.testing.assert_allclose(b.astype(np.float32), a.astype(np.float32), err_msg=f"{what} {k}", **(F16_TOL if k in F16 else FLOAT_TOL))
 
 
@@ -400,16 +465,19 @@ def read_out(job: Path) -> dict:
 
 
 class Capture:
-    """Wraps a module function and keeps what its last call returned and how long it took."""
+    """Wraps a module function and keeps what its last call returned and how
+    long it took, and the arguments and result of every call (``calls``)."""
 
     def __init__(self, module, name: str):
         self.module, self.name, self.fn, self.last, self.seconds = module, name, getattr(module, name), None, None
+        self.calls = []
 
     def __enter__(self):
         def keep(*args, **kwargs):
             t0 = time.perf_counter()
             self.last = self.fn(*args, **kwargs)
             self.seconds = time.perf_counter() - t0
+            self.calls.append((args, kwargs, self.last))
             return self.last
 
         setattr(self.module, self.name, keep)
@@ -465,8 +533,9 @@ def cli_phase(median, card: str) -> dict:
           f"key {res.key_signature.name}, {res.time_signature}, tempo {res.tempo_bpm:.2f}, {len(res.chords)} chords, "
           f"{len(res.score.measures)} measures, artifacts {sorted(OUT_ARTIFACTS)} + work {sorted(WORK_ARTIFACTS)} [{card}]")
 
-    # one device-to-host copy per song
-    dtoh = profile_busy_share(lambda: cli.main([str(CLIP), "--job-dir", str(JOBS / "cli_profiled"), "--keep"]))
+    # one device-to-host copy per song (a trace short of it is taken again: see retrace)
+    dtoh = retrace(lambda: profile_busy_share(lambda: cli.main([str(CLIP), "--job-dir", str(JOBS / "cli_profiled"), "--keep"])),
+                   lambda d: d < 1, "the song's trace holds no device-to-host copy")
     if dtoh != 1:
         raise AssertionError(f"{dtoh} device-to-host copies in one run_pipeline, expected 1")
 
@@ -581,6 +650,253 @@ def separation_phase(y_pad: np.ndarray, sr: int) -> dict:
     return row
 
 
+def run_profiled(run) -> dict:
+    """One call under torch.profiler: its wall, device busy ms and share,
+    device ops, median launches and device-to-host copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(TRACE_TAIL_S)
+    events = device_events(prof)
+    if not events:
+        raise AssertionError("no device time in the trace")
+    busy = busy_ms(events)
+    return dict(wall_ms=wall * 1e3, busy_ms=busy, busy_share=busy / 1e3 / wall, device_ops=len(events),
+                median_launches=sum("median_" in name for name, _, _ in events),
+                dtoh=sum(name.startswith("Memcpy DtoH") for name, _, _ in events))
+
+
+def retrace(trace, short, what: str, tries: int = 3):
+    """``trace()`` again, up to ``tries`` times in all, while ``short(result)``.
+
+    A trace can lack device records: the same chunk's trace held 120,817
+    device ops in one run and 120,604, without its one device-to-host copy,
+    in another (NVIDIA H100 80GB HBM3, 700 W). A dropped record can only
+    lower a count, so only a count below the expected one is traced again,
+    and every retry is printed; the caller still checks the last result
+    exactly."""
+    for attempt in range(tries):
+        out = trace()
+        if not short(out) or attempt == tries - 1:
+            return out
+        print(f"profiler: {what} (trace {attempt + 1} of at most {tries}); tracing again")
+
+
+def profiled_counts(run, launches: int, dtoh: int) -> dict:
+    """run_profiled, traced again while the trace holds fewer median launches
+    or device-to-host copies than expected (see retrace)."""
+    return retrace(lambda: run_profiled(run), lambda p: p["median_launches"] < launches or p["dtoh"] < dtoh,
+                   f"fewer than {launches} median launches or {dtoh} device-to-host copies in the trace")
+
+
+def note_rows(out: dict) -> collections.Counter:
+    """A job's notes as a multiset of (start, end, pitch)."""
+    return collections.Counter(tuple(r.split(",")[:3]) for r in out["note_events.csv"].decode().splitlines()[1:])
+
+
+def batch_phase(median, card: str) -> dict:
+    """The batch runner under the shipped settings: the six held-out clips
+    (all in the 30 s bucket) in chunks of 4 and 2 songs, cold then warm;
+    8 median launches and 1 device-to-host copy per chunk; each row's stems
+    against a 1-D separation of the row and its fused outputs against
+    ``fused_analysis`` on the row and the batch's stems; every song's
+    artifact set. Then the six songs one at a time through ``run_pipeline``
+    (printed against the batch, not checked)."""
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.models import htdemucs
+    from audiotabs_tpu_torch.runtime import batch_runner, pipeline
+    from audiotabs_tpu_torch.runtime.fused import fused_analysis
+
+    s = Settings.from_env()  # the shipped settings, as the CLI reads them
+    if s.BATCH_SONGS_PER_DEVICE != CHUNK_SONGS[0] or len(HELDOUT) != sum(CHUNK_SONGS):
+        raise AssertionError(f"expected {len(HELDOUT)} clips in chunks of {s.BATCH_SONGS_PER_DEVICE}")
+    shutil.rmtree(BATCH_JOBS, ignore_errors=True)
+    per_chunk_launches = []
+
+    class CountChunk(Capture):
+        def __enter__(self):
+            super().__enter__()
+            keep = getattr(self.module, self.name)
+
+            def counted(*args, **kwargs):
+                median.LAUNCHES = 0
+                out = keep(*args, **kwargs)
+                per_chunk_launches.append(median.LAUNCHES)
+                return out
+
+            setattr(self.module, self.name, counted)
+            return self
+
+    walls = []
+    for run in range(2):
+        per_chunk_launches.clear()
+        with CountChunk(batch_runner, "_analyse_chunk"), Capture(htdemucs, "separate_program") as sep, \
+                Capture(batch_runner, "features_to_host") as host:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = batch_runner.transcribe_batch(HELDOUT, BATCH_JOBS, device="cuda", settings=s)
+            walls.append(time.perf_counter() - t0)
+        if per_chunk_launches != [SEPARATED_LAUNCHES] * len(CHUNK_SONGS):
+            raise AssertionError(f"median launches per chunk {per_chunk_launches}, expected {SEPARATED_LAUNCHES} in each of {len(CHUNK_SONGS)}")
+        if [args[1].shape[0] for args, _, _ in sep.calls] != list(CHUNK_SONGS):
+            raise AssertionError(f"chunks of {[args[1].shape[0] for args, _, _ in sep.calls]} songs, expected {list(CHUNK_SONGS)}")
+        print(f"batch run {run} ({'cold' if run == 0 else 'warm'}): {len(HELDOUT)} songs in {walls[-1]:.3f} s, "
+              f"median launches per chunk {per_chunk_launches} [{card}]")
+    batch, true_lens, sr = batch_runner._load_and_bucket(HELDOUT, s.PAD_SECONDS_BUCKET)
+    audio_s = sum(true_lens) / sr
+    print(f"batch: {audio_s:.2f} s of audio in {walls[1]:.3f} s warm = {audio_s / walls[1]:.3f} audio-s per wall s (cold {walls[0]:.3f} s) [{card}]")
+
+    # every song's artifacts, no stage error
+    for r, clip in zip(results, HELDOUT):
+        job = BATCH_JOBS / "jobs" / clip.stem
+        out = read_out(job)
+        if r.job_id != clip.stem or r.transcription_error is not None or out["result.json"]["transcription_error"] is not None:
+            raise AssertionError(f"batch song {clip.name}: job {r.job_id}, errors {r.transcription_error}")
+        missing = OUT_ARTIFACTS - set(out) - {"content_segments.json", "strum_onsets.json", "chosen_shapes.json"}
+        if missing or out["beat_times.json"]["stem_source"] != "guitar" or out["beat_times.json"]["errors"]:
+            raise AssertionError(f"batch song {clip.name}: missing {sorted(missing)}, beat_times {out['beat_times.json']['stem_source']} {out['beat_times.json']['errors']}")
+    print(f"batch: every song has result.json and the artifact set, stem guitar, no stage error")
+
+    # the last (warm) run's rows: stems against a 1-D separation, fused outputs against fused_analysis on the row
+    cfg = htdemucs.program_config(htdemucs.load_params(), s.DEMUCS_MODEL, s.stem_priority())
+    worst_stem = 0.0
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for c, ((args, kwargs, stems), feats) in enumerate(zip(sep.calls, (res for _, _, res in host.calls))):
+            model, y = args[0], args[1]
+            a = sum(CHUNK_SONGS[:c])
+            for j in range(y.shape[0]):
+                one = htdemucs.separate_program(model, y[j], *args[2:], **kwargs)
+                err = ((stems[j] - one).abs().amax(dim=-1) / one.abs().amax(dim=-1)).max().item()
+                worst_stem = max(worst_stem, err)
+                if not err < STEM_TOL:
+                    raise AssertionError(f"batch row {a + j}: stems differ from a 1-D separation by {err} of the peak")
+                row = pipeline.features_to_host(fused_analysis(
+                    stems[j, cfg["stem_idx"]].contiguous(), sr, chord_backend="deep", true_len=true_lens[a + j],
+                    y_beat=stems[j, cfg["drums_idx"]].contiguous(), y_mix=y[j]))
+                compare_with_cpu(f"batch row {a + j} vs fused_analysis", row, {k: v[j] for k, v in feats.items()}, quiet=True)
+    print(f"batch rows: stems within {worst_stem:.3g} of the peak of a 1-D separation (tolerance {STEM_TOL}); fused outputs of "
+          f"every row against fused_analysis on the row: discrete equal, floats within {FLOAT_TOL}, f16 within {F16_TOL}")
+
+    # profiler: the whole warm batch, then one chunk of each size alone
+    prof = profiled_counts(lambda: batch_runner.transcribe_batch(HELDOUT, BATCH_JOBS / "profiled", device="cuda", settings=s),
+                           SEPARATED_LAUNCHES * len(CHUNK_SONGS), len(CHUNK_SONGS))
+    print(f"batch profile: {json.dumps(prof)} [{card}]")
+    if (prof["median_launches"], prof["dtoh"]) != (SEPARATED_LAUNCHES * len(CHUNK_SONGS), len(CHUNK_SONGS)):
+        raise AssertionError(f"profiled batch: {prof['median_launches']} median launches and {prof['dtoh']} device-to-host copies")
+    chunks = {}
+    for b, rows in zip(CHUNK_SONGS, (batch[:4], batch[4:])):
+        lens = true_lens[:4] if b == 4 else true_lens[4:]
+        chunks[b] = profiled_counts(lambda: batch_runner.batched_fused_analysis(rows, sr, lens, device="cuda", settings=s), SEPARATED_LAUNCHES, 1)
+        print(f"chunk of {b} songs alone: {json.dumps(chunks[b])} [{card}]")
+        if (chunks[b]["median_launches"], chunks[b]["dtoh"]) != (SEPARATED_LAUNCHES, 1):
+            raise AssertionError(f"chunk of {b}: {chunks[b]['median_launches']} median launches, {chunks[b]['dtoh']} device-to-host copies")
+
+    # the same six songs one at a time (warm), printed against the batch
+    single = []
+    for clip, r in zip(HELDOUT, results):
+        job = BATCH_JOBS / "single" / clip.stem
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipeline.run_pipeline(job, clip, device="cuda", settings=s)
+        single.append(time.perf_counter() - t0)
+        b_out, s_out = read_out(BATCH_JOBS / "jobs" / clip.stem), read_out(job)
+        chords = [(c["start"], c["end"], c["label"]) for c in b_out["chords.json"]], [(c["start"], c["end"], c["label"]) for c in s_out["chords.json"]]
+        beats = b_out["beat_times.json"]["raw_beat_times"], s_out["beat_times.json"]["raw_beat_times"]
+        b_notes, s_notes = note_rows(b_out), note_rows(s_out)
+        same_notes = sum((b_notes & s_notes).values())
+        print(f"batch vs single {clip.name}: key {r.key_signature.name if r.key_signature else None} / {res.key_signature.name if res.key_signature else None}, "
+              f"chords equal {chords[0] == chords[1]} ({len(chords[0])} / {len(chords[1])}), raw beats equal {beats[0] == beats[1]} "
+              f"({len(beats[0])} / {len(beats[1])}, largest shift {max((abs(x - y) for x, y in zip(*beats)), default=0.0):.4f} s), "
+              f"notes {sum(b_notes.values())} / {sum(s_notes.values())}, {same_notes} in both (start, end, pitch); single run_pipeline {single[-1]:.3f} s")
+    print(f"one at a time: {sum(single):.3f} s for the six songs ({audio_s / sum(single):.3f} audio-s per wall s), batch {walls[1]:.3f} s [{card}]")
+    return {"walls": walls, "launches_per_chunk": per_chunk_launches, "profile": prof, "chunks": chunks, "single_s": single}
+
+
+def serving_phase(median, card: str, cli_result: dict) -> list[int]:
+    """The job API on the card: an inline job and a queued job drained by
+    the worker, each with the launch count set to 0 just before it (8 median
+    launches each); every artifact route; the inline result.json against the
+    CLI's. Returns the two jobs' launch counts."""
+    import http.client
+    import socket
+
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.runtime import server, worker
+
+    def request(method, path, body=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, resp.getheader("Content-Type"), data
+
+    shutil.rmtree(SERVE_DATA, ignore_errors=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    httpd = server.serve(port, str(SERVE_DATA), background=True, device="cuda", settings=Settings.from_env())
+    try:
+        status, _, data = request("GET", "/health")
+        print(f"serve /health: {status} {data.decode()}")
+        if status != 200:
+            raise AssertionError("health check failed")
+        clip, queued = CLIP, REPO / "tests" / "data" / "heldout" / "heldout_picked_melody.wav"
+        launches = []
+        median.LAUNCHES = 0
+        t0 = time.perf_counter()
+        status, _, data = request("POST", "/v1/jobs?inline=1", body=clip.read_bytes(), headers={"X-Filename": clip.name})
+        inline_s = time.perf_counter() - t0
+        launches.append(median.LAUNCHES)
+        inline = json.loads(data)
+        if status != 200 or inline["status"] != "done":
+            raise AssertionError(f"inline job: {status} {inline}")
+        status, _, data = request("POST", "/v1/jobs", body=queued.read_bytes(), headers={"X-Filename": queued.name})
+        job = json.loads(data)
+        if status != 200 or job["status"] != "queued":
+            raise AssertionError(f"queued job: {status} {job}")
+        median.LAUNCHES = 0
+        t0 = time.perf_counter()
+        if worker.main(["--data-dir", str(SERVE_DATA), "--once"]) != 0:
+            raise AssertionError("worker exited non-zero")
+        worker_s = time.perf_counter() - t0
+        launches.append(median.LAUNCHES)
+        if launches != [SEPARATED_LAUNCHES] * 2:
+            raise AssertionError(f"median launches of the inline and the queued job {launches}, expected {SEPARATED_LAUNCHES} each")
+        deadline = time.perf_counter() + 60
+        while True:
+            info = json.loads(request("GET", f"/v1/jobs/{job['job_id']}")[2])
+            if info["status"] in ("done", "error") or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        if info["status"] != "done":
+            raise AssertionError(f"queued job ended {info}")
+        for job_id in (inline["job_id"], job["job_id"]):
+            for route, mime in ROUTES.items():
+                status, ctype, data = request("GET", f"/v1/jobs/{job_id}/{route}")
+                if status != 200 or ctype != mime or not data:
+                    raise AssertionError(f"GET {route} of {job_id}: {status} {ctype} {len(data)} bytes")
+        got = json.loads(request("GET", f"/v1/jobs/{inline['job_id']}/result.json")[2])
+        ref = dict(cli_result)
+        if got.pop("job_id") != inline["job_id"] or got != {k: v for k, v in ref.items() if k != "job_id"}:
+            raise AssertionError("the inline job's result.json differs from the CLI's")
+        status_q = json.loads(request("GET", f"/v1/jobs/{job['job_id']}/result.json")[2])
+        if status_q["transcription_error"] is not None or got["transcription_error"] is not None:
+            raise AssertionError(f"serving stage errors: {got['transcription_error']} / {status_q['transcription_error']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    print(f"serve: inline job ({clip.name}) {inline_s:.3f} s, worker {worker_s:.3f} s for one queued job ({queued.name}), "
+          f"median launches {launches}; {len(ROUTES)} artifact routes of both jobs 200 with their content types; "
+          f"inline result.json equals the CLI's [{card}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -603,78 +919,96 @@ def main() -> int:
     median.build()
     print(f"build: median_filter.cu in {time.perf_counter() - t0:.2f} s")
 
-    kernel = check_kernel(median)
+    t_run = time.perf_counter()
+
+    def run_phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"phase {name}: {time.perf_counter() - t0:.2f} s")
+        return out
+
+    kernel = run_phase("kernel", lambda: check_kernel(median))
 
     y, sr, _ = decode_for_analysis(CLIP, pipeline.ANALYSIS_SR)
     y = peak_normalize(y)
     y_pad = np.ascontiguousarray(pipeline._pad_to_bucket(y, sr, 30.0), dtype=np.float32)
-    separation_phase(y_pad, sr)
-    print(f"separation measured on {card}")
+    run_phase("separation", lambda: separation_phase(y_pad, sr))
 
     # the main path: the CLI under the shipped settings
-    main_path = cli_phase(median, card)
+    main_path = run_phase("cli", lambda: cli_phase(median, card))
+    # the job plane and the batch runner under the shipped settings
+    serve_launches = run_phase("serve", lambda: serving_phase(median, card, main_path["out"]["result.json"]))
+    batch = run_phase("batch", lambda: batch_phase(median, card))
 
-    # run_analysis under the shipped settings, separation on; the stems it
-    # separates are kept, so the CPU can run the fused analysis on the same inputs
-    shipped = Settings()
-    if not shipped.ENABLE_DEMUCS:
-        raise AssertionError("the shipped settings do not separate")
-    used = {}
-    separate = pipeline.separate_stems_device
+    def analysis_phase():
+        """run_analysis under the shipped settings, separation on; the stems it
+        separates are kept, so the CPU can run the fused analysis on the same inputs."""
+        shipped = Settings()
+        if not shipped.ENABLE_DEMUCS:
+            raise AssertionError("the shipped settings do not separate")
+        used = {}
+        separate = pipeline.separate_stems_device
 
-    def keep_stems(*args, **kwargs):
-        used.clear()
-        used.update(separate(*args, **kwargs))
-        return used
+        def keep_stems(*args, **kwargs):
+            used.clear()
+            used.update(separate(*args, **kwargs))
+            return used
 
-    pipeline.separate_stems_device = keep_stems
-    try:
-        feats, beats, info, launches = drive(median, shipped, SEPARATED_LAUNCHES)
-    finally:
-        pipeline.separate_stems_device = separate
-    if info != {"stem_source": "guitar", "errors": []}:
-        raise AssertionError(f"the shipped path did not separate cleanly: {info}")
-    check_outputs(feats, beats, FUSED_DEEP_KEYS | {"beat_from_drums"})
-    print(f"beat_from_drums {bool(feats['beat_from_drums'])}")
+        pipeline.separate_stems_device = keep_stems
+        try:
+            feats, beats, info, launches = drive(median, shipped, SEPARATED_LAUNCHES)
+        finally:
+            pipeline.separate_stems_device = separate
+        if info != {"stem_source": "guitar", "errors": []}:
+            raise AssertionError(f"the shipped path did not separate cleanly: {info}")
+        check_outputs(feats, beats, FUSED_DEEP_KEYS | {"beat_from_drums"})
+        print(f"beat_from_drums {bool(feats['beat_from_drums'])}")
 
-    with torch.inference_mode():
-        cpu_out = fused_analysis(used["guitar"].cpu(), sr, chord_backend="deep", true_len=len(y),
-                                 y_beat=used["drums"].cpu(), y_mix=torch.from_numpy(y_pad))
-        cpu_feats = pipeline.features_to_host(cpu_out)
-    compare_with_cpu("card stems, cuda vs cpu fused", cpu_feats, feats)
-    t100 = int(len(y) / sr * 100)
-    cpu_beats = pipeline.beats_from_decoded(cpu_feats["dbn_phases"][:t100], cpu_feats["dbn_intervals"][:t100],
-                                            np.asarray(cpu_feats["beat_activation"], dtype=np.float32)[:t100], fps=100)
-    if not np.array_equal(cpu_beats, beats):
-        raise AssertionError("beat times differ between cuda and cpu on the card's stems")
-    print(f"card stems, cuda vs cpu fused: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
+        with torch.inference_mode():
+            cpu_out = fused_analysis(used["guitar"].cpu(), sr, chord_backend="deep", true_len=len(y),
+                                     y_beat=used["drums"].cpu(), y_mix=torch.from_numpy(y_pad))
+            cpu_feats = pipeline.features_to_host(cpu_out)
+        compare_with_cpu("card stems, cuda vs cpu fused", cpu_feats, feats)
+        t100 = int(len(y) / sr * 100)
+        cpu_beats = pipeline.beats_from_decoded(cpu_feats["dbn_phases"][:t100], cpu_feats["dbn_intervals"][:t100],
+                                                np.asarray(cpu_feats["beat_activation"], dtype=np.float32)[:t100], fps=100)
+        if not np.array_equal(cpu_beats, beats):
+            raise AssertionError("beat times differ between cuda and cpu on the card's stems")
+        print(f"card stems, cuda vs cpu fused: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
 
-    stage_times(y_pad, sr)
-    profile_busy_share(lambda: pipeline.run_analysis(CLIP, device="cuda", settings=shipped))
+        stage_times(y_pad, sr)
+        profile_busy_share(lambda: pipeline.run_analysis(CLIP, device="cuda", settings=shipped))
 
-    # the whole pipeline on the CPU, on its own stems, against the card's CLI run
-    t0 = time.perf_counter()
-    with Capture(pipeline, "features_to_host") as cpu_host:
-        cpu_res = pipeline.run_pipeline(JOBS / "cpu", CLIP, device="cpu", settings=shipped)
-    print(f"cpu run_pipeline (shipped settings, own stems): {time.perf_counter() - t0:.3f} s, errors {cpu_res.transcription_error}")
-    e2e_feats = cpu_host.last
-    agree = {k: f"{int((e2e_feats[k] == feats[k]).sum())} of {feats[k].size}" for k in DISCRETE + ("beat_from_drums",)}
-    print(f"end to end, cuda vs cpu (each on its own stems): equal elements {agree}")
-    compare_pipelines(main_path["out"], cpu_res, read_out(JOBS / "cpu"))
+        # the whole pipeline on the CPU, on its own stems, against the card's CLI run
+        t0 = time.perf_counter()
+        with Capture(pipeline, "features_to_host") as cpu_host:
+            cpu_res = pipeline.run_pipeline(JOBS / "cpu", CLIP, device="cpu", settings=shipped)
+        print(f"cpu run_pipeline (shipped settings, own stems): {time.perf_counter() - t0:.3f} s, errors {cpu_res.transcription_error}")
+        e2e_feats = cpu_host.last
+        agree = {k: f"{int((e2e_feats[k] == feats[k]).sum())} of {feats[k].size}" for k in DISCRETE + ("beat_from_drums",)}
+        print(f"end to end, cuda vs cpu (each on its own stems): equal elements {agree}")
+        compare_pipelines(main_path["out"], cpu_res, read_out(JOBS / "cpu"))
+        return launches
 
-    # the ENABLE_DEMUCS=False path, as before
-    off = dataclasses.replace(shipped, ENABLE_DEMUCS=False)
-    off_feats, off_beats, off_info, off_launches = drive(median, off, len(MAIN_PATH_MEDIANS))
-    if off_info != {"stem_source": "mix", "errors": []}:
-        raise AssertionError(f"unexpected ENABLE_DEMUCS=False run: {off_info}")
-    check_outputs(off_feats, off_beats, FUSED_DEEP_KEYS)
-    t0 = time.perf_counter()
-    cpu_feats, cpu_beats, _ = pipeline.run_analysis(CLIP, device="cpu", settings=off)
-    print(f"cpu run_analysis (ENABLE_DEMUCS=False): {time.perf_counter() - t0:.3f} s")
-    compare_with_cpu("mix, cuda vs cpu", cpu_feats, off_feats)
-    if not np.array_equal(cpu_beats, off_beats):
-        raise AssertionError("beat times differ between cuda and cpu")
-    print(f"mix, cuda vs cpu: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
+    def mix_phase():
+        """The ENABLE_DEMUCS=False path, as before."""
+        off = dataclasses.replace(Settings(), ENABLE_DEMUCS=False)
+        off_feats, off_beats, off_info, off_launches = drive(median, off, len(MAIN_PATH_MEDIANS))
+        if off_info != {"stem_source": "mix", "errors": []}:
+            raise AssertionError(f"unexpected ENABLE_DEMUCS=False run: {off_info}")
+        check_outputs(off_feats, off_beats, FUSED_DEEP_KEYS)
+        t0 = time.perf_counter()
+        cpu_feats, cpu_beats, _ = pipeline.run_analysis(CLIP, device="cpu", settings=off)
+        print(f"cpu run_analysis (ENABLE_DEMUCS=False): {time.perf_counter() - t0:.3f} s")
+        compare_with_cpu("mix, cuda vs cpu", cpu_feats, off_feats)
+        if not np.array_equal(cpu_beats, off_beats):
+            raise AssertionError("beat times differ between cuda and cpu")
+        print(f"mix, cuda vs cpu: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
+        return off_launches
+
+    launches = run_phase("analysis", analysis_phase)
+    off_launches = run_phase("mix", mix_phase)
+    print(f"all phases: {time.perf_counter() - t_run:.2f} s")
 
     print(json.dumps({"kernels": [{
         "name": "median_filter",
@@ -684,6 +1018,8 @@ def main() -> int:
         "launches": main_path["launches"],
         "launches_run_analysis": launches,
         "launches_without_separation": off_launches,
+        "launches_per_batch_chunk": batch["launches_per_chunk"],
+        "launches_inline_and_queued_job": serve_launches,
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
@@ -691,6 +1027,8 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": kernel["plain_ms"],
         "ms_per_launch": kernel["per_launch"],
+        "ms_per_batched_launch": kernel["batched"],
+        "per_batch_chunk": kernel["per_chunk"],
         "single_ms": kernel["single_ms"],
         "device_ms": kernel["device_ms"],
         "issue_bound_ms": kernel["issue_bound_ms"],
@@ -700,7 +1038,6 @@ def main() -> int:
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

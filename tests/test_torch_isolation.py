@@ -24,17 +24,20 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert {
         "audiotabs_tpu_torch.runtime.pipeline", "audiotabs_tpu_torch.ops.median", "audiotabs_tpu_torch.models.htdemucs",
         "audiotabs_tpu_torch.runtime.cli", "audiotabs_tpu_torch.runtime.modes", "audiotabs_tpu_torch.schemas",
-        "audiotabs_tpu_torch.score.musicxml",
+        "audiotabs_tpu_torch.score.musicxml", "audiotabs_tpu_torch.runtime.batch_runner", "audiotabs_tpu_torch.runtime.jobs",
+        "audiotabs_tpu_torch.runtime.worker", "audiotabs_tpu_torch.runtime.server", "audiotabs_tpu_torch.runtime.celery_integration",
     } <= set(mods)
-    # the GPU machine has no pydantic: the port must not need it
+    # the GPU machine has no pydantic and no celery: the port must not need them
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['pydantic'] = None\n"
+        "sys.modules['celery'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if sys.modules[m] is not None and (m == 'audiotabs_tpu' or m.startswith(('audiotabs_tpu.', 'jax', 'pydantic'))))\n"
         "assert not bad, bad\n"
+        "assert sys.modules['audiotabs_tpu_torch.runtime.celery_integration'].celery is None\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
