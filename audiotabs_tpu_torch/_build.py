@@ -1,8 +1,11 @@
-"""Build the package's CUDA sources with nvcc at first use and load them.
+"""Build the package's CUDA sources with nvcc, and the host sources of
+``native/`` with g++/gcc, at first use.
 
 Each ``csrc/<name>.cu`` compiles to ``build/<name>-<hash>.so`` beside the
 package (``build/`` is git-ignored), with a plain C interface loaded through
-ctypes. A source may include headers that Python generates; they are written
+ctypes. ``build_native`` compiles a C or C++ source of the repo's ``native/``
+directory the same way (``build/<stem>-<hash>.so``); the port reads the
+source there and never builds into or loads from ``native/``. A source may include headers that Python generates; they are written
 to ``build/<name>-<hash>/`` and put on the include path. The hash covers the
 source, the generated headers and the flags, so an edited source or schedule
 never loads a stale library. ptxas's report of registers and spills for each
@@ -76,6 +79,25 @@ def load(name: str, headers: dict[str, str] | None = None) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name, headers)))
             _LIBS[name] = lib
         return lib
+
+
+def build_native(src: Path, compiler: str, flags: tuple[str, ...], libs: tuple[str, ...] = ()) -> Path:
+    """Compile the host source ``src`` into a shared library with ``compiler``
+    unless the current build exists; the hash covers the source and the
+    command line. Raises when the compiler is missing or fails."""
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join((compiler, *flags, *libs)).encode())
+    out = BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src), *libs], capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{compiler} failed for {src.name}:\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    return out
 
 
 def ptxas_usage(name: str, headers: dict[str, str] | None = None) -> dict[str, dict[str, int]]:

@@ -2,11 +2,14 @@
 
 Counterpart of audiotabs_tpu/analysis/content_classifier.py. The window
 metrics (``_window_metrics``) run on the device with all windows as one
-batch (the JAX package vmaps one window's program); the rule-based scoring
+batch (the JAX package vmaps one window's program), the HPSS medians of the
+whole [W, 513, T] batch on the median kernel; the rule-based scoring
 (``classify_metrics``, ``analyze_musical_content``,
 ``_segments_from_metrics``) is host numpy, arithmetic unchanged. The
-pipeline always passes the fused analysis' metrics as ``precomputed``; the
-standalone pass over raw audio is not ported (ROADMAP.md, queue 1, item 14).
+pipeline passes the fused analysis' metrics as ``precomputed`` under the
+shipped 3 s / 1.5 s windows; any other window setting builds its windows on
+the host and computes their metrics on ``device`` (the card unless the
+caller names the CPU).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import on_device
 from ..ops.hpss import hpss_masks
 from ..ops.onset import onset_detect_frames, onset_strength
 from ..ops.pyin import pyin
@@ -140,19 +144,49 @@ def analyze_musical_content(
     hop_sec: float = 1.5,
     min_segment_sec: float = 1.0,
     precomputed: tuple[np.ndarray, np.ndarray] | None = None,
+    device=None,
 ) -> list[ContentSegment]:
-    """Classify sections from ``precomputed`` = (window start samples, [W, 4]
-    metric matrix) of the fused analysis; ``y`` gives the song's length."""
+    """Classify sections. ``precomputed`` = (window start samples, [W, 4]
+    metric matrix) from the fused analysis skips the device pass."""
     y = np.asarray(y)
+    duration = len(y) / sr
+
     if precomputed is not None:
         starts_s, metrics = precomputed
         spans = [(int(p) / sr, min((int(p) + int(window_sec * sr)), len(y)) / sr) for p in starts_s]
         disp, dens, per, harm = (np.asarray(metrics)[:, i] for i in range(4))
         return _segments_from_metrics(spans, disp, dens, per, harm, min_segment_sec)
 
-    raise NotImplementedError(
-        "analyze_musical_content without precomputed window metrics is not ported (ROADMAP.md, queue 1, item 14)"
-    )
+    y = np.asarray(y, dtype=np.float32)
+    win = int(window_sec * sr)
+    hop = int(hop_sec * sr)
+    if duration < min_segment_sec or len(y) < win:
+        pad = np.zeros(max(win, int(sr)), dtype=np.float32)
+        pad[: len(y)] = y
+        d, od, p, h = (float(v) for v in _metrics_on_device(pad[None, :], sr, device)[0])
+        ctype, conf = classify_metrics(d, od, p, h)
+        return [
+            ContentSegment(0.0, duration, ctype.value, conf, {
+                "pitch_dispersion": d, "onset_density": od, "periodicity": p, "harmonic_ratio": h,
+            })
+        ]
+
+    starts = list(range(0, len(y) - int(0.5 * sr), hop))
+    windows = np.zeros((len(starts), win), dtype=np.float32)
+    spans = []
+    for i, pos in enumerate(starts):
+        end = min(pos + win, len(y))
+        windows[i, : end - pos] = y[pos:end]
+        spans.append((pos / sr, end / sr))
+
+    disp, dens, per, harm = _metrics_on_device(windows, sr, device).T
+    return _segments_from_metrics(spans, disp, dens, per, harm, min_segment_sec)
+
+
+@torch.inference_mode()
+def _metrics_on_device(windows: np.ndarray, sr: int, device) -> np.ndarray:
+    """Host windows [W, N] → their metrics [W, 4] (host numpy), computed on ``device``."""
+    return torch.stack(_window_metrics(on_device(windows, device), sr), dim=1).cpu().numpy()
 
 
 def _segments_from_metrics(

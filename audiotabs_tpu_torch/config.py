@@ -17,7 +17,7 @@ package's ``JOB_WORKERS`` is not copied: no code reads it there. ``MESH_SHAPE``
 and ``MESH_AXES`` are not copied either: the port runs on one device, and
 ``BATCH_SONGS_PER_DEVICE`` is the batch runner's chunk size on it;
 data parallelism over several cards is not ported (ROADMAP.md, queue 1,
-item 15).
+item 6).
 
 There is no module-global ``settings``: every entry point takes a
 ``Settings`` (``Settings.from_env()`` when none is given).
@@ -54,12 +54,22 @@ class Settings:
     BASIC_PITCH_FRAME_THRESHOLD: float = 0.3
     BASIC_PITCH_MIN_NOTE_MS: float = 127.70
     ENABLE_AUTO_THRESHOLD_CALIBRATION: bool = True
+    # notes mode's post-processing (theory/postprocess.py)
+    HARMONIC_DUPLICATE_WINDOW_MS: float = 100.0
+    HARMONIC_TOLERANCE_CENTS: float = 50.0
+    HARMONIC_EVEN_THRESHOLD: float = 0.7
+    HARMONIC_ODD_THRESHOLD: float = 0.55
+    TEMPORAL_CLUSTER_WINDOW_MS: float = 80.0
+    TEMPORAL_CLUSTER_GAP_MS: float = 50.0
+    DISSONANCE_CORRECTION_AGGRESSIVENESS: float = 0.5
+    DISSONANCE_WINDOW_MS: float = 60.0
+    VOICE_ASSIGN_WINDOW_MS: float = 60.0
     GUITAR_TUNING: str = "standard"
     CHORD_DETECTION_BACKEND: str = "deep"  # deep|template
     CHORD_VOCAB: str = "majmin7"  # majmin|majmin7|majmin7plus
     SWITCH_PENALTY: float = 2.5
     MIN_SEGMENT_SEC: float = 0.25
-    TRANSCRIPTION_MODE: str = "guitar"  # guitar|accompaniment (notes: not ported)
+    TRANSCRIPTION_MODE: str = "guitar"  # guitar|notes|accompaniment
     CONTENT_ANALYSIS_WINDOW_SEC: float = 3.0
     CONTENT_ANALYSIS_HOP_SEC: float = 1.5
     PAD_SECONDS_BUCKET: float = 30.0

@@ -1,8 +1,8 @@
 """DBN beat tracking: the madmom bar-pointer model.
 
 Counterpart of audiotabs_tpu/decode/dbn_beats.py (``_tempo_grid``,
-``_tempo_transition``, ``_dbn_forward``, ``beats_from_decoded``,
-``estimate_tempo``, ``normalize_beat_times``). The state
+``_tempo_transition``, ``_dbn_forward``, ``dbn_beat_track``,
+``beats_from_decoded``, ``estimate_tempo``, ``normalize_beat_times``). The state
 space is (tempo, phase) stored as a padded [n_tempi, max_interval] score
 matrix; each frame is a phase roll plus a max-plus tempo transition at
 phase 0. The forward pass and the backtrack, lax.scans in JAX, are plain
@@ -15,6 +15,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from ..device import on_device
 
 
 @lru_cache(maxsize=8)
@@ -94,6 +96,34 @@ def _dbn_forward(
         phases.append(phase)
     tempos = torch.cat(tempos[::-1])
     return torch.cat(phases[::-1]), intervals[tempos]
+
+
+@torch.inference_mode()
+def dbn_beat_track(
+    activations,
+    fps: int = 100,
+    min_bpm: float = 55.0,
+    max_bpm: float = 215.0,
+    transition_lambda: float = 100.0,
+    observation_lambda: int = 16,
+    threshold: float = 0.05,
+    *,
+    device=None,
+) -> np.ndarray:
+    """Activation function [T] at ``fps`` → beat times in seconds: the
+    Viterbi on the activation's device (a host array goes to ``device``, the
+    card unless the caller names the CPU), the peak picking on the host."""
+    act = on_device(activations, device)
+    if act.numel() < 2:
+        return np.asarray([], dtype=np.float32)
+    phases, intervals = _dbn_forward(
+        act, fps=fps, min_bpm=min_bpm, max_bpm=max_bpm,
+        transition_lambda=transition_lambda, observation_lambda=observation_lambda,
+    )
+    return beats_from_decoded(
+        phases.cpu().numpy(), intervals.cpu().numpy(), act.cpu().numpy(),
+        fps=fps, observation_lambda=observation_lambda, threshold=threshold,
+    )
 
 
 def beats_from_decoded(

@@ -8,6 +8,7 @@ fallback.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,3 +23,12 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_device(y, device: str | torch.device | None = None) -> torch.Tensor:
+    """``y`` as a float32 tensor for a device stage: a tensor stays on its
+    own device; a host array is uploaded to ``resolve_device(device)``, the
+    card unless the caller names the CPU."""
+    if isinstance(y, torch.Tensor):
+        return y.to(torch.float32)
+    return torch.from_numpy(np.require(y, np.float32, ["C", "W"])).to(resolve_device(device))

@@ -1,17 +1,23 @@
-"""Host-side WAV decoding and writing (numpy).
+"""Host-side audio decoding and WAV writing (numpy).
 
-A copy of the WAV path of audiotabs_tpu/io/wav.py: ``read_wav``,
-``write_wav``, ``peak_normalize``, ``decode_for_analysis``, and
-``write_artifact_async``, the thread that writes the 44.1 kHz mono work
-artifact while the card runs (the JAX ``decode_for_analysis`` starts it
-itself). Other containers (mp3, the FFmpeg shim) are not ported
-(ROADMAP.md, queue 1, item 14).
+Counterpart of audiotabs_tpu/io/wav.py: the RIFF/WAVE codec (``read_wav``,
+``write_wav``), ``load_wav`` (the native C++ decoder of io/native.py first),
+``peak_normalize``, and the decoders of any upload with the JAX package's
+routing: WAV by its suffix or its header, then MP3 through libmpg123
+(io/mp3.py), then any container through the FFmpeg-library shim
+(io/avdecode.py), then an ``ffmpeg`` binary (``decode_to_mono_44k``), and an
+error when none is present. ``write_artifact_async`` is the thread that
+writes the 44.1 kHz mono work artifact while the card runs (the JAX
+``decode_for_analysis`` starts it itself).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import struct
+import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -101,6 +107,25 @@ def write_wav(path: str | os.PathLike, x: np.ndarray, sr: int, *, pcm16: bool = 
     Path(path).write_bytes(hdr + body)
 
 
+def load_wav(path: str | os.PathLike, mono: bool = True) -> tuple[np.ndarray, int]:
+    """Load a WAV as float32; downmix to mono by the channel mean. Uses the
+    native decoder when it is built, else the pure-Python codec."""
+    try:
+        from .native import read_wav_native
+
+        native = read_wav_native(path, mono=mono)
+        if native is not None:
+            return native
+    except Exception:
+        pass
+    x, sr = read_wav(path)
+    if mono and x.shape[1] > 1:
+        x = x.mean(axis=1)
+    elif mono:
+        x = x[:, 0]
+    return np.ascontiguousarray(x, dtype=np.float32), sr
+
+
 def peak_normalize(x: np.ndarray, peak: float = 0.95) -> np.ndarray:
     """Scale so max |x| == peak (reference: audio.py:24-26)."""
     m = float(np.max(np.abs(x))) if x.size else 0.0
@@ -109,16 +134,105 @@ def peak_normalize(x: np.ndarray, peak: float = 0.95) -> np.ndarray:
     return (x * (peak / m)).astype(np.float32)
 
 
+def decode_mono(input_path: str | os.PathLike) -> tuple[np.ndarray, int] | None:
+    """Decode a WAV/MP3/FFmpeg-supported container to mono at its native
+    rate, or None when no in-process decoder recognizes the bytes."""
+    input_path = Path(input_path)
+    if input_path.suffix.lower() in (".wav", ".wave") or _looks_like_wav(input_path):
+        return load_wav(input_path, mono=True)
+
+    from .mp3 import decode_mp3, looks_like_mp3, mp3_available
+
+    if (input_path.suffix.lower() == ".mp3" or looks_like_mp3(input_path)) and mp3_available():
+        x, sr = decode_mp3(input_path, mono=True)
+        return x.astype(np.float32), sr
+
+    from .avdecode import av_available, decode_any
+
+    if av_available():
+        try:
+            x, sr = decode_any(input_path)
+        except RuntimeError:
+            return None
+        if x is not None and x.size:
+            return x.astype(np.float32), sr
+    return None
+
+
 def decode_for_analysis(input_path: str | os.PathLike, analysis_sr: int) -> tuple[np.ndarray, int, tuple[np.ndarray, int]]:
-    """Decode a WAV to mono at ``analysis_sr`` with one resample from the
+    """Decode any upload to mono at ``analysis_sr`` with one resample from the
     native rate → (audio, analysis_sr, (native_audio, native_sr)).
 
     The native-rate audio is returned for the full-band detectors of the
-    host tail (strum onsets), as in the JAX package."""
-    x, sr = read_wav(input_path)
-    x = np.ascontiguousarray(x.mean(axis=1), dtype=np.float32)  # mono: mean of the channels
+    host tail (strum onsets), as in the JAX package. When no in-process
+    decoder recognizes the file, the ``ffmpeg`` binary decodes it to mono
+    44.1 kHz (``decode_to_mono_44k``), and that is the native audio."""
+    decoded = decode_mono(input_path)
+    if decoded is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            x, sr = decode_to_mono_44k(input_path, Path(tmp) / "mono_44k.wav")
+    else:
+        x, sr = decoded
     y = resample_poly_host(x, sr, analysis_sr) if sr != analysis_sr else x
     return y, analysis_sr, (x, sr)
+
+
+def decode_to_mono_44k(input_path: str | os.PathLike, out_path: str | os.PathLike) -> tuple[np.ndarray, int]:
+    """Decode any input to a mono 44.1 kHz WAV at ``out_path``, returning the
+    audio: WAV, MP3 and the FFmpeg shim in process, else the ``ffmpeg``
+    binary; raises when none of them can decode it."""
+    input_path = Path(input_path)
+    target_sr = 44100
+    if input_path.suffix.lower() in (".wav", ".wave") or _looks_like_wav(input_path):
+        x, sr = load_wav(input_path, mono=True)
+        if sr != target_sr:
+            x = resample_poly_host(x, sr, target_sr)
+        write_wav(out_path, x, target_sr)
+        return x, target_sr
+
+    from .mp3 import decode_mp3, looks_like_mp3, mp3_available
+
+    if (input_path.suffix.lower() == ".mp3" or looks_like_mp3(input_path)) and mp3_available():
+        x, sr = decode_mp3(input_path, mono=True)
+        if sr != target_sr:
+            x = resample_poly_host(x, sr, target_sr)
+        x = x.astype(np.float32)
+        write_wav(out_path, x, target_sr)
+        return x, target_sr
+
+    # any other container (ogg/flac/m4a/...) through the FFmpeg-library shim
+    from .avdecode import av_available, decode_any
+
+    if av_available():
+        try:
+            x, sr = decode_any(input_path)
+        except RuntimeError:
+            x = None
+        if x is not None and x.size:
+            if sr != target_sr:
+                x = resample_poly_host(x, sr, target_sr)
+            x = x.astype(np.float32)
+            write_wav(out_path, x, target_sr)
+            return x, target_sr
+
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        raise RuntimeError(f"cannot decode {input_path.name}: not a WAV and no ffmpeg binary available")
+    subprocess.run(
+        [ffmpeg, "-y", "-i", str(input_path), "-ac", "1", "-ar", str(target_sr), str(out_path)],
+        check=True,
+        capture_output=True,
+    )
+    return load_wav(out_path, mono=True)
+
+
+def _looks_like_wav(path: Path) -> bool:
+    try:
+        with open(path, "rb") as f:
+            hdr = f.read(12)
+        return hdr[:4] == b"RIFF" and hdr[8:12] == b"WAVE"
+    except OSError:
+        return False
 
 
 def write_artifact_async(x: np.ndarray, sr: int, out_path: str | os.PathLike) -> threading.Thread:

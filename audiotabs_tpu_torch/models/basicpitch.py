@@ -1,8 +1,10 @@
 """Polyphonic AMT posteriors: the Basic Pitch CNN and the harmonic salience.
 
 Counterpart of audiotabs_tpu/models/basicpitch.py (``hcqt``, ``cnn_apply``,
-``salience_posteriors``, ``load_params``, and the host note decoder
-``notes_from_posteriors``, numpy, arithmetic unchanged). The CNN is an
+``salience_posteriors``, ``load_params``, the host note decoder
+``notes_from_posteriors`` and ``chroma_from_note_events``, numpy, arithmetic
+unchanged, and ``transcribe_polyphonic``, the whole path from audio with the
+posteriors on the device). The CNN is an
 nn.Module of Conv2d layers in NCHW with the JAX "SAME" padding written out.
 """
 
@@ -15,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..device import on_device
 from ..ops.cqt import hybrid_cqt
 from ..theory.events import NoteEvent
 from . import convert
@@ -245,3 +248,53 @@ def notes_from_posteriors(
     events = [e for e, k in zip(events, keep) if k]
 
     return sorted(events, key=lambda e: e.start_time_s)
+
+
+def transcribe_polyphonic(
+    y,
+    sr: int,
+    *,
+    onset_threshold: float = 0.5,
+    frame_threshold: float = 0.3,
+    min_note_ms: float = 127.70,
+    melodia_trick: bool = True,
+    params: dict | None = None,
+    device=None,
+) -> list[NoteEvent]:
+    """Full polyphonic transcription (the CNN if weights load, else the
+    salience) of the whole signal in float32: posteriors on the device,
+    notes on the host."""
+    p = params if params is not None else load_params()
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        yd = on_device(y, device)
+        if p is not None:
+            net = BasicPitchCNN.from_params(p).to(yd.device).eval()
+            onset, frame_post, _ = cnn_apply(net, hcqt(yd, sr))
+        else:
+            onset, frame_post = salience_posteriors(yd, sr)
+            # the salience frame posterior runs hotter than a calibrated CNN's;
+            # rescale the caller's CNN-calibrated thresholds into its range
+            onset_threshold = min(onset_threshold, 0.45)
+            frame_threshold = min(frame_threshold, 0.35)
+        onset, frame_post = onset.cpu().numpy(), frame_post.cpu().numpy()
+    return notes_from_posteriors(
+        onset,
+        frame_post,
+        fps=sr / HOP,
+        onset_threshold=onset_threshold,
+        frame_threshold=frame_threshold,
+        min_note_ms=min_note_ms,
+        melodia_trick=melodia_trick,
+    )
+
+
+def chroma_from_note_events(events: list[NoteEvent], n_frames: int, fps: float) -> np.ndarray:
+    """[12, n_frames] chroma matrix from note events
+    (reference: amt/basic_pitch.py:116-156)."""
+    out = np.zeros((12, n_frames), dtype=np.float32)
+    for ev in events:
+        a = int(np.clip(ev.start_time_s * fps, 0, n_frames - 1))
+        b = int(np.clip(ev.end_time_s * fps, a + 1, n_frames))
+        out[ev.pitch_midi % 12, a:b] += ev.amplitude
+    m = out.max()
+    return out / m if m > 0 else out

@@ -1,7 +1,8 @@
 """Deep chroma DNN (counterpart of audiotabs_tpu/models/deepchroma.py).
 
 Context-stacked log-filtered spectrogram frames at 10 fps → 3 ReLU layers
-of 512 → 12 sigmoid chroma units, as an nn.Module.
+of 512 → 12 sigmoid chroma units, as an nn.Module; ``deep_chroma_apply`` is
+the whole path from audio.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..device import on_device
 from ..ops.spectral import as_device, hann_window
 from ..ops.spectral import frame as frame_signal
 from . import convert
@@ -91,6 +93,16 @@ class DeepChromaDNN(nn.Module):
 
 def apply(net: DeepChromaDNN, feats: torch.Tensor) -> torch.Tensor:
     return net(feats)
+
+
+@torch.inference_mode()
+def deep_chroma_apply(params: dict, y, sr: int, *, device=None) -> np.ndarray:
+    """Full path on the device: audio → [12, T] chroma at 10 fps (host numpy).
+    ``y`` is a tensor (its device is used) or a host array (uploaded to
+    ``device``, the card unless the caller names the CPU)."""
+    yd = on_device(y, device)
+    net = DeepChromaDNN.from_params(params).to(yd.device).eval()
+    return net(features(yd, sr)).T.cpu().numpy()
 
 
 def load_params(path: str | None = None) -> dict | None:

@@ -546,7 +546,7 @@ def separate_stems_device(y: torch.Tensor, sr: int, model_name: str = "htdemucs_
         raise NotImplementedError(
             f"separation of a {y.dim()}-D signal at {sr} Hz takes the host path "
             "(audiotabs_tpu/models/htdemucs.py::separate_stems, apply_model, resample_poly_host), "
-            "which is not ported")
+            "which is not ported (ROADMAP.md, queue 1, item 4)")
     cfg = program_config(params, model_name, list(MODEL_STEMS["htdemucs"]))
     with torch.inference_mode():
         out = separate_program(load_model(y.device), y, sr, cfg["seg"], cfg["stride"], shifts, bf16=bf16)

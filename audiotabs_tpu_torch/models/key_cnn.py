@@ -2,7 +2,8 @@
 
 Log-filtered spectrogram at 5 fps → three ELU convolutions with band-axis
 max pooling → time average (optionally masked) → dense softmax over 24 keys;
-``key_prediction_to_label`` (host numpy) names the argmax.
+``key_prediction_to_label`` (host numpy) names the argmax, and
+``estimate_key_cnn`` runs the whole path from audio.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..device import on_device
 from ..theory.vocabulary import NOTE_NAMES_SHARP
 from . import convert
 from .basicpitch import SameConv2d
@@ -82,3 +84,20 @@ def load_params(path: str | None = None) -> dict | None:
         logging.getLogger(__name__).warning("key_cnn checkpoint %s rejected: out_w shape %s != %s", path, None if ow is None else ow.shape, want)
         return None
     return params
+
+
+@torch.inference_mode()
+def estimate_key_cnn(y, sr: int, params: dict | None = None, *, device=None):
+    """Audio → KeyEstimate via the CNN on the device, None when no weights are loaded."""
+    p = params or load_params()
+    if p is None:
+        return None
+    yd = on_device(y, device)
+    net = KeyCNN.from_params(p).to(yd.device).eval()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        probs = net(features(yd, sr)).cpu().numpy()
+    tonic, mode = key_prediction_to_label(probs).split()
+    from ..theory.key import _make_estimate
+    from ..theory.vocabulary import NOTE_TO_PC
+
+    return _make_estimate(NOTE_TO_PC[tonic], mode, float(probs.max()))

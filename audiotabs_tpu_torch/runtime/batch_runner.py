@@ -15,7 +15,7 @@ start after the last chunk is dispatched and overlap no device work
 
 Runs on the card unless ``device="cpu"``; raises when no GPU is present and
 the CPU was not asked for. The JAX package shards a batch over a device
-mesh; the port runs on one device (ROADMAP.md, queue 1, item 15).
+mesh; the port runs on one device (ROADMAP.md, queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -46,12 +46,12 @@ def _load_and_bucket(paths: list[Path], bucket_s: float) -> tuple[np.ndarray, li
     The JAX batch path's decode order: mono mean, peak-normalise at the
     native rate, then resample (the single-song path resamples first)."""
     from ..io.resample import resample_poly_host
-    from ..io.wav import peak_normalize, read_wav
+    from ..io.wav import load_wav, peak_normalize
 
     signals = []
     for p in paths:
-        x, sr = read_wav(p)
-        y = peak_normalize(np.ascontiguousarray(x.mean(axis=1), dtype=np.float32))
+        y, sr = load_wav(p)
+        y = peak_normalize(y)
         if sr != ANALYSIS_SR:
             y = resample_poly_host(y, sr, ANALYSIS_SR)
         signals.append(y)
@@ -204,7 +204,7 @@ def transcribe_batch(
         for sub in ("input", "work", "out"):
             (job_dir / sub).mkdir(parents=True, exist_ok=True)
         return run_pipeline_from_features(
-            feats_i, true_lens[i], sr, job_dir, job_id, stem_source=batch_stem_source, settings=s
+            feats_i, true_lens[i], sr, job_dir, job_id, stem_source=batch_stem_source, settings=s, device=dev
         )
 
     # every chunk is dispatched before the stream yields its first transfer;

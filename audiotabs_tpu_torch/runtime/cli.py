@@ -3,7 +3,7 @@
 The port of audiotabs_tpu/runtime/cli.py. Runs on the card unless
 ``--device cpu`` is given:
 
-    python -m audiotabs_tpu_torch.runtime.cli song.wav [--job-dir DIR] [--mode accompaniment] [--device cpu]
+    python -m audiotabs_tpu_torch.runtime.cli song.wav [--job-dir DIR] [--mode guitar|notes|accompaniment] [--device cpu]
 
 Writes ``<job dir>/out/result.json`` beside the pipeline's artifacts, and
 removes ``work/`` unless ``--keep`` is given.
@@ -25,7 +25,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description="audiotabs_tpu_torch debug transcribe")
     ap.add_argument("audio", type=Path)
     ap.add_argument("--job-dir", type=Path, default=None)
-    ap.add_argument("--mode", choices=("guitar", "accompaniment"), default=None)
+    ap.add_argument("--mode", choices=("guitar", "notes", "accompaniment"), default=None)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     ap.add_argument("--keep", action="store_true", help="keep work/ intermediates")
     args = ap.parse_args(argv)

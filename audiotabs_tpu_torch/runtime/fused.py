@@ -50,7 +50,7 @@ def load_models(device: torch.device) -> AnalysisModels:
     """Load every checkpoint through models/convert.py onto ``device`` (once per device)."""
     br = beat_rnn.load_params()
     if br is None:
-        # the weight-free onset activation of the JAX package is not ported yet
+        # the weight-free onset activation of the JAX package is not ported yet (ROADMAP.md, queue 1, item 5)
         raise RuntimeError("the beat_rnn checkpoint is required (BEAT_RNN_WEIGHTS is off or the file is missing)")
 
     def net(module_cls, params):

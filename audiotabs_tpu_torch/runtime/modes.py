@@ -1,13 +1,15 @@
-"""Transcription modes: guitar (hybrid) and accompaniment (slash).
+"""Transcription modes: guitar (hybrid), accompaniment (slash), notes.
 
 Capability parity with the reference's mode machinery (reference: backend/
 app/services/pipeline.py:219-430 strum events + grid quantization,
 :1307-1533 guitar mode + merge).
 
 The port's copy of ``audiotabs_tpu/runtime/modes.py``: host code, arithmetic
-unchanged. ``run_guitar_mode`` takes the pipeline's base note events; its
-own transcription fallback is not ported (ROADMAP.md, queue 1, item 14),
-nor is notes mode (``theory/postprocess.py``).
+unchanged. Notes mode is ``theory/postprocess.py``. ``run_guitar_mode``
+classifies content from the fused analysis' window metrics, or computes them
+on ``device`` for other window settings; without the pipeline's base note
+events it transcribes the signal itself on ``device`` (Basic Pitch, then the
+pYIN melody if that fails), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -279,6 +281,7 @@ def run_guitar_mode(
     precomputed_content: tuple | None = None,
     strum_envelope: np.ndarray | None = None,
     y_strum: tuple[np.ndarray, int] | None = None,
+    device=None,
 ) -> ModeResult:
     """Hybrid mode: content classification routes each section to melodic
     transcription or strum detection (pipeline.py:1307-1533). Pass
@@ -287,13 +290,18 @@ def run_guitar_mode(
     envelope — accompaniment/strum.py); otherwise the 22.05 kHz
     ``strum_envelope`` slices are used."""
     content = analyze_musical_content(
-        y, sr, window_sec=window_sec, hop_sec=hop_sec, precomputed=precomputed_content
+        y, sr, window_sec=window_sec, hop_sec=hop_sec, precomputed=precomputed_content, device=device
     )
 
     if base_note_events is None:
-        raise NotImplementedError(
-            "run_guitar_mode without base note events (its own transcription) is not ported (ROADMAP.md, queue 1, item 14)"
-        )
+        try:
+            from ..models.basicpitch import transcribe_polyphonic
+
+            base_note_events = transcribe_polyphonic(y, sr, device=device)
+        except Exception:
+            from ..decode.melody import transcribe_melody
+
+            base_note_events = transcribe_melody(y, sr, device=device)
 
     segment_shapes = assign_shapes(chords)
     note_events: list[NoteEvent] = []

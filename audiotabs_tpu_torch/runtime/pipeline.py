@@ -23,12 +23,15 @@ htdemucs weights (``HTDEMUCS_WEIGHTS=off``) the HPSS split stands in for
 separation. A failed stage is recorded in ``errors`` and passed over, as in
 the JAX pipeline.
 
-Steps 4–13 (``_pipeline_tail``) are host numpy on the fused outputs and
-touch no device tensor. The branches that recompute a device stage on the
-host when the fused analysis failed or lacks an output, and notes mode
-(``TRANSCRIPTION_MODE="notes"``), are not ported (ROADMAP.md, queue 1,
-item 14): such a branch raises ``NotImplementedError`` inside its stage, so
-the stage's error is recorded where the JAX package would record a failure.
+Steps 4–13 (``_pipeline_tail``) are host numpy on the fused outputs, in
+guitar, accompaniment or notes mode (``theory/postprocess.py``), with the
+deep or the template chord backend. Where the fused analysis failed, or lacks
+what a setting asks for (a chord vocabulary other than majmin7 for the
+template backend, content windows other than 3 s / 1.5 s), the stage
+recomputes it on the card, as the JAX package recomputes it on its device:
+the harmonic part (HPSS), the beat activation and DBN decode, the
+calibration statistics, Basic Pitch, the chroma and chord decodes and the
+content-window metrics, the medians of each on the median kernel.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch
 
 from ..config import Settings
 from ..decode.dbn_beats import beats_from_decoded
-from ..device import resolve_device
+from ..device import on_device, resolve_device
 from ..io.wav import decode_for_analysis, peak_normalize, write_artifact_async, write_wav
 from ..models.htdemucs import separate_stems_device
 from ..schemas import ChordSegment, JobResult
@@ -55,7 +58,6 @@ from .fused import fused_analysis
 _LOG = logging.getLogger(__name__)
 
 ANALYSIS_SR = 22050
-_NOT_PORTED = "is not ported (ROADMAP.md, queue 1, item 14)"
 
 
 class StageTimer:
@@ -95,11 +97,6 @@ def _write_json(path: Path, obj) -> None:
         json.dump(obj, f)
 
 
-def _check_mode(s: Settings) -> None:
-    if s.TRANSCRIPTION_MODE not in ("guitar", "accompaniment"):
-        raise NotImplementedError(f"TRANSCRIPTION_MODE={s.TRANSCRIPTION_MODE!r} (theory/postprocess.py) {_NOT_PORTED}")
-
-
 def features_to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Every output to host numpy in one transfer: the outputs are packed
     into one byte buffer on the device, copied once, and unpacked."""
@@ -121,8 +118,10 @@ def features_to_host(out: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
 @dataclasses.dataclass
 class _Analysis:
     native: tuple[np.ndarray, int]  # the mix at its own rate, peak-normalised
+    y: np.ndarray  # the mix at the analysis rate, peak-normalised, unpadded
     true_len: int
     stem: torch.Tensor  # the analysed signal on the device, padded
+    beat_source: torch.Tensor  # the drums stem when separated, else the padded mix, on the device
     stem_source: str
     feats: dict[str, np.ndarray] | None  # None when the fused analysis failed
     beat_act_from_feats: bool
@@ -201,7 +200,8 @@ def _analyse(
                 errors.append(f"analysis: {exc}")
                 _LOG.warning("fused analysis failed: %s", exc)
     return _Analysis(
-        native=(y_native, sr_native), true_len=true_len, stem=stem, stem_source=stem_source, feats=feats,
+        native=(y_native, sr_native), y=y, true_len=true_len, stem=stem, stem_source=stem_source, feats=feats,
+        beat_source=y_beat if y_beat is not None else y_mix,
         beat_act_from_feats=feats is not None and (stem is y_mix or y_beat is not None), artifact_writer=writer,
     )
 
@@ -237,7 +237,6 @@ def run_pipeline(
     no GPU is present and the CPU was not asked for."""
     dev = resolve_device(device)
     s = settings or Settings.from_env()
-    _check_mode(s)
     job_dir = Path(job_dir)
     work = job_dir / "work"
     out = job_dir / "out"
@@ -249,40 +248,53 @@ def run_pipeline(
 
     a = _analyse(Path(input_path), dev, s, timer, errors, strict=False, artifact_path=work / "audio_mono_44k.wav")
     feats, true_len = a.feats, a.true_len
-    if feats is not None:
-        y_harm = np.asarray(feats["y_harm"], dtype=np.float32)[:true_len]
-        try:
-            write_wav(work / "audio_harmonic.wav", y_harm, sr)
-        except Exception:
-            pass
-    else:
-        with timer("harmonic"):
-            # the JAX package recomputes the harmonic part here; the tail's
-            # readers of y_harm are then all off the ported slice as well
-            errors.append(f"harmonic: the host HPSS of a failed analysis {_NOT_PORTED}")
-            y_harm = a.stem[:true_len].cpu().numpy()
+    # the tail's device stages as _analyse's: inference mode, cuDNN without
+    # TF32 (the reference is float32; matmul TF32 is off by default)
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        if feats is not None:
+            y_harm = np.asarray(feats["y_harm"], dtype=np.float32)[:true_len]
+            try:
+                write_wav(work / "audio_harmonic.wav", y_harm, sr)
+            except Exception:
+                pass
+        else:
+            with timer("harmonic"):
+                # the fused analysis failed: the harmonic part of the padded
+                # stem again, on the card (two median launches)
+                try:
+                    from ..ops.hpss import harmonic
 
-    if a.artifact_writer is not None:
-        a.artifact_writer.join(timeout=30)  # artifact durable before the tail
-        if a.artifact_writer.is_alive():
-            errors.append("decode: audio_mono_44k.wav writer did not finish")
-        elif getattr(a.artifact_writer, "error", None) is not None:
-            errors.append(f"decode: audio_mono_44k.wav write failed: {a.artifact_writer.error}")
+                    y_harm = harmonic(a.stem).cpu().numpy()[:true_len]
+                    write_wav(work / "audio_harmonic.wav", y_harm, sr)
+                except Exception as exc:
+                    errors.append(f"harmonic: {exc}")
+                    y_harm = a.stem[:true_len].cpu().numpy()
 
-    return _pipeline_tail(
-        feats=feats,
-        y_harm=y_harm,
-        true_len=true_len,
-        sr=sr,
-        out=out,
-        job_id=job_dir.name,
-        timer=timer,
-        errors=errors,
-        stem_source=a.stem_source,
-        beat_act_from_feats=a.beat_act_from_feats,
-        y_native=a.native,
-        settings=s,
-    )
+        if a.artifact_writer is not None:
+            a.artifact_writer.join(timeout=30)  # artifact durable before the tail
+            if a.artifact_writer.is_alive():
+                errors.append("decode: audio_mono_44k.wav writer did not finish")
+            elif getattr(a.artifact_writer, "error", None) is not None:
+                errors.append(f"decode: audio_mono_44k.wav write failed: {a.artifact_writer.error}")
+
+        return _pipeline_tail(
+            feats=feats,
+            y_harm=y_harm,
+            y=a.y,
+            true_len=true_len,
+            sr=sr,
+            work=work,
+            out=out,
+            job_id=job_dir.name,
+            timer=timer,
+            errors=errors,
+            stem_source=a.stem_source,
+            beat_act_from_feats=a.beat_act_from_feats,
+            beat_source=a.beat_source,
+            y_native=a.native,
+            settings=s,
+            device=dev,
+        )
 
 
 def run_pipeline_from_features(
@@ -293,11 +305,13 @@ def run_pipeline_from_features(
     job_id: str | None = None,
     stem_source: str | None = None,
     settings: Settings | None = None,
+    device: str | torch.device | None = None,
 ) -> JobResult:
     """Post-analysis pipeline for a song whose fused features (host numpy)
-    were computed elsewhere: writes the artifacts and ``out/result.json``."""
+    were computed elsewhere: writes the artifacts and ``out/result.json``.
+    A stage that must recompute device work (a setting the fused features do
+    not cover) runs it on ``device``, the card unless the caller names the CPU."""
     s = settings or Settings.from_env()
-    _check_mode(s)
     job_dir = Path(job_dir)
     work = job_dir / "work"
     out = job_dir / "out"
@@ -308,19 +322,25 @@ def run_pipeline_from_features(
         write_wav(work / "audio_harmonic.wav", y_harm, sr)
     except Exception:
         pass
-    result = _pipeline_tail(
-        feats=feats,
-        y_harm=y_harm,
-        true_len=true_len,
-        sr=sr,
-        out=out,
-        job_id=job_id or job_dir.name,
-        timer=StageTimer(),
-        errors=[],
-        stem_source=stem_source or ("hpss_harmonic" if s.ENABLE_DEMUCS else "mix"),
-        beat_act_from_feats=True,
-        settings=s,
-    )
+    # the batch runner calls this from a thread pool: inference mode is per
+    # thread, cuDNN's flags are global, and no stage that reaches cuDNN (the
+    # failed-analysis fallbacks) runs from here
+    with torch.inference_mode():
+        result = _pipeline_tail(
+            feats=feats,
+            y_harm=y_harm,
+            true_len=true_len,
+            sr=sr,
+            work=work,
+            out=out,
+            job_id=job_id or job_dir.name,
+            timer=StageTimer(),
+            errors=[],
+            stem_source=stem_source or ("hpss_harmonic" if s.ENABLE_DEMUCS else "mix"),
+            beat_act_from_feats=True,
+            settings=s,
+            device=device,
+        )
     from .storage import LocalStorage
 
     LocalStorage(job_dir.parent.parent).write_json(out / "result.json", result.to_dict())
@@ -339,12 +359,21 @@ def _pipeline_tail(
     errors: list[str],
     stem_source: str,
     beat_act_from_feats: bool,
+    y: np.ndarray | None = None,
+    beat_source: torch.Tensor | None = None,
+    work: Path | None = None,
     y_native: tuple[np.ndarray, int] | None = None,
     settings: Settings,
+    device: str | torch.device | None = None,
 ) -> JobResult:
-    """Steps 4–13 on the host fused outputs ``feats``: every stage in its own
-    try block, its failure appended to ``errors``."""
+    """Steps 4–13 on the host fused outputs ``feats`` (None when the fused
+    analysis failed): every stage in its own try block, its failure appended
+    to ``errors``. A stage that recomputes device work runs it on ``device``
+    (the beat activation on ``beat_source``'s device); ``y`` is the mix at
+    the analysis rate and ``work`` the job's work directory (default: beside
+    ``out``), both read by the calibration fallback."""
     s = settings
+    work = out.parent / "work" if work is None else work
 
     # ---- 4. beat tracking + meter (pipeline.py:1682-1686; beats.py:46-58) ----
     beat_times = np.asarray([], dtype=np.float32)
@@ -353,15 +382,26 @@ def _pipeline_tail(
     with timer("beats"):
         try:
             t100 = int(true_len / sr * 100)
-            if not (beat_act_from_feats and feats is not None and "dbn_phases" in feats):
-                raise NotImplementedError(f"beat tracking without the fused DBN decode {_NOT_PORTED}")
-            act = np.asarray(feats["beat_activation"], dtype=np.float32)[:t100]
-            beat_times = beats_from_decoded(
-                np.asarray(feats["dbn_phases"])[:t100],
-                np.asarray(feats["dbn_intervals"])[:t100],
-                act,
-                fps=100,
-            )
+            if beat_act_from_feats and feats is not None and "dbn_phases" in feats:
+                act = np.asarray(feats["beat_activation"], dtype=np.float32)[:t100]
+                beat_times = beats_from_decoded(
+                    np.asarray(feats["dbn_phases"])[:t100],
+                    np.asarray(feats["dbn_intervals"])[:t100],
+                    act,
+                    fps=100,
+                )
+            else:
+                from ..decode.dbn_beats import dbn_beat_track
+
+                if beat_act_from_feats and feats is not None:
+                    act = np.asarray(feats["beat_activation"], dtype=np.float32)[:t100]
+                else:
+                    from ..models.beat_rnn import beat_activation
+                    from .fused import load_models
+
+                    src = on_device(beat_source, device)
+                    act = beat_activation(src, sr, load_models(src.device).beat, 100).cpu().numpy()[:t100]
+                beat_times = dbn_beat_track(act, fps=100, device=device)
             from ..decode.downbeats import infer_meter_and_downbeats
 
             time_sig, downbeats = infer_meter_and_downbeats(beat_times, act, fps=100)
@@ -374,18 +414,22 @@ def _pipeline_tail(
     if s.ENABLE_AUTO_THRESHOLD_CALIBRATION:
         try:
             with timer("calibration"):
-                from ..analysis.audio_quality import _to_db, calibrate_thresholds
+                from ..analysis.audio_quality import _to_db, analyze_audio_characteristics, calibrate_thresholds
 
-                if feats is None:
-                    raise NotImplementedError(f"analyze_audio_characteristics {_NOT_PORTED}")
-                chars = {
-                    "rms_db": _to_db(float(feats["char_rms_median"])),
-                    "spectral_centroid": float(feats["char_centroid"]),
-                    "spectral_rolloff": float(feats["char_rolloff"]),
-                    "harmonic_ratio": float(feats["char_harm_ratio"]),
-                    "onset_density": float(feats["char_onset_density"]),
-                    "noise_floor_db": _to_db(float(feats["char_noise_rms"])),
-                }
+                if feats is not None:
+                    chars = {
+                        "rms_db": _to_db(float(feats["char_rms_median"])),
+                        "spectral_centroid": float(feats["char_centroid"]),
+                        "spectral_rolloff": float(feats["char_rolloff"]),
+                        "harmonic_ratio": float(feats["char_harm_ratio"]),
+                        "onset_density": float(feats["char_onset_density"]),
+                        "noise_floor_db": _to_db(float(feats["char_noise_rms"])),
+                    }
+                else:
+                    chars = analyze_audio_characteristics(
+                        work / "audio_mono_44k.wav", cache_dir=work,
+                        audio=y if y is not None else y_harm, audio_sr=sr, device=device,
+                    )
                 onset_thr, frame_thr = calibrate_thresholds(chars)
                 _write_json(
                     out / "threshold_calibration.json",
@@ -403,28 +447,35 @@ def _pipeline_tail(
             from ..models.basicpitch import load_params as load_bp
             from ..models.basicpitch import notes_from_posteriors
 
-            if feats is None:
-                raise NotImplementedError(f"transcribe_polyphonic {_NOT_PORTED}")
             bp_params = load_bp()
-            fps_amt = sr / BP_HOP
-            t_amt = int(true_len / BP_HOP) + 1
-            # the salience posteriors run hotter than a trained CNN's
-            # calibrated sigmoids; cap the thresholds only on that path
-            if bp_params is None:
-                onset_thr_eff = min(onset_thr, 0.45)
-                frame_thr_eff = min(frame_thr, 0.35)
+            if feats is not None:
+                fps_amt = sr / BP_HOP
+                t_amt = int(true_len / BP_HOP) + 1
+                # the salience posteriors run hotter than a trained CNN's
+                # calibrated sigmoids; cap the thresholds only on that path
+                if bp_params is None:
+                    onset_thr_eff = min(onset_thr, 0.45)
+                    frame_thr_eff = min(frame_thr, 0.35)
+                else:
+                    onset_thr_eff, frame_thr_eff = onset_thr, frame_thr
+                base_events = notes_from_posteriors(
+                    np.asarray(feats["amt_onset"], dtype=np.float32)[:t_amt],
+                    np.asarray(feats["amt_frame"], dtype=np.float32)[:t_amt],
+                    fps=fps_amt,
+                    onset_threshold=onset_thr_eff,
+                    frame_threshold=frame_thr_eff,
+                    min_note_ms=s.BASIC_PITCH_MIN_NOTE_MS,
+                )
+                # the JAX package's backend names: the artifact contract's values
+                base_backend = "basicpitch_jax_cnn" if bp_params is not None else "basicpitch_jax"
             else:
-                onset_thr_eff, frame_thr_eff = onset_thr, frame_thr
-            base_events = notes_from_posteriors(
-                np.asarray(feats["amt_onset"], dtype=np.float32)[:t_amt],
-                np.asarray(feats["amt_frame"], dtype=np.float32)[:t_amt],
-                fps=fps_amt,
-                onset_threshold=onset_thr_eff,
-                frame_threshold=frame_thr_eff,
-                min_note_ms=s.BASIC_PITCH_MIN_NOTE_MS,
-            )
-            # the JAX package's backend names: the artifact contract's values
-            base_backend = "basicpitch_jax_cnn" if bp_params is not None else "basicpitch_jax"
+                from ..models.basicpitch import transcribe_polyphonic
+
+                base_events = transcribe_polyphonic(
+                    y_harm, sr, onset_threshold=onset_thr, frame_threshold=frame_thr,
+                    min_note_ms=s.BASIC_PITCH_MIN_NOTE_MS, params=bp_params, device=device,
+                )
+                base_backend = "basicpitch_jax"
         except Exception as exc:
             errors.append(f"transcription: {exc}")
             _LOG.warning("transcription failed: %s", exc)
@@ -454,27 +505,61 @@ def _pipeline_tail(
     chroma, chroma_times = None, None
     with timer("chords"):
         try:
-            backend = s.CHORD_DETECTION_BACKEND
-            if backend != "deep" or feats is None or "crf_path" not in feats:
-                raise NotImplementedError(f"chord extraction other than the fused deep decode {_NOT_PORTED}")
-            from ..chords.extract import CHROMA_FPS, extract_chords_deep
+            from ..chords.extract import CHROMA_FPS
 
-            t_ch = int(true_len / sr * CHROMA_FPS) + 1
-            # dc_chroma is present when the trained DeepChroma DNN ran
-            # inside the fused program — it is what the CRF decoded
-            pre = np.asarray(feats.get("dc_chroma", feats["chroma"]))[:, :t_ch]
-            pre_path = (
-                np.asarray(feats["crf_path"])[:t_ch],
-                np.asarray(feats["crf_conf"])[:t_ch],
-            )
-            chroma, chroma_times, chords = extract_chords_deep(
-                y_harm,
-                sr,
-                min_segment_sec=s.MIN_SEGMENT_SEC,
-                beat_times=raw_beats if raw_beats.size else None,
-                precomputed_chroma=pre,
-                precomputed_path=pre_path,
-            )
+            backend = s.CHORD_DETECTION_BACKEND
+            if feats is not None and backend == "template" and s.CHORD_VOCAB == "majmin7":
+                # the fused emissions and path are built with the majmin7 library
+                from ..chords.segments import beat_sync_majority, frames_to_segments
+                from ..chords.templates import build_chord_library
+
+                t_ch = int(true_len / sr * CHROMA_FPS) + 1
+                emissions = np.asarray(feats["chord_emissions"])[:, :t_ch]
+                chroma = np.asarray(feats["chroma"])[:, :t_ch]
+                labels, _T = build_chord_library(s.CHORD_VOCAB)
+                if "chord_path" in feats:
+                    path = np.asarray(feats["chord_path"])[:t_ch]
+                else:
+                    from ..decode.viterbi import viterbi_constant_switch
+
+                    path = viterbi_constant_switch(on_device(emissions, device), s.SWITCH_PENALTY)[0].cpu().numpy()
+                path_np, conf_np = beat_sync_majority(path, emissions, raw_beats if raw_beats.size else None, CHROMA_FPS)
+                chroma_times = np.arange(path_np.shape[0], dtype=np.float32) / CHROMA_FPS
+                chords = frames_to_segments(path_np, conf_np, chroma_times, labels, min_len=s.MIN_SEGMENT_SEC)
+            elif backend == "deep":
+                from ..chords.extract import extract_chords_deep
+
+                pre = None
+                pre_path = None
+                if feats is not None:
+                    t_ch = int(true_len / sr * CHROMA_FPS) + 1
+                    # dc_chroma is present when the trained DeepChroma DNN ran
+                    # inside the fused program — it is what the CRF decoded
+                    pre = np.asarray(feats.get("dc_chroma", feats["chroma"]))[:, :t_ch]
+                    if "crf_path" in feats:
+                        pre_path = (np.asarray(feats["crf_path"])[:t_ch], np.asarray(feats["crf_conf"])[:t_ch])
+                chroma, chroma_times, chords = extract_chords_deep(
+                    y_harm,
+                    sr,
+                    min_segment_sec=s.MIN_SEGMENT_SEC,
+                    beat_times=raw_beats if raw_beats.size else None,
+                    precomputed_chroma=pre,
+                    precomputed_path=pre_path,
+                    device=device,
+                )
+            else:
+                from ..chords.extract import extract_chords
+
+                chroma, chroma_times, chords = extract_chords(
+                    y_harm,
+                    sr,
+                    vocab=s.CHORD_VOCAB,
+                    switch_penalty=s.SWITCH_PENALTY,
+                    min_segment_sec=s.MIN_SEGMENT_SEC,
+                    beat_times=raw_beats if raw_beats.size else None,
+                    backend=backend,
+                    device=device,
+                )
         except Exception as exc:
             errors.append(f"chords: {exc}")
             _LOG.warning("chord extraction failed: %s", exc)
@@ -560,6 +645,7 @@ def _pipeline_tail(
                     # chordal segments detect strums on the native-rate
                     # audio (same full-band reasoning as accompaniment)
                     y_strum=y_native,
+                    device=device,
                 )
             elif mode == "accompaniment":
                 from ..theory.chord_simplify import simplify_chords_for_accompaniment
@@ -584,8 +670,13 @@ def _pipeline_tail(
                     y_strum, sr_strum, acc_chords, beat_times, tempo_bpm, use_flats=use_flats,
                     strum_envelope=strum_env, time_signature=time_sig,
                 )
-            else:
-                _check_mode(s)
+            else:  # notes
+                from ..theory.postprocess import postprocess_note_events
+
+                mode_result = ModeResult(
+                    note_events=postprocess_note_events(base_events, chords, key_sig, settings=s),
+                    backend=base_backend,
+                )
         except Exception as exc:
             errors.append(f"mode({mode}): {exc}")
             _LOG.warning("mode %s failed: %s; using raw events", mode, exc)

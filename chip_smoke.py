@@ -56,7 +56,33 @@
    the batch's (printed, not checked). Step 3 also holds the kernel exactly
    at every batched shape ([B, 1025, 1292], [B·20, 513, 130], [B, 513, 1292]
    for B = 4 and 2, both axes) and times each against its byte bound.
-10. Prints the kernel table as one JSON line, then the result line.
+10. Decode (after 7): which decoders the machine has (the native library
+    built from native/, libmpg123, libmp3lame, the libavformat headers and
+    the FFmpeg shim, an ffmpeg binary); the native resampler against
+    scipy's. Inline jobs (``POST /v1/jobs?inline=1``): the clip's WAV bytes
+    under a non-WAV suffix (found by its header) and, with libmp3lame and
+    libmpg123 present, the clip encoded to MP3: 8 median launches, no stage
+    error, the WAV job's key and chord labels; and bytes no decoder takes:
+    the job ends in the JAX package's error, with no launch. A library that
+    is absent is printed and only its check skipped.
+11. The settings the fused features do not cover alone, each through the
+    CLI on the clip under the shipped settings with one change, the launch
+    count set to 0 just before it: ``TRANSCRIPTION_MODE=notes`` (8 launches),
+    ``CHORD_DETECTION_BACKEND=template`` with ``CHORD_VOCAB`` majmin7 and
+    majmin7plus (8 each), and 4 s / 2 s content windows (10: the tail's own
+    window pass adds 2). No stage error; the CPU ``_pipeline_tail`` on the
+    card's host features writes the same artifacts (byte-equal where the
+    tail does no device work; chord confidences and content metrics within
+    FLOAT_TOL where it decodes again on the CPU). Prints each profile.json.
+12. Degraded: ``fused_analysis`` made to raise under the shipped settings;
+    ``run_pipeline`` on the card recomputes every stage: errors only
+    ``analysis: ...``, 6 median launches (harmonic, calibration, content
+    windows), the full artifact set, and the beat times, chord labels, key
+    and time signature of a CPU run of the same path on the card's stems.
+    Prints the stage times, cold and warm.
+13. Holds the kernel exactly at every shape these paths launched it at (the
+    launched inputs, random and tie-heavy), and times each new shape.
+14. Prints the kernel table as one JSON line, then the result line.
 
 Each phase prints its wall time. Any failed phase raises, and the script
 exits non-zero without a result. It imports nothing of JAX or of the JAX
@@ -897,6 +923,342 @@ def serving_phase(median, card: str, cli_result: dict) -> list[int]:
     return launches
 
 
+class RecordMedians:
+    """Records every median launch on the card made through ops/hpss.py (the
+    HPSS and mask sites): its (shape, window, axis) and a copy of its input."""
+
+    def __init__(self):
+        self.launches: list[tuple[tuple, int, int, torch.Tensor]] = []
+
+    def __enter__(self):
+        from audiotabs_tpu_torch.ops import hpss
+
+        self.hpss, self.fn = hpss, hpss.median_filter
+
+        def record(x, win, axis=-1):
+            if x.is_cuda:
+                self.launches.append((tuple(x.shape), win, -1 if axis % x.ndim == x.ndim - 1 else -2, x.detach().clone()))
+            return self.fn(x, win, axis)
+
+        hpss.median_filter = record
+        return self
+
+    def __exit__(self, *exc):
+        self.hpss.median_filter = self.fn
+        return False
+
+    def sites(self) -> list[tuple[tuple, int, int]]:
+        return [(shape, win, axis) for shape, win, axis, _ in self.launches]
+
+
+def encode_mp3(path: Path, pcm: np.ndarray, sr: int, kbps: int = 192) -> bool:
+    """Mono MP3 through the system libmp3lame (False when it is absent)."""
+    import ctypes
+
+    try:
+        lame = ctypes.CDLL("libmp3lame.so.0")
+    except OSError:
+        return False
+    lame.lame_init.restype = ctypes.c_void_p
+    gfp = ctypes.c_void_p(lame.lame_init())
+    lame.lame_set_in_samplerate(gfp, sr)
+    lame.lame_set_num_channels(gfp, 1)
+    lame.lame_set_mode(gfp, 3)  # MONO
+    lame.lame_set_brate(gfp, kbps)
+    if lame.lame_init_params(gfp) < 0:
+        raise RuntimeError("lame_init_params failed")
+    s16 = np.ascontiguousarray(np.clip(pcm, -1, 1) * 32767, dtype=np.int16)
+    out = (ctypes.c_ubyte * (len(s16) * 2 + 16384))()
+    lame.lame_encode_buffer.argtypes = [ctypes.c_void_p, np.ctypeslib.ndpointer(np.int16), ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_ubyte), ctypes.c_int]
+    n = lame.lame_encode_buffer(gfp, s16, None, len(s16), out, len(out))
+    tail = (ctypes.c_ubyte * 16384)()
+    m = lame.lame_encode_flush(gfp, tail, len(tail))
+    lame.lame_close(gfp)
+    if n < 0 or m < 0:
+        raise RuntimeError(f"lame_encode failed ({n}, {m})")
+    path.write_bytes(bytes(out[:n]) + bytes(tail[:m]))
+    return True
+
+
+def decode_phase(median, card: str, cli_result: dict) -> dict:
+    """Which decoders the machine has; the native resampler against scipy's;
+    uploads of other formats as inline jobs on the card (see step 10)."""
+    import ctypes
+    import http.client
+    import socket
+
+    from scipy.signal import resample_poly
+
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.io import avdecode, mp3, native
+    from audiotabs_tpu_torch.io.wav import load_wav
+    from audiotabs_tpu_torch.runtime import server
+
+    lib = native.get_lib()
+    try:
+        ctypes.CDLL("libmp3lame.so.0")
+        lame = True
+    except OSError:
+        lame = False
+    have = {"native": None if lib is None else Path(lib._name).name, "libmpg123": mp3.mp3_available(), "libmp3lame": lame,
+            "libavformat_headers": avdecode.headers_present(), "ffmpeg_shim": avdecode.av_available(), "ffmpeg_binary": shutil.which("ffmpeg")}
+    print(f"decoders: {json.dumps(have)}")
+    if lib is None:
+        raise AssertionError("the native library did not build from native/audiotabs_native.cpp")
+    if have["libavformat_headers"] and not have["ffmpeg_shim"]:
+        raise AssertionError("the libavformat headers are present but the FFmpeg shim did not build")
+    x, sr = load_wav(CLIP)
+    diffs = {}
+    for sr_out in (22050, 48000):
+        ref = resample_poly(x.astype(np.float64), *(np.array([sr_out, sr]) // np.gcd(sr_out, sr))).astype(np.float32)
+        got = native.resample_native(x, sr, sr_out)
+        n = min(len(ref), len(got))
+        diffs[f"{sr}->{sr_out}"] = float(np.abs(got[:n] - ref[:n]).max())
+    print(f"native resampler against scipy.signal.resample_poly, largest difference: {diffs}")
+
+    data = REPO / "build" / "chip_smoke_decode"
+    shutil.rmtree(data, ignore_errors=True)
+    data.mkdir(parents=True)
+    uploads = {"clip.upload": CLIP.read_bytes()}  # a WAV under another suffix: found by its header
+    if have["libmpg123"] and lame:
+        mp3_path = data / f"{CLIP.stem}.mp3"
+        if not encode_mp3(mp3_path, x, sr):
+            raise AssertionError("libmp3lame loaded but did not encode")
+        decoded, sr_mp3 = mp3.decode_mp3(mp3_path)
+        print(f"mp3: {mp3_path.stat().st_size} bytes at 192 kb/s, decoded {len(decoded) / sr_mp3:.3f} s at {sr_mp3} Hz")
+        uploads[mp3_path.name] = mp3_path.read_bytes()
+    else:
+        print(f"decode: the MP3 job is skipped: libmpg123 {have['libmpg123']}, libmp3lame {lame}")
+    uploads["noise.ogg"] = np.random.default_rng(3).integers(1, 200, 65536, dtype=np.uint8).tobytes()  # no decoder takes it
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    httpd = server.serve(port, str(data), background=True, device="cuda", settings=Settings.from_env())
+    jobs = {}
+    try:
+        for name, body in uploads.items():
+            median.LAUNCHES = 0
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request("POST", "/v1/jobs?inline=1", body=body, headers={"X-Filename": name})
+            resp = conn.getresponse()
+            info = json.loads(resp.read())
+            conn.close()
+            jobs[name] = (resp.status, info, time.perf_counter() - t0, median.LAUNCHES)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    out = {"decoders": have, "resampler_vs_scipy": diffs}
+    for name, (status, info, wall, launches) in jobs.items():
+        job = data / "jobs" / info["job_id"]
+        suffix = Path(name).suffix
+        if not (job / "input" / f"upload{suffix}").exists():
+            raise AssertionError(f"job {name} did not keep its upload's suffix")
+        if name == "noise.ogg":
+            err = json.loads((job / "status.json").read_text()).get("error")
+            want = "cannot decode upload.ogg: not a WAV and no ffmpeg binary available"
+            if status != 200 or info["status"] != "error" or launches != 0 or (have["ffmpeg_binary"] is None and err != want):
+                raise AssertionError(f"undecodable upload: {status} {info}, {launches} median launches, error {err!r}")
+            print(f"undecodable upload {name}: job error {err!r}, no median launch")
+            continue
+        result = json.loads((job / "out" / "result.json").read_text()) if info["status"] == "done" else {}
+        if status != 200 or info["status"] != "done" or launches != SEPARATED_LAUNCHES or result["transcription_error"] is not None:
+            raise AssertionError(f"inline job {name}: {status} {info}, {launches} median launches, errors {result.get('transcription_error')}")
+        labels = [c["label"] for c in result["chords"]], [c["label"] for c in cli_result["chords"]]
+        if result["key_signature"]["name"] != cli_result["key_signature"]["name"] or labels[0] != labels[1]:
+            raise AssertionError(f"job {name} against the WAV job: key {result['key_signature']['name']} / "
+                                 f"{cli_result['key_signature']['name']}, chords {labels[0]} / {labels[1]}")
+        decode_s = json.loads((job / "out" / "profile.json").read_text())["decode"]
+        print(f"inline job {name}: {wall:.3f} s (decode stage {decode_s} s), median launches {launches}, key "
+              f"{result['key_signature']['name']} and {len(labels[0])} chord labels as the WAV job's [{card}]")
+        out[name] = {"wall_s": wall, "decode_s": decode_s, "launches": launches}
+    return out
+
+
+def _same_within(a, b, path: str = "") -> None:
+    """JSON values equal, floats within FLOAT_TOL."""
+    if isinstance(a, float) and isinstance(b, float):
+        np.testing.assert_allclose(b, a, err_msg=path, **FLOAT_TOL)
+    elif isinstance(a, dict) and isinstance(b, dict):
+        if list(a) != list(b):
+            raise AssertionError(f"{path}: keys {list(a)} / {list(b)}")
+        for k in a:
+            _same_within(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list) and isinstance(b, list):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: {len(a)} / {len(b)} items")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_within(x, y, f"{path}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} / {b!r}")
+
+
+SETTINGS_CASES = {
+    # name: (environment, median launches per song, whether the tail decodes again on the device)
+    "notes": ({"TRANSCRIPTION_MODE": "notes"}, SEPARATED_LAUNCHES, False),
+    "template": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7"}, SEPARATED_LAUNCHES, False),
+    "template_majmin7plus": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7plus"}, SEPARATED_LAUNCHES, True),
+    "content": ({"CONTENT_ANALYSIS_WINDOW_SEC": "4.0", "CONTENT_ANALYSIS_HOP_SEC": "2.0"}, SEPARATED_LAUNCHES + 2, True),
+}
+
+
+def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dict:
+    """One setting through the CLI on the card; the CPU tail on its host features."""
+    import os
+
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
+    from audiotabs_tpu_torch.runtime import cli, pipeline
+
+    env, expect, redecodes = SETTINGS_CASES[name]
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        settings = Settings.from_env()
+        job = JOBS / name
+        shutil.rmtree(job, ignore_errors=True)
+        n_before = len(recorder.launches)
+        with Capture(pipeline, "features_to_host") as feats, Capture(pipeline, "run_pipeline") as result:
+            median.LAUNCHES = 0
+            rc = cli.main([str(CLIP), "--job-dir", str(job), "--keep"])
+            launches = median.LAUNCHES
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out = read_out(job)
+    errors = out["result.json"]["transcription_error"]
+    if rc != 0 or errors is not None or launches != expect:
+        raise AssertionError(f"{name}: cli rc {rc}, errors {errors}, {launches} median launches (expected {expect})")
+    sites = recorder.sites()[n_before:]
+    prof = out["profile.json"]
+    print(f"{name} ({env}): run_pipeline {result.seconds:.3f} s, median launches {launches} at {sites}, backend "
+          f"{out['result.json']['transcription_backend']}, {len(out['result.json']['chords'])} chords "
+          f"{[c['label'] for c in out['result.json']['chords']][:8]}, stages (s) {json.dumps(prof)} [{card}]")
+
+    y, sr, (x_nat, sr_nat) = decode_for_analysis(CLIP, pipeline.ANALYSIS_SR)
+    cpu_job = JOBS / "tail_cpu" / name
+    shutil.rmtree(cpu_job, ignore_errors=True)
+    tail = pipeline._pipeline_tail(
+        feats=feats.last, y_harm=np.asarray(feats.last["y_harm"], dtype=np.float32)[: len(y)], true_len=len(y), sr=sr,
+        out=cpu_job / "out", job_id=job.name, timer=pipeline.StageTimer(), errors=[], stem_source="guitar",
+        beat_act_from_feats=True, y_native=(peak_normalize(x_nat), sr_nat), settings=settings, device="cpu",
+    )
+    card_out, cpu_out = read_out(job), read_out(cpu_job)
+    card_result = card_out.pop("result.json")
+    names = sorted(set(card_out) - {"profile.json"})
+    if sorted(set(cpu_out) - {"profile.json"}) != names:
+        raise AssertionError(f"{name}: CPU tail artifacts {sorted(cpu_out)} against the card's {sorted(card_out)}")
+    within = []
+    for art in ["result.json", *names]:
+        a = card_result if art == "result.json" else card_out[art]
+        b = json.loads(tail.to_json()) if art == "result.json" else cpu_out[art]
+        if a == b:
+            continue
+        if not redecodes or not art.endswith(".json"):
+            raise AssertionError(f"{name}: {art} of the CPU tail on the card's features differs")
+        _same_within(a, b, art)
+        within.append(art)
+    print(f"{name}: cpu _pipeline_tail on the card's host features: {len(names) + 1 - len(within)} artifacts equal, "
+          f"{within} equal but for floats within {FLOAT_TOL} (the tail decodes again, on the CPU)")
+    return {"launches": launches, "sites": sites, "wall_s": result.seconds, "profile": prof}
+
+
+def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
+    """fused_analysis made to raise: run_pipeline on the card recomputes every
+    stage; against a CPU run of the same path on the card's stems."""
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.runtime import pipeline
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("forced")
+
+    shipped = Settings()
+    runs = []
+    real = pipeline.fused_analysis
+    pipeline.fused_analysis = fail
+    try:
+        for run in range(2):
+            job = JOBS / f"degraded{run}"
+            shutil.rmtree(job, ignore_errors=True)
+            n_before = len(recorder.launches)
+            with Capture(pipeline, "separate_stems_device") as sep:
+                median.LAUNCHES = 0
+                t0 = time.perf_counter()
+                res = pipeline.run_pipeline(job, CLIP, device="cuda", settings=shipped)
+                wall = time.perf_counter() - t0
+                launches = median.LAUNCHES
+            out = read_out(job)
+            sites = recorder.sites()[n_before:]
+            print(f"degraded run {run} ({'cold' if run == 0 else 'warm'}): {wall:.3f} s, median launches {launches} at {sites}, "
+                  f"errors {out['beat_times.json']['errors']}, stages (s) {json.dumps(out['profile.json'])} [{card}]")
+            if out["beat_times.json"]["errors"] != ["analysis: forced"] or res.transcription_error != "analysis: forced":
+                raise AssertionError(f"degraded path errors: {out['beat_times.json']['errors']}")
+            if launches != 6:
+                raise AssertionError(f"degraded path: {launches} median launches, expected 6")
+            # result.json is the caller's to write (cli.py, jobs.py); the calibration cache sits in work/
+            if set(out) != OUT_ARTIFACTS - {"result.json"} or {p.name for p in (job / "work").iterdir()} != WORK_ARTIFACTS | {"audio_analysis"}:
+                raise AssertionError(f"degraded artifact set: out {sorted(out)}, work {sorted(p.name for p in (job / 'work').iterdir())}")
+            runs.append({"wall_s": wall, "launches": launches, "sites": sites, "profile": out["profile.json"]})
+        stems = {k: v.cpu() for k, v in sep.last.items()}
+
+        # the same path on the CPU, on the card's stems
+        separate = pipeline.separate_stems_device
+        pipeline.separate_stems_device = lambda *args, **kwargs: stems
+        try:
+            shutil.rmtree(JOBS / "degraded_cpu", ignore_errors=True)
+            t0 = time.perf_counter()
+            cpu_res = pipeline.run_pipeline(JOBS / "degraded_cpu", CLIP, device="cpu", settings=shipped)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            pipeline.separate_stems_device = separate
+    finally:
+        pipeline.fused_analysis = real
+    card_out, cpu_out = read_out(JOBS / "degraded1"), read_out(JOBS / "degraded_cpu")
+    card_out["result.json"] = json.loads(res.to_json())
+    if cpu_res.transcription_error != "analysis: forced":
+        raise AssertionError(f"CPU degraded run errors: {cpu_res.transcription_error}")
+    compare_pipelines(card_out, cpu_res, cpu_out)
+    print(f"degraded: card against the CPU run of the same path on the card's stems ({cpu_s:.3f} s on the CPU): beat times, chords, "
+          f"key and time signature equal; key {res.key_signature.name}, {res.time_signature}, {len(res.chords)} chords [{card}]")
+    return {"runs": runs, "cpu_s": cpu_s}
+
+
+def new_shape_kernel_check(median, recorder: RecordMedians) -> dict:
+    """The kernel exactly against its plain version on every launch the new
+    paths made (the launched inputs), and at each new shape on random and
+    tie-heavy inputs; each new shape timed as check_kernel times the others."""
+    rng = np.random.default_rng(1)
+    known = {(shape, win, axis) for shape, win, axis in MAIN_PATH_MEDIANS}
+    err = 0.0
+    for shape, win, axis, x in recorder.launches:
+        got, ref = median.median_filter(x, win, axis), median.median_filter_plain(x, win, axis)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"median kernel differs from the plain version on a launched input {shape} win {win} axis {axis}")
+    rows = {}
+    # a [1, F, T] launch of the fused analysis is the [F, T] main-path shape
+    sites = {(shape[1:] if len(shape) == 3 and shape[0] == 1 else shape, win, axis) for shape, win, axis in recorder.sites()}
+    for shape, win, axis in sorted(sites - known):
+        x_np = np.abs(rng.standard_normal(shape)).astype(np.float32)
+        err = max(err, check_exact(median, x_np, win, axis), check_exact(median, tie_heavy(rng, shape), win, axis))
+        x = torch.from_numpy(x_np).cuda()
+        row = dict(
+            ms=cuda_ms(lambda: median.median_filter(x, win, axis)),
+            single_ms=cuda_ms(lambda: median.median_filter(x, win, axis), spin=False),
+            device_ms=device_ms(lambda: median.median_filter(x, win, axis)),
+            plain_ms=cuda_ms(lambda: median.median_filter_plain(x, win, axis), reps=20),
+            bound_ms=2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        )
+        rows[f"{'x'.join(map(str, shape))} win {win} axis {axis}"] = row
+        print("median new shape", json.dumps(dict(shape=list(shape), win=win, axis=axis, **row)))
+    print(f"median exact on all {len(recorder.launches)} launched inputs of the new paths and at {len(rows)} new shapes (random and tie-heavy)")
+    return {"max_abs_err": err, "rows": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1008,6 +1370,11 @@ def main() -> int:
 
     launches = run_phase("analysis", analysis_phase)
     off_launches = run_phase("mix", mix_phase)
+    decode = run_phase("decode", lambda: decode_phase(median, card, main_path["out"]["result.json"]))
+    with RecordMedians() as recorder:
+        cases = {name: run_phase(name, lambda name=name: settings_phase(median, card, name, recorder)) for name in SETTINGS_CASES}
+        degraded = run_phase("degraded", lambda: degraded_phase(median, card, recorder))
+    new_shapes = run_phase("new shapes", lambda: new_shape_kernel_check(median, recorder))
     print(f"all phases: {time.perf_counter() - t_run:.2f} s")
 
     print(json.dumps({"kernels": [{
@@ -1020,7 +1387,12 @@ def main() -> int:
         "launches_without_separation": off_launches,
         "launches_per_batch_chunk": batch["launches_per_chunk"],
         "launches_inline_and_queued_job": serve_launches,
-        "max_abs_err": kernel["max_abs_err"],
+        "launches_upload_jobs": {k: v["launches"] for k, v in decode.items() if k not in ("decoders", "resampler_vs_scipy")},
+        "launches_notes": cases["notes"]["launches"],
+        "launches_template": [cases["template"]["launches"], cases["template_majmin7plus"]["launches"]],
+        "launches_content_window": cases["content"]["launches"],
+        "launches_degraded": degraded["runs"][-1]["launches"],
+        "max_abs_err": max(kernel["max_abs_err"], new_shapes["max_abs_err"]),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -1028,6 +1400,7 @@ def main() -> int:
         "library_ms": kernel["plain_ms"],
         "ms_per_launch": kernel["per_launch"],
         "ms_per_batched_launch": kernel["batched"],
+        "ms_per_launch_new_shapes": new_shapes["rows"],
         "per_batch_chunk": kernel["per_chunk"],
         "single_ms": kernel["single_ms"],
         "device_ms": kernel["device_ms"],

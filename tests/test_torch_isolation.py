@@ -26,6 +26,8 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "audiotabs_tpu_torch.runtime.cli", "audiotabs_tpu_torch.runtime.modes", "audiotabs_tpu_torch.schemas",
         "audiotabs_tpu_torch.score.musicxml", "audiotabs_tpu_torch.runtime.batch_runner", "audiotabs_tpu_torch.runtime.jobs",
         "audiotabs_tpu_torch.runtime.worker", "audiotabs_tpu_torch.runtime.server", "audiotabs_tpu_torch.runtime.celery_integration",
+        "audiotabs_tpu_torch.io.native", "audiotabs_tpu_torch.io.mp3", "audiotabs_tpu_torch.io.avdecode",
+        "audiotabs_tpu_torch.theory.postprocess", "audiotabs_tpu_torch.decode.melody", "audiotabs_tpu_torch.ops.chroma",
     } <= set(mods)
     # the GPU machine has no pydantic and no celery: the port must not need them
     code = (
