@@ -71,25 +71,54 @@ class BasicPitchCNN(nn.Module):
     @classmethod
     def from_params(cls, params: dict) -> "BasicPitchCNN":
         net = cls(np.asarray(params["c1_w"]).shape[2])
-        net.load_state_dict(convert.conv_state(params, ("c1", "c2", "c3", "n1", "n2", "o1", "o2")))
+        net.load_state_dict(_conv_state(params))
         return net
 
     def forward(self, hc: torch.Tensor):
-        x = torch.log1p(10.0 * hc)[None]  # [1, H, freq, time]
+        """hc [H, n_bins, T] → (onset [T, 88], frame [T, 88], contour [T, 264]),
+        or a batch [N, H, n_bins, T] → each with a leading N (every clip
+        normalised by its own statistics)."""
+        single = hc.dim() == 3
+        x = torch.log1p(10.0 * (hc[None] if single else hc))  # [N, H, freq, time]
         # parity trap: jnp.std is the population std, so correction=0
-        x = (x - x.mean()) / (x.std(correction=0) + 1e-5)
+        mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        x = (x - mean) / (x.std(dim=(1, 2, 3), keepdim=True, correction=0) + 1e-5)
         c = F.relu(self.c1(x))
         c = F.relu(self.c2(c))
-        contour = torch.sigmoid(self.c3(c))  # [1, 1, 264, T]
-        note = torch.sigmoid(self.n2(F.relu(self.n1(contour))))  # [1, 1, 88, T]
+        contour = torch.sigmoid(self.c3(c))  # [N, 1, 264, T]
+        note = torch.sigmoid(self.n2(F.relu(self.n1(contour))))  # [N, 1, 88, T]
         o = torch.cat([F.relu(self.o1(x)), note], dim=1)
         onset = torch.sigmoid(self.o2(o))
-        return onset[0, 0].T, note[0, 0].T, contour[0, 0].T
+        outs = tuple(t[:, 0].transpose(1, 2) for t in (onset, note, contour))
+        return tuple(t[0] for t in outs) if single else outs
 
 
 def cnn_apply(net: BasicPitchCNN, hc: torch.Tensor):
     """hc [H, n_bins, T] → (onset [T, 88], frame [T, 88], contour [T, 264])."""
     return net(hc)
+
+
+CONV_NAMES = ("c1", "c2", "c3", "n1", "n2", "o1", "o2")
+
+
+def init_params(generator: torch.Generator) -> dict:
+    """Random init of the JAX pytree (numpy, HWIO convs), as the JAX
+    ``init_params``: N(0, 1/fan_in) with fan-in kh * kw * c_in, zero biases."""
+    shapes = {"c1": (5, 5, len(HARMONICS), 16), "c2": (39, 3, 16, 8), "c3": (5, 5, 8, 1), "n1": (7, 7, 1, 32),
+              "n2": (7, 3, 32, 1), "o1": (5, 5, len(HARMONICS), 32), "o2": (3, 3, 33, 1)}
+    params = {}
+    for name, shape in shapes.items():
+        params[f"{name}_w"] = (torch.randn(shape, generator=generator) / np.sqrt(np.prod(shape[:3]))).numpy()
+        params[f"{name}_b"] = np.zeros((shape[-1],), np.float32)
+    return params
+
+
+def _conv_state(params: dict) -> dict:
+    return convert.conv_state(params, CONV_NAMES)
+
+
+def params_of(net: BasicPitchCNN, template: dict) -> dict:
+    return convert.to_pytree(_conv_state, template, net.state_dict())
 
 
 def load_params(path: str | None = None) -> dict | None:

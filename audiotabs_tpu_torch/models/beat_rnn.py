@@ -1,10 +1,13 @@
-"""Beat activation: the madmom-style BLSTM ensemble on nn.LSTM.
+"""Beat activation: the madmom-style BLSTM ensemble on nn.LSTM, and the
+weight-free spectral-flux activation.
 
 Counterpart of audiotabs_tpu/models/beat_rnn.py (spectral_features, the
 BLSTM, blstm_apply, blstm_apply_chunked, the ensemble average of
-beat_activation, load_params). The JAX lax.scan recurrence becomes
-``nn.LSTM(bidirectional=True)`` (cuDNN on the card); the overlapped windows
-of the chunked form become the LSTM's batch dimension.
+beat_activation, onset_activation, init_params, load_params, save_params).
+The JAX lax.scan recurrence becomes ``nn.LSTM(bidirectional=True)`` (cuDNN
+on the card); the overlapped windows of the chunked form become the LSTM's
+batch dimension. The JAX BLSTM has one gate bias per direction: it is
+``bias_ih`` here and ``bias_hh`` stays zero (a trainer freezes it).
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from ..ops.cqt import cqt
 from ..ops.spectral import as_device, hann_window
 from ..ops.spectral import frame as frame_signal
 from . import convert
@@ -148,6 +153,75 @@ def load_params(path: str | None = None) -> dict | None:
     return out
 
 
+def init_params(generator: torch.Generator, input_dim: int, hidden: int = 25, layers: int = 3) -> dict:
+    """Random init of the JAX pytree (numpy): every weight N(0, 1/fan_in) with
+    fan-in its first dimension, zero biases, as the JAX ``init_params``."""
+
+    def dense(shape):
+        return (torch.randn(shape, generator=generator) / np.sqrt(shape[0])).numpy()
+
+    params: dict = {"layers": []}
+    d = input_dim
+    for _ in range(layers):
+        params["layers"].append({
+            direction: {"W": dense((d, 4 * hidden)), "U": dense((hidden, 4 * hidden)), "b": np.zeros((4 * hidden,), np.float32)}
+            for direction in ("fwd", "bwd")})
+        d = 2 * hidden
+    params["out_w"] = dense((d, 1))
+    params["out_b"] = np.zeros((1,), np.float32)
+    return params
+
+
+def params_of(net: BeatBLSTM, template: dict) -> dict:
+    """One member's weights as a JAX pytree in ``template``'s layout."""
+    return convert.to_pytree(convert.beat_blstm_state, template, net.state_dict())
+
+
+def _flatten(params: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    flat = {}
+    for i, layer in enumerate(params["layers"]):
+        for d in ("fwd", "bwd"):
+            for k in ("W", "U", "b"):
+                flat[f"{prefix}l{i}_{d}_{k}"] = np.asarray(layer[d][k])
+    flat[f"{prefix}out_w"] = np.asarray(params["out_w"])
+    flat[f"{prefix}out_b"] = np.asarray(params["out_b"])
+    for k in ("feat_mean", "feat_std", "full_context"):
+        if k in params:
+            flat[f"{prefix}{k}"] = np.asarray(params[k])
+    return flat
+
+
+def save_params(path: str, params: dict) -> None:
+    """The JAX ``save_params`` layout: a flat npz, extra "ensemble" members
+    under m1_/m2_/… prefixes (the inverse of load_params)."""
+    flat = _flatten(params)
+    for j, member in enumerate(params.get("ensemble", []), start=1):
+        flat.update(_flatten(member, prefix=f"m{j}_"))
+    np.savez(path, **flat)
+
+
+def onset_activation(y: torch.Tensor, sr: int, fps: int = FPS_DEFAULT) -> torch.Tensor:
+    """Spectral-flux beat activation [T] at ``fps``, normalised to [0, 1]:
+    the weight-free default of the JAX package.
+
+    Band energies come from the CQT GEMM (6 bands per octave over the madmom
+    frequency range); the mean positive log-band flux is smoothed by a 3-tap
+    triangle and normalised by its 25th and 99th percentiles (linear
+    interpolation, as jnp.percentile)."""
+    hop = sr // fps
+    n_bins = int(np.floor(_BANDS_PER_OCTAVE * np.log2(_FMAX / _FMIN)))
+    n_bins = min(n_bins, int(np.floor(_BANDS_PER_OCTAVE * np.log2((sr / 2.0 - 1) / _FMIN))))
+    C = cqt(y, sr, hop=hop, fmin=_FMIN, n_bins=n_bins, bins_per_octave=_BANDS_PER_OCTAVE, max_kernel_len=2048)  # [B, T]
+    logb = torch.log10(1.0 + 5.0 * C)
+    diff = torch.clamp(logb[:, 1:] - logb[:, :-1], min=0.0)
+    act = F.pad(diff.mean(dim=0), (1, 0))
+    kernel = torch.tensor([[[0.25, 0.5, 0.25]]], dtype=act.dtype, device=act.device)
+    act = F.conv1d(act[None, None], kernel, padding=1)[0, 0]  # jnp.convolve(mode="same")
+    act = torch.clamp(act - torch.quantile(act, 0.25), min=0.0)
+    denom = torch.quantile(act, 0.99) + 1e-8
+    return torch.clamp(act / denom, 0.0, 1.0)
+
+
 def ensemble_from_params(params: dict) -> list[BeatBLSTM]:
     """A pytree with optional "ensemble" members → one module per member."""
     members = [{k: v for k, v in params.items() if k != "ensemble"}, *params.get("ensemble", [])]
@@ -155,10 +229,13 @@ def ensemble_from_params(params: dict) -> list[BeatBLSTM]:
 
 
 def beat_activation(y: torch.Tensor, sr: int, ensemble: list[BeatBLSTM], fps: int = FPS_DEFAULT) -> torch.Tensor:
-    """Beat activation [T]: the mean of every ensemble member's activation.
+    """Beat activation [T]: the mean of every ensemble member's activation,
+    or ``onset_activation`` when the ensemble is empty (no checkpoint).
 
     A member flagged full_context runs the whole sequence in one pass (its
     backward LSTM sees the whole song); the others run chunked."""
+    if not ensemble:
+        return onset_activation(y, sr, fps)
     feats = spectral_features(y, sr, fps)
     acts = [blstm_apply(m, feats) if m.full_context else blstm_apply_chunked(m, feats) for m in ensemble]
     return torch.stack(acts).mean(dim=0)

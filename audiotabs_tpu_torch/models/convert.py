@@ -14,6 +14,10 @@ from the JAX package's ``init_params`` pytrees in the tests. Layouts:
             layout; the attention and feed-forward weights (q/k/v/o_w,
             lin1/2_w) are stored for x @ W and are transposed; ``freq_emb``
             already holds the embedding times its scale of 10.
+
+``to_pytree`` runs any of these maps backwards: a module's state (or its
+gradients) back to the JAX pytree, so the port's trainers write the JAX
+package's checkpoint layout.
 """
 
 from __future__ import annotations
@@ -115,3 +119,56 @@ def htdemucs_state(params: dict) -> dict[str, torch.Tensor]:
 def crf_tensors(params: dict, device: torch.device) -> dict[str, torch.Tensor]:
     """CRF emission/transition arrays → float32 tensors on ``device``."""
     return {k: _t(params[k]).to(device) for k in ("emit_w", "emit_b", "transitions", "initial")}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with its leaves taken in order from the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_rebuild(v, leaves) for v in tree]
+    return next(leaves)
+
+
+def to_pytree(state_fn, template, state: dict[str, torch.Tensor]) -> dict:
+    """The inverse of ``state_fn`` (one of the ``*_state`` maps above): the
+    tensors of ``state`` (keys of ``state_fn``'s output) back to ``template``'s
+    pytree layout, as float32 numpy.
+
+    Every state entry is a leaf, transposed or not, so ``state_fn`` is run once
+    on a pytree whose entries are their own flat index (1-based, exact in
+    float32 below 2**24 entries); each state entry then says where its values
+    go. An entry ``state_fn`` fills with constants (the BLSTM's zero
+    ``bias_hh``) carries index 0 and is dropped. A leaf that ``state_fn`` does
+    not read (``meta_segment``, ``full_context``) keeps the template's value."""
+    leaves = [np.asarray(leaf) for leaf in _leaves(template)]
+    offs = np.cumsum([0] + [leaf.size for leaf in leaves])
+    if offs[-1] >= 2**24:
+        raise ValueError(f"{offs[-1]} entries do not index exactly in float32")
+    tagged = [np.arange(o + 1, o + 1 + leaf.size, dtype=np.float64).reshape(leaf.shape) for o, leaf in zip(offs, leaves)]
+    flat = np.zeros(offs[-1] + 1, np.float32)
+    seen = np.zeros(offs[-1] + 1, bool)
+    for key, idx in state_fn(_rebuild(template, iter(tagged))).items():
+        ix = idx.numpy().astype(np.int64).ravel()
+        keep = ix > 0
+        flat[ix[keep]] = state[key].detach().float().cpu().numpy().ravel()[keep]
+        seen[ix[keep]] = True
+    out = []
+    for o, leaf in zip(offs, leaves):
+        hit = seen[o + 1 : o + 1 + leaf.size]
+        if hit.all():
+            out.append(flat[o + 1 : o + 1 + leaf.size].reshape(leaf.shape))
+        elif not hit.any():
+            out.append(leaf)
+        else:
+            raise ValueError(f"a leaf of shape {leaf.shape} is only partly in the module's state")
+    return _rebuild(template, iter(out))
+

@@ -25,6 +25,19 @@ N_STATES = len(LABELS)  # 25
 SILENCE_GATE_FRAC = 0.05
 
 
+def init_params(generator: torch.Generator, feature_dim: int = 12) -> dict:
+    """Random init (numpy), as the JAX ``init_params``: emissions N(0, 0.01),
+    the self-transition-heavy prior, a uniform initial distribution."""
+    trans = np.full((N_STATES, N_STATES), np.log(0.02 / (N_STATES - 1)), dtype=np.float32)
+    np.fill_diagonal(trans, np.log(0.98))
+    return {
+        "emit_w": (torch.randn((feature_dim, N_STATES), generator=generator) * 0.1).numpy(),
+        "emit_b": np.zeros((N_STATES,), np.float32),
+        "transitions": trans,
+        "initial": np.full((N_STATES,), -np.log(N_STATES), np.float32),
+    }
+
+
 def template_emission_params() -> dict:
     """Analytic emission weights from chord templates (numpy pytree)."""
     w = np.full((12, N_STATES), -0.35, dtype=np.float32)

@@ -105,6 +105,35 @@ def deep_chroma_apply(params: dict, y, sr: int, *, device=None) -> np.ndarray:
     return net(features(yd, sr)).T.cpu().numpy()
 
 
+def init_params(generator: torch.Generator, input_dim: int, hidden: int = 512, n_layers: int = 3) -> dict:
+    """Random init of the JAX pytree (numpy), as the JAX ``init_params``: ReLU
+    layers N(0, 2/fan_in), the output layer N(0, 1/fan_in), zero biases."""
+    params: dict = {"layers": []}
+    d = input_dim
+    for _ in range(n_layers):
+        params["layers"].append({"w": (torch.randn((d, hidden), generator=generator) * np.sqrt(2.0 / d)).numpy(),
+                                 "b": np.zeros((hidden,), np.float32)})
+        d = hidden
+    params["out_w"] = (torch.randn((d, 12), generator=generator) * np.sqrt(1.0 / d)).numpy()
+    params["out_b"] = np.zeros((12,), np.float32)
+    return params
+
+
+def params_of(net: DeepChromaDNN, template: dict) -> dict:
+    return convert.to_pytree(convert.deepchroma_state, template, net.state_dict())
+
+
+def save_params(path: str, params: dict) -> None:
+    """The JAX trainer's flat layout (l<i>_w, l<i>_b, out_*, feat_*), which load_params reads."""
+    flat = {}
+    for i, layer in enumerate(params["layers"]):
+        flat[f"l{i}_w"], flat[f"l{i}_b"] = np.asarray(layer["w"]), np.asarray(layer["b"])
+    for k in ("out_w", "out_b", "feat_mean", "feat_std"):
+        if k in params:
+            flat[k] = np.asarray(params[k])
+    np.savez(path, **flat)
+
+
 def load_params(path: str | None = None) -> dict | None:
     path = weights_path("DEEPCHROMA_WEIGHTS", "deepchroma.npz") if path is None else path
     if not path or not os.path.exists(path):

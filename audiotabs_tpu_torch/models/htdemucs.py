@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from ..ops.spectral import _pad_last, istft, stft
 from . import convert
-from .params_io import load_pytree_npz, weights_path
+from .params_io import load_pytree_npz, save_pytree_npz, weights_path
 
 MODEL_STEMS = {
     "htdemucs": ("drums", "bass", "other", "vocals"),
@@ -57,6 +57,11 @@ SEGMENT_SEC = 7.8
 OVERLAP = 0.25
 MODEL_SR = 44100
 ALIGN = 1024  # segment lengths are multiples of this
+CHANNELS = 48  # the published sizing, init_params' defaults
+GROWTH = 2
+T_LAYERS = 5
+BOTTOM_CHANNELS = 512
+DCONV_COMP = 8  # dconv hidden = channels // 8
 _FWD_CHUNK = 16  # windows per batched forward inside separate_program
 
 
@@ -386,6 +391,96 @@ class HTDemucs(nn.Module):
         return out[0] if single else out
 
 
+# ------------------------------------------------------------ random init --
+
+
+def init_params(generator: torch.Generator, n_sources: int = 4, audio_channels: int = 2, channels: int = CHANNELS,
+                bottom: int = BOTTOM_CHANNELS, t_layers: int = T_LAYERS, t_ff: int | None = None) -> dict:
+    """Random init of the JAX pytree (numpy, JAX layout), as the JAX
+    ``init_params``: the same shapes, He scaling (``sqrt(2 / fan_in)``, the
+    transposed convs with fan-in ``ci * KERNEL``), zero biases, unit norms,
+    LayerScale at 1e-3 (dconv) and 1e-4 (transformer) and the sinusoidal
+    frequency embedding; the draws come from ``generator``."""
+    t_ff = t_ff or 4 * bottom
+
+    def he(shape, fan_in=None):
+        fan_in = fan_in or int(np.prod(shape[1:]))
+        return (torch.randn(shape, generator=generator) * math.sqrt(2.0 / fan_in)).numpy()
+
+    def zeros(n):
+        return np.zeros((n,), np.float32)
+
+    def ones(n):
+        return np.ones((n,), np.float32)
+
+    def dconv_init(ch):
+        hid = max(4, ch // DCONV_COMP)
+        return {"blocks": [
+            {"conv1_w": he((hid, ch, 3)), "conv1_b": zeros(hid), "gn1_g": ones(hid), "gn1_b": zeros(hid),
+             "conv2_w": he((2 * ch, hid, 1)), "conv2_b": zeros(2 * ch), "gn2_g": ones(2 * ch), "gn2_b": zeros(2 * ch),
+             "scale": np.full((ch,), 1e-3, np.float32)}
+            for _ in range(2)]}
+
+    chans = [channels * GROWTH**i for i in range(DEPTH)]
+    spec_in = 2 * audio_channels
+    p: dict = {"encoder": [], "tencoder": [], "decoder": [], "tdecoder": []}
+    c_s, c_t = spec_in, audio_channels
+    for d in range(DEPTH):
+        co = chans[d]
+        p["encoder"].append({"conv_w": he((co, c_s, KERNEL, 1)), "conv_b": zeros(co),
+                             "rewrite_w": he((2 * co, co, 1, 1)), "rewrite_b": zeros(2 * co), "dconv": dconv_init(co)})
+        p["tencoder"].append({"conv_w": he((co, c_t, KERNEL)), "conv_b": zeros(co),
+                              "rewrite_w": he((2 * co, co, 1)), "rewrite_b": zeros(2 * co), "dconv": dconv_init(co)})
+        c_s = c_t = co
+    for d in reversed(range(DEPTH)):
+        ci = chans[d]
+        co_s = n_sources * spec_in if d == 0 else chans[d - 1]
+        co_t = n_sources * audio_channels if d == 0 else chans[d - 1]
+        p["decoder"].append({"rewrite_w": he((2 * ci, ci, 3, 3)), "rewrite_b": zeros(2 * ci),
+                             "convtr_w": he((ci, co_s, KERNEL, 1), fan_in=ci * KERNEL), "convtr_b": zeros(co_s)})
+        p["tdecoder"].append({"rewrite_w": he((2 * ci, ci, 3)), "rewrite_b": zeros(2 * ci),
+                              "convtr_w": he((ci, co_t, KERNEL), fan_in=ci * KERNEL), "convtr_b": zeros(co_t)})
+    p["freq_emb"] = create_sin_embedding(NFFT // 2 // STRIDE, chans[0], max_period=10000.0)
+
+    dim, D = chans[-1], bottom
+    for side in ("s", "t"):
+        p[f"up_{side}_w"], p[f"up_{side}_b"] = he((D, dim)), zeros(D)
+    for side in ("s", "t"):
+        p[f"down_{side}_w"], p[f"down_{side}_b"] = he((dim, D)), zeros(dim)
+    p["norm_in_g"], p["norm_in_b"] = ones(D), zeros(D)
+    p["norm_in_t_g"], p["norm_in_t_b"] = ones(D), zeros(D)
+
+    def tlayer_init(cross: bool) -> dict:
+        lp = {"q_w": he((D, D)), "k_w": he((D, D)), "v_w": he((D, D)), "o_w": he((D, D)),
+              "q_b": zeros(D), "k_b": zeros(D), "v_b": zeros(D), "o_b": zeros(D),
+              "norm1_g": ones(D), "norm1_b": zeros(D), "norm2_g": ones(D), "norm2_b": zeros(D),
+              "lin1_w": he((D, t_ff)), "lin1_b": zeros(t_ff), "lin2_w": he((t_ff, D)), "lin2_b": zeros(D),
+              "gamma1": np.full((D,), 1e-4, np.float32), "gamma2": np.full((D,), 1e-4, np.float32),
+              "normout_g": ones(D), "normout_b": zeros(D)}
+        if cross:
+            lp["norm3_g"], lp["norm3_b"] = ones(D), zeros(D)
+        return lp
+
+    p["tlayers"] = [tlayer_init(cross=i % 2 == 0) for i in range(t_layers)]
+    p["tlayers_t"] = [tlayer_init(cross=i % 2 == 0) for i in range(t_layers)]
+    return p
+
+
+def params_of(net: HTDemucs, template: dict) -> dict:
+    """The module's weights as a JAX pytree in ``template``'s layout (its
+    ``meta_segment`` kept): the inverse of ``from_params``."""
+    return convert.to_pytree(convert.htdemucs_state, template, net.state_dict())
+
+
+def save_params(path: str, params: dict) -> None:
+    """Write a pytree as the JAX package's flat path-keyed npz
+    (``save_pytree_npz``), and drop what the loaders cached by path, so a
+    later load in this process reads the file just written."""
+    save_pytree_npz(path, params)
+    _load_npz.cache_clear()
+    _model.cache_clear()
+
+
 # -------------------------------------------------- the separation program --
 
 
@@ -538,16 +633,87 @@ def program_config(params: dict, model_name: str, stem_priority: list[str]) -> d
 def separate_stems_device(y: torch.Tensor, sr: int, model_name: str = "htdemucs_6s", shifts: int = 2,
                           bf16: bool = False) -> dict[str, torch.Tensor] | None:
     """Mono y [L] on the device → {stem name: stem [L]} on the same device,
-    or None when no weights are loaded."""
+    or None when no weights are loaded. A 2-D ``y`` or a rate other than
+    MODEL_SR and MODEL_SR / 2 takes ``separate_stems``, the host path, as in
+    the JAX package (which ignores ``shifts`` there and takes 2)."""
     params = load_params()
     if params is None:
         return None
     if y.dim() != 1 or sr not in (MODEL_SR, MODEL_SR // 2):
-        raise NotImplementedError(
-            f"separation of a {y.dim()}-D signal at {sr} Hz takes the host path "
-            "(audiotabs_tpu/models/htdemucs.py::separate_stems, apply_model, resample_poly_host), "
-            "which is not ported (ROADMAP.md, queue 1, item 4)")
+        # the JAX routing: other shapes and rates take the host path
+        host = separate_stems(y.detach().cpu().numpy(), sr, model_name=model_name, device=y.device)
+        return None if host is None else {k: torch.from_numpy(v).to(y.device) for k, v in host.items()}
     cfg = program_config(params, model_name, list(MODEL_STEMS["htdemucs"]))
     with torch.inference_mode():
         out = separate_program(load_model(y.device), y, sr, cfg["seg"], cfg["stride"], shifts, bf16=bf16)
     return {name: out[i] for i, name in enumerate(cfg["names"])}
+
+
+# ---------------------------------------------------------- the host path --
+
+
+def apply_model(net: HTDemucs, mix: np.ndarray, sr: int, *, shifts: int = 2, overlap: float = OVERLAP,
+                rng: np.random.Generator | None = None, segment: int | None = None) -> np.ndarray:
+    """Separate a song [ch, L] (numpy) → [n_sources, ch, L] (numpy).
+
+    The JAX ``apply_model``: for each shift (the first unshifted, the others
+    offset by ``rng.integers(0, max_shift)``, numpy's generator as in the JAX
+    package), every overlapped window goes through ``net`` on its device,
+    ``_FWD_CHUNK`` at a time, and the host overlap-adds them with the
+    triangular window. ``segment`` is the checkpoint's ``meta_segment``."""
+    rng = rng or np.random.default_rng(0)
+    ch, L = mix.shape
+    seg = int(SEGMENT_SEC * sr) if segment is None else int(segment)
+    seg = ((seg + ALIGN - 1) // ALIGN) * ALIGN
+    stride = max(ALIGN, int((1 - overlap) * seg) // ALIGN * ALIGN)
+    max_shift = int(0.5 * sr)
+    device = next(net.parameters()).device
+
+    out = np.zeros((net.n_sources, ch, L), dtype=np.float32)
+    weight_total = np.zeros((L,), dtype=np.float32)
+    tri = np.concatenate([np.linspace(0.1, 1.0, seg // 2), np.linspace(1.0, 0.1, seg - seg // 2)]).astype(np.float32)
+    for shift_i in range(max(1, shifts)):
+        offset = int(rng.integers(0, max_shift)) if shifts > 1 and shift_i > 0 else 0
+        padded = np.pad(mix, ((0, 0), (offset, seg)))
+        offsets = _segment_windows(L + offset, seg, stride)
+        windows = torch.from_numpy(np.stack([padded[:, o : o + seg] for o in offsets]).astype(np.float32)).to(device)
+        with torch.inference_mode():
+            stems = torch.cat([net(windows[i : i + _FWD_CHUNK]) for i in range(0, len(offsets), _FWD_CHUNK)]).cpu().numpy()
+        for o, st in zip(offsets, stems):
+            a = o - offset
+            lo, hi = max(0, a), min(L, a + seg)
+            w_lo = lo - a
+            out[:, :, lo:hi] += st[:, :, w_lo : w_lo + hi - lo] * tri[w_lo : w_lo + hi - lo]
+            weight_total[lo:hi] += tri[w_lo : w_lo + hi - lo]
+    out /= np.maximum(weight_total, 1e-8)
+    return out
+
+
+def separate_stems(y: np.ndarray, sr: int, model_name: str = "htdemucs_6s", *, device=None) -> dict[str, np.ndarray] | None:
+    """The JAX ``separate_stems``: mono [L] (pseudo-stereo) or [ch, L] at any
+    rate → {stem name: mono float32 numpy}, or None when no weights are loaded.
+
+    The host resamples to MODEL_SR and back with ``resample_poly_host``;
+    ``apply_model`` runs the net on ``device`` (the card unless the caller
+    names the CPU). As in the JAX package each stem is cut to ``len(y)``, the
+    channel count for a 2-D input."""
+    from ..device import resolve_device
+    from ..io.resample import resample_poly_host
+
+    params = load_params()
+    if params is None:
+        return None
+    net = load_model(resolve_device(device))
+    stems = MODEL_STEMS.get(model_name, MODEL_STEMS["htdemucs"])
+    mix = np.stack([y, y]) if y.ndim == 1 else y
+    if sr != MODEL_SR:
+        mix = np.stack([resample_poly_host(c, sr, MODEL_SR) for c in mix])
+    seg = int(np.asarray(params["meta_segment"])) if "meta_segment" in params else None
+    out = apply_model(net, mix.astype(np.float32), MODEL_SR, segment=seg)
+    result = {}
+    for i, name in enumerate(stems[: out.shape[0]]):
+        mono = out[i].mean(axis=0)
+        if sr != MODEL_SR:
+            mono = resample_poly_host(mono, MODEL_SR, sr)
+        result[name] = mono[: len(y)].astype(np.float32)
+    return result

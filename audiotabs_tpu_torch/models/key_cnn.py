@@ -55,22 +55,44 @@ class KeyCNN(nn.Module):
         return net
 
     def forward(self, feats: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """[T, B, 1] → [24] probabilities; ``frame_mask`` [T] limits the time average."""
-        x = feats.permute(2, 0, 1)[None]  # [1, 1, T, B]
+        """[T, B, 1] → [24] probabilities, or a batch [N, T, B, 1] → [N, 24];
+        ``frame_mask`` [T] limits the time average."""
+        single = feats.dim() == 3
+        x = (feats[None] if single else feats).permute(0, 3, 1, 2)  # [N, 1, T, B]
         x = F.max_pool2d(F.elu(self.c1(x)), (1, 2))  # pool the band axis only
         x = F.max_pool2d(F.elu(self.c2(x)), (1, 2))
-        x = F.elu(self.c3(x))[0]  # [32, T, B//4]
+        x = F.elu(self.c3(x))  # [N, 32, T, B//4]
         if frame_mask is None:
-            pooled = x.mean(dim=1)
+            pooled = x.mean(dim=2)
         else:
-            m = frame_mask.to(x.dtype)[None, :, None]
-            pooled = (x * m).sum(dim=1) / torch.clamp(m.sum(), min=1.0)
+            m = frame_mask.to(x.dtype)[None, None, :, None]
+            pooled = (x * m).sum(dim=2) / torch.clamp(m.sum(), min=1.0)
         # the dense head reads the (band, channel) map flattened band-major
-        return torch.softmax(self.out(pooled.T.reshape(-1)), dim=-1)
+        probs = torch.softmax(self.out(pooled.transpose(1, 2).reshape(x.shape[0], -1)), dim=-1)
+        return probs[0] if single else probs
 
 
 def apply(net: KeyCNN, feats: torch.Tensor, frame_mask: torch.Tensor | None = None) -> torch.Tensor:
     return net(feats, frame_mask)
+
+
+def init_params(generator: torch.Generator, n_bands: int = N_BANDS) -> dict:
+    """Random init of the JAX pytree (numpy, HWIO convs), as the JAX
+    ``init_params``: N(0, 2/fan_in) with fan-in all but the last dimension."""
+
+    def he(shape):
+        return (torch.randn(shape, generator=generator) * np.sqrt(2.0 / np.prod(shape[:-1]))).numpy()
+
+    return {
+        "c1_w": he((5, 5, 1, 8)), "c1_b": np.zeros((8,), np.float32),
+        "c2_w": he((3, 3, 8, 16)), "c2_b": np.zeros((16,), np.float32),
+        "c3_w": he((3, 3, 16, 32)), "c3_b": np.zeros((32,), np.float32),
+        "out_w": he(((n_bands // 4) * 32, N_CLASSES)), "out_b": np.zeros((N_CLASSES,), np.float32),
+    }
+
+
+def params_of(net: KeyCNN, template: dict) -> dict:
+    return convert.to_pytree(convert.key_cnn_state, template, net.state_dict())
 
 
 def load_params(path: str | None = None) -> dict | None:

@@ -1,8 +1,8 @@
-"""Pickle-free checkpoint reading: parameter pytrees from flat, path-keyed npz.
+"""Pickle-free checkpoint I/O: parameter pytrees as flat, path-keyed npz.
 
-A copy of ``load_pytree_npz`` from audiotabs_tpu/models/params_io.py. Keys
-encode the tree path (``spec_enc/#0/conv_w``); ``np.load`` stays at its safe
-default (no pickle).
+Copies of ``save_pytree_npz`` and ``load_pytree_npz`` from
+audiotabs_tpu/models/params_io.py. Keys encode the tree path
+(``spec_enc/#0/conv_w``); ``np.load`` stays at its safe default (no pickle).
 """
 
 from __future__ import annotations
@@ -24,6 +24,25 @@ def weights_path(env_var: str, filename: str) -> str:
     if env is not None:
         return "" if env.lower() in ("off", "none", "0") else env
     return str(WEIGHTS_DIR / filename)
+
+
+def _flatten(tree: Any, prefix: str, out: dict[str, np.ndarray]) -> None:
+    if isinstance(tree, dict):
+        for k in tree:
+            if "/" in str(k):
+                raise ValueError(f"param key may not contain '/': {k!r}")
+            _flatten(tree[k], f"{prefix}{k}/", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}#{i}/", out)
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+
+
+def save_pytree_npz(path: str | os.PathLike, params: Any) -> None:
+    flat: dict[str, np.ndarray] = {}
+    _flatten(params, "", flat)
+    np.savez(path, **flat)
 
 
 def load_pytree_npz(path: str | os.PathLike) -> Any:

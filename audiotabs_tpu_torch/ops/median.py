@@ -253,11 +253,15 @@ def median_filter(x: torch.Tensor, win: int, axis: int = -1) -> torch.Tensor:
     """Median over a window of ``win`` along ``axis`` (-1 or -2), edges replicated.
 
     CUDA tensors (contiguous float32) launch the kernel; CPU tensors take
-    median_filter_plain. Any other device raises."""
+    median_filter_plain. Any other device raises, and so does a device
+    tensor that requires grad: the kernel has no backward (the JAX Pallas
+    kernel has no VJP either, and no trainer differentiates through HPSS)."""
     global LAUNCHES
     axis = _check(x, win, axis)
     if x.device.type == "cpu":
         return median_filter_plain(x, win, axis)
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("median_filter has no backward: detach the input or run under torch.no_grad()")
     if x.device.type != "cuda":
         raise ValueError(f"median_filter runs on cuda or cpu, got {x.device}")
     if not x.is_contiguous():

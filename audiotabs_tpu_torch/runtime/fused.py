@@ -38,7 +38,7 @@ class AnalysisModels:
     checkpoint is absent (or switched off by its <MODEL>_WEIGHTS variable)
     is None and its stage takes the JAX package's weight-free path."""
 
-    beat: list[beat_rnn.BeatBLSTM]
+    beat: list[beat_rnn.BeatBLSTM]  # empty: the weight-free onset activation
     basicpitch: basicpitch.BasicPitchCNN | None
     deepchroma: deepchroma.DeepChromaDNN | None
     key: key_cnn.KeyCNN | None
@@ -49,15 +49,12 @@ class AnalysisModels:
 def load_models(device: torch.device) -> AnalysisModels:
     """Load every checkpoint through models/convert.py onto ``device`` (once per device)."""
     br = beat_rnn.load_params()
-    if br is None:
-        # the weight-free onset activation of the JAX package is not ported yet (ROADMAP.md, queue 1, item 5)
-        raise RuntimeError("the beat_rnn checkpoint is required (BEAT_RNN_WEIGHTS is off or the file is missing)")
 
     def net(module_cls, params):
         return None if params is None else module_cls.from_params(params).to(device).eval()
 
     return AnalysisModels(
-        beat=[m.to(device) for m in beat_rnn.ensemble_from_params(br)],
+        beat=[] if br is None else [m.to(device) for m in beat_rnn.ensemble_from_params(br)],
         basicpitch=net(basicpitch.BasicPitchCNN, basicpitch.load_params()),
         deepchroma=net(deepchroma.DeepChromaDNN, deepchroma.load_params()),
         key=net(key_cnn.KeyCNN, key_cnn.load_params()),

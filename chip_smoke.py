@@ -82,7 +82,20 @@
     Prints the stage times, cold and warm.
 13. Holds the kernel exactly at every shape these paths launched it at (the
     launched inputs, random and tie-heavy), and times each new shape.
-14. Prints the kernel table as one JSON line, then the result line.
+14. Training (``train_phase``): htdemucs at the shipped width resumed from a
+    copy of the checkpoint in build/ (10 steps of batch 4 through
+    ``htdemucs_train.train``, 2 validation clips): every step's loss and
+    time (CUDA events), the peak memory, the gates; its first batch's loss
+    and global gradient norm against the CPU's within GRAD_RTOL (the norm
+    with the L1 residual signs the card took, given to the CPU: a residual
+    within float noise of zero takes either sign; the norms with each
+    device's own signs are printed). The five other trainers at their
+    shipped widths: 6 timed update steps on batches from each one's own
+    dataset function (finite losses), then ``train()`` at a few steps and
+    clips. The median launches of each trainer are counted; the
+    kernel is held exactly on the first 4 launched inputs of every site and
+    at each new shape (random and tie-heavy), and each is timed.
+15. Prints the kernel table as one JSON line, then the result line.
 
 Each phase prints its wall time. Any failed phase raises, and the script
 exits non-zero without a result. It imports nothing of JAX or of the JAX
@@ -98,6 +111,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -925,10 +939,12 @@ def serving_phase(median, card: str, cli_result: dict) -> list[int]:
 
 class RecordMedians:
     """Records every median launch on the card made through ops/hpss.py (the
-    HPSS and mask sites): its (shape, window, axis) and a copy of its input."""
+    HPSS and mask sites): its (shape, window, axis) and a copy of its input,
+    or with ``keep`` a copy of the first ``keep`` inputs of each site only."""
 
-    def __init__(self):
-        self.launches: list[tuple[tuple, int, int, torch.Tensor]] = []
+    def __init__(self, keep: int | None = None):
+        self.launches: list[tuple[tuple, int, int, torch.Tensor | None]] = []
+        self.keep = keep
 
     def __enter__(self):
         from audiotabs_tpu_torch.ops import hpss
@@ -937,7 +953,9 @@ class RecordMedians:
 
         def record(x, win, axis=-1):
             if x.is_cuda:
-                self.launches.append((tuple(x.shape), win, -1 if axis % x.ndim == x.ndim - 1 else -2, x.detach().clone()))
+                site = (tuple(x.shape), win, -1 if axis % x.ndim == x.ndim - 1 else -2)
+                kept = sum(1 for launch in self.launches if launch[:3] == site and launch[3] is not None)
+                self.launches.append((*site, x.detach().clone() if self.keep is None or kept < self.keep else None))
             return self.fn(x, win, axis)
 
         hpss.median_filter = record
@@ -1236,6 +1254,8 @@ def new_shape_kernel_check(median, recorder: RecordMedians) -> dict:
     known = {(shape, win, axis) for shape, win, axis in MAIN_PATH_MEDIANS}
     err = 0.0
     for shape, win, axis, x in recorder.launches:
+        if x is None:
+            continue
         got, ref = median.median_filter(x, win, axis), median.median_filter_plain(x, win, axis)
         if not torch.equal(got, ref):
             raise AssertionError(f"median kernel differs from the plain version on a launched input {shape} win {win} axis {axis}")
@@ -1255,8 +1275,242 @@ def new_shape_kernel_check(median, recorder: RecordMedians) -> dict:
         )
         rows[f"{'x'.join(map(str, shape))} win {win} axis {axis}"] = row
         print("median new shape", json.dumps(dict(shape=list(shape), win=win, axis=axis, **row)))
-    print(f"median exact on all {len(recorder.launches)} launched inputs of the new paths and at {len(rows)} new shapes (random and tie-heavy)")
+    kept = sum(1 for launch in recorder.launches if launch[3] is not None)
+    print(f"median exact on the {kept} kept of the {len(recorder.launches)} launched inputs of the new paths "
+          f"(all of them unless the recorder keeps fewer) and at {len(rows)} new shapes (random and tie-heavy)")
     return {"max_abs_err": err, "rows": rows}
+
+
+TRAIN_DIR = REPO / "build" / "chip_smoke_train"  # git-ignored: checkpoint copies and trainer outputs
+HTDEMUCS_TRAIN = dict(n_clips=8, steps=10, batch=4, seed=0, sources=6, n_val=2)
+GRAD_RTOL = 1e-3  # card against CPU: step-0 loss and global gradient norm
+# median launches per trainer in the train phase, counted from the code (PERF.md §6)
+TRAIN_LAUNCHES = {"htdemucs": 8, "beat_rnn": 20, "key_cnn": 124, "deepchroma": 36, "crf_chords": 140, "basicpitch": 24}
+
+
+def timed_steps(name: str, step, dev: torch.device, n: int = 6) -> dict:
+    """``n`` calls of ``step(i)`` (one update each, returning its loss on the
+    card), each timed by CUDA events; every loss must be finite."""
+    from audiotabs_tpu_torch.train.optim import StepTimer
+
+    timer, losses = StepTimer(dev), []
+    timer.mark()
+    for i in range(n):
+        losses.append(step(i))
+        timer.mark()
+    ms = timer.ms()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: a training loss is not finite: {losses}")
+    row = {"losses": losses, "step_ms": ms, "warm_step_ms": statistics.median(ms[1:])}
+    print(f"train {name} update steps:", json.dumps(row))
+    return row
+
+
+def train_phase(median, recorder: RecordMedians, dev: torch.device = torch.device("cuda")) -> dict:
+    """``train_trainers`` in a fresh ``TRAIN_DIR``, with the trainers' dataset
+    caches (under ``tempfile.gettempdir()``) kept in it, so that every run
+    builds its datasets on this device and makes the same median launches."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    (TRAIN_DIR / "tmp").mkdir(parents=True)
+    old_tmp, tempfile.tempdir = tempfile.tempdir, str(TRAIN_DIR / "tmp")
+    try:
+        out = train_trainers(median, recorder, dev)
+    finally:
+        tempfile.tempdir = old_tmp
+    if out["launches"] != TRAIN_LAUNCHES:
+        raise AssertionError(f"median launches by trainer {out['launches']}, counted from the code {TRAIN_LAUNCHES}")
+    return out
+
+
+def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
+    """The port's trainers on the card (all six), with the median launches they make.
+
+    htdemucs at the shipped width: resumed from a copy of the shipped
+    checkpoint (6 sources, 24 channels, 192-wide bottom, 3 transformer
+    layers, 131,072-sample segments at 44.1 kHz), 10 steps of batch 4 through
+    ``htdemucs_train.train`` with 2 validation clips; its first batch's loss
+    and global gradient norm against the CPU's (TF32 off; ``step0``). The
+    other five at their shipped widths: update steps on batches from each
+    trainer's own dataset function, timed, then ``train()`` at a few steps
+    and clips, gates and all."""
+    from audiotabs_tpu_torch.models import basicpitch, beat_rnn, deepchroma, htdemucs, key_cnn
+    from audiotabs_tpu_torch.models.params_io import WEIGHTS_DIR
+    from audiotabs_tpu_torch.train import basicpitch_train, beat_rnn_train, crf_chords_train, deepchroma_train
+    from audiotabs_tpu_torch.train import htdemucs_train, key_cnn_train
+    from audiotabs_tpu_torch.train.optim import Trainer
+
+    launches, result = {}, {}
+
+    def gates(name: str, res: dict) -> None:
+        report = {k: v for k, v in res.items() if k not in ("params", "losses", "step_ms")}
+        print(f"train {name} gates ({'saved' if res.get('saved') else 'NOT saved'}):", json.dumps(report, default=str))
+
+    # htdemucs: step 0 on the card and on the CPU, then train() on the card
+    ckpt = TRAIN_DIR / "htdemucs.npz"
+    shutil.copyfile(WEIGHTS_DIR / "htdemucs.npz", ckpt)
+    params = htdemucs.load_params(str(ckpt))
+    cfg = HTDEMUCS_TRAIN
+    mixes, stems, _ = htdemucs_train.build_clips(cfg["n_clips"], cfg["seed"], n_sources=cfg["sources"])
+    sel = np.random.default_rng(cfg["seed"]).choice(cfg["n_clips"], size=cfg["batch"], replace=False)  # train()'s first batch
+
+    def grad_norm(net) -> float:
+        return float(torch.sqrt(sum((p.grad.double() ** 2).sum() for p in net.parameters())))
+
+    def step0(device: torch.device, signs=None) -> dict:
+        """The first batch's loss and gradient norm on ``device``. The loss is
+        L1, whose gradient is the sign of each residual: residuals within
+        float noise of zero can take either sign on the two devices. So the
+        norm is also taken with the residual signs fixed to ``signs`` (the
+        card's), which is the same loss value wherever a sign is not in doubt."""
+        net = htdemucs_train.trainable(params, device)
+        mb, sb = torch.from_numpy(mixes[sel]).to(device), torch.from_numpy(stems[sel]).to(device)
+        loss = htdemucs_train.loss_fn(net, mb, sb)
+        loss.backward()
+        out = {"loss": float(loss.detach()), "grad_norm": grad_norm(net), "n_params": sum(p.numel() for p in net.parameters())}
+        net.zero_grad(set_to_none=True)
+        pred = net(mb)
+        res_s, res_r = pred - sb, pred.sum(dim=1) - mb
+        s_s, s_r = (torch.sign(res_s.detach()), torch.sign(res_r.detach())) if signs is None else (t.to(device) for t in signs)
+        # htdemucs_train.loss_fn with |r| written as sign(r) · r
+        level = sb.abs().mean(dim=(2, 3)) + 0.02
+        fixed = ((s_s * res_s).mean(dim=(2, 3)) / level).mean() + 2.0 * (s_r * res_r).mean()
+        fixed.backward()
+        out.update(fixed_loss=float(fixed.detach()), fixed_grad_norm=grad_norm(net), signs=(s_s.cpu(), s_r.cpu()),
+                   near_zero=float((res_r.detach().abs() < 1e-5).float().mean()))
+        return out
+
+    t0 = time.perf_counter()
+    card = step0(dev)
+    if not abs(card["fixed_loss"] - card["loss"]) <= 1e-5 * card["loss"]:
+        raise AssertionError(f"the sign-fixed loss {card['fixed_loss']} is not the training loss {card['loss']}")
+    cpu = step0(torch.device("cpu"), card["signs"])
+    card_loss, card_norm, cpu_loss, cpu_norm, n_params = card["loss"], card["fixed_grad_norm"], cpu["loss"], cpu["fixed_grad_norm"], card["n_params"]
+    print(f"train htdemucs step 0, card vs cpu ({time.perf_counter() - t0:.1f} s): loss {card_loss!r} / {cpu_loss!r}; "
+          f"grad norm with the card's residual signs {card_norm!r} / {cpu_norm!r}; with each device's own signs "
+          f"{card['grad_norm']!r} / {cpu['grad_norm']!r} (mix residuals within 1e-5 of zero: {card['near_zero']!r} / {cpu['near_zero']!r})")
+    for what, a, b in (("loss", card_loss, cpu_loss), ("grad norm (the card's residual signs)", card_norm, cpu_norm)):
+        if not abs(a - b) <= GRAD_RTOL * abs(b):
+            raise AssertionError(f"htdemucs step-0 {what} on the card {a} is not within rtol {GRAD_RTOL} of the CPU's {b}")
+
+    median.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = htdemucs_train.train(out_path=str(ckpt), resume=True, device=dev, **cfg)
+    wall = time.perf_counter() - t0
+    launches["htdemucs"] = median.LAUNCHES
+    losses = res["losses"]
+    if len(losses) != cfg["steps"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"htdemucs training losses: {losses}")
+    if not abs(losses[0] - card_loss) <= GRAD_RTOL * abs(card_loss):
+        raise AssertionError(f"train()'s first loss {losses[0]} is not the step-0 loss {card_loss}")
+    result["htdemucs"] = {
+        "losses": losses, "step_ms": res["step_ms"], "warm_step_ms": statistics.median(res["step_ms"][1:]),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall, "saved": res["saved"],
+        "step0": {"loss": [card_loss, cpu_loss], "grad_norm_card_signs": [card_norm, cpu_norm],
+                  "grad_norm_own_signs": [card["grad_norm"], cpu["grad_norm"]]},
+        "params_m": n_params / 1e6,
+    }
+    print("train htdemucs:", json.dumps({k: v for k, v in result["htdemucs"].items()}))
+    gates("htdemucs", res)
+
+    rng = np.random.default_rng(0)
+
+    def run(name: str, steps_fn, train_fn) -> None:
+        median.LAUNCHES = 0
+        t0 = time.perf_counter()
+        row = timed_steps(name, steps_fn(), dev)
+        res = train_fn()
+        row["wall_s"] = time.perf_counter() - t0
+        row["saved"] = bool(res.get("saved"))
+        launches[name] = median.LAUNCHES
+        gates(name, res)
+        result[name] = row
+
+    def beat_steps():
+        X, Y, _ = beat_rnn_train.build_dataset(2, 0, device=dev)
+        Xw, Yw = beat_rnn_train.windows(X, Y)
+        member = {k: v for k, v in beat_rnn.load_params().items() if k != "ensemble"}
+        net = beat_rnn_train.trainable(member, dev)
+        tr = Trainer([p for p in net.parameters() if p.requires_grad], 2e-3, 6, alpha=0.05)
+
+        def step(i):
+            b = rng.choice(len(Xw), size=32, replace=False)
+            return beat_rnn_train.update(net, tr, torch.from_numpy(Xw[b]).to(dev), torch.from_numpy(Yw[b]).to(dev), 18.0)
+
+        return step
+
+    def key_steps():
+        X, Y, _ = key_cnn_train.build_clips(16, 0, dev)
+        net = key_cnn.KeyCNN.from_params(key_cnn.load_params()).to(dev)
+        tr = Trainer(net.parameters(), 2e-3, 6, alpha=0.05, weight_decay=1e-4)
+
+        def step(i):
+            b = rng.choice(16, size=16, replace=False)
+            xb, yb = key_cnn_train.augment_batch(X[b], Y[b], rng)
+            return key_cnn_train.update(net, tr, torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev))
+
+        return step
+
+    def deepchroma_steps():
+        X, Y, _, _ = deepchroma_train.build_dataset(4, 0, dev)
+        net = deepchroma_train.trainable(deepchroma.load_params(), dev)
+        tr = Trainer(net.parameters(), 1e-3, 6, alpha=0.05, weight_decay=1e-4)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def step(i):
+            b = rng.integers(0, X.shape[0], size=256)
+            xb, yb = deepchroma_train.augment_batch(X[b], Y[b], rng)
+            return deepchroma_train.update(net, tr, torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev),
+                                           deepchroma_train.dropout_masks(net, 256, gen))
+
+        return step
+
+    def crf_steps():
+        X_clips, Y_clips = crf_chords_train.build_dataset(4, 0, deepchroma.load_params(), device=dev)
+        X = np.concatenate([crf_chords_train._ctx_stack_np(x, 3) for x in X_clips])
+        Y = np.concatenate(Y_clips)
+        w = torch.nn.Parameter(torch.from_numpy(crf_chords_train.template_init(3)).to(dev))
+        tr = Trainer([w], 1e-2, 6, alpha=0.05)
+
+        def step(i):
+            b = rng.integers(0, X.shape[0], size=512)
+            return crf_chords_train.update(w, tr, torch.from_numpy(X[b]).to(dev), torch.from_numpy(Y[b]).to(dev))
+
+        return step
+
+    def basicpitch_steps():
+        clips = basicpitch_train.build_clips(8, 0)
+        n_frames = int(basicpitch_train.CLIP_S * 22050) // basicpitch.HOP + 1
+        audio = np.stack([c[0] for c in clips]).astype(np.float32)
+        rolls = [basicpitch_train.rolls_from_events(ev, n_frames) for _, ev in clips]
+        arrays = [audio] + [np.stack([r[k] for r in rolls]) for k in range(3)]
+        net = basicpitch.BasicPitchCNN.from_params(basicpitch.load_params()).to(dev)
+        tr = Trainer(net.parameters(), 3e-3, 6, alpha=0.05)
+
+        def step(i):
+            b = rng.choice(8, size=8, replace=False)
+            return basicpitch_train.update(net, tr, *(torch.from_numpy(a[b]).to(dev) for a in arrays))
+
+        return step
+
+    run("beat_rnn", beat_steps, lambda: beat_rnn_train.train(
+        n_clips=2, epochs=1, batch=32, ensemble=1, out_path=str(TRAIN_DIR / "beat_rnn.npz"), device=dev))
+    run("key_cnn", key_steps, lambda: key_cnn_train.train(
+        n_clips=16, steps=5, batch=16, out_path=str(TRAIN_DIR / "key_cnn.npz"), device=dev))
+    run("deepchroma", deepchroma_steps, lambda: deepchroma_train.train(
+        n_clips=4, steps=5, batch=256, out_path=str(TRAIN_DIR / "deepchroma.npz"), device=dev))
+    run("crf_chords", crf_steps, lambda: crf_chords_train.train(
+        n_clips=4, steps=5, batch=512, out_path=str(TRAIN_DIR / "crf_chords.npz"), device=dev))
+    run("basicpitch", basicpitch_steps, lambda: basicpitch_train.train(
+        n_clips=8, steps=5, batch=8, out_path=str(TRAIN_DIR / "basicpitch.npz"), device=dev))
+
+    total = sum(launches.values())
+    if total == 0 or len(recorder.launches) != total:
+        raise AssertionError(f"training launched the median kernel {total} times, {len(recorder.launches)} through HPSS")
+    shapes = collections.Counter(f"{'x'.join(map(str, shape))} win {win} axis {axis}" for shape, win, axis in recorder.sites())
+    print(f"train median launches: {total} ({launches}); by shape {dict(shapes)}")
+    return {"launches": launches, "total": total, "by_shape": dict(shapes), "trainers": result}
 
 
 def main() -> int:
@@ -1375,6 +1629,9 @@ def main() -> int:
         cases = {name: run_phase(name, lambda name=name: settings_phase(median, card, name, recorder)) for name in SETTINGS_CASES}
         degraded = run_phase("degraded", lambda: degraded_phase(median, card, recorder))
     new_shapes = run_phase("new shapes", lambda: new_shape_kernel_check(median, recorder))
+    with RecordMedians(keep=4) as train_recorder:
+        train = run_phase("train", lambda: train_phase(median, train_recorder))
+    train_shapes = run_phase("train shapes", lambda: new_shape_kernel_check(median, train_recorder))
     print(f"all phases: {time.perf_counter() - t_run:.2f} s")
 
     print(json.dumps({"kernels": [{
@@ -1392,7 +1649,10 @@ def main() -> int:
         "launches_template": [cases["template"]["launches"], cases["template_majmin7plus"]["launches"]],
         "launches_content_window": cases["content"]["launches"],
         "launches_degraded": degraded["runs"][-1]["launches"],
-        "max_abs_err": max(kernel["max_abs_err"], new_shapes["max_abs_err"]),
+        "launches_train": train["total"],
+        "launches_train_by_trainer": train["launches"],
+        "launches_train_by_shape": train["by_shape"],
+        "max_abs_err": max(kernel["max_abs_err"], new_shapes["max_abs_err"], train_shapes["max_abs_err"]),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -1401,6 +1661,7 @@ def main() -> int:
         "ms_per_launch": kernel["per_launch"],
         "ms_per_batched_launch": kernel["batched"],
         "ms_per_launch_new_shapes": new_shapes["rows"],
+        "ms_per_launch_train_shapes": train_shapes["rows"],
         "per_batch_chunk": kernel["per_chunk"],
         "single_ms": kernel["single_ms"],
         "device_ms": kernel["device_ms"],

@@ -160,6 +160,18 @@ def test_weights_off_gives_none(monkeypatch):
 
 
 @pytest.mark.parametrize("shape,sr", [((22050,), 16000), ((2, 22050), 22050)])
-def test_separate_stems_device_raises_off_the_device_path(shape, sr):
-    with pytest.raises(NotImplementedError, match="separate_stems"):
-        htdemucs.separate_stems_device(torch.zeros(shape), sr)
+def test_separate_stems_device_raises_off_the_device_path(shape, sr, tiny4, tmp_path, monkeypatch):
+    """Off the device path (a 2-D signal, a rate other than 44.1 and 22.05 kHz)
+    the device entry point no longer raises: it takes the host path,
+    ``separate_stems``, and returns its stems as tensors on the input's
+    device (held against the JAX package in tests/test_torch_hostsep.py)."""
+    path = tmp_path / "tiny.npz"
+    htdemucs.save_params(str(path), {**tiny4, "meta_segment": np.asarray(24576, np.int64)})
+    monkeypatch.setenv("HTDEMUCS_WEIGHTS", str(path))
+    y = (0.1 * np.random.default_rng(5).standard_normal(shape)).astype(np.float32)
+    got = htdemucs.separate_stems_device(torch.from_numpy(y), sr)
+    ref = htdemucs.separate_stems(y, sr, device="cpu")
+    assert list(got) == list(ref) == ["drums", "bass", "other", "vocals"]
+    for name in ref:
+        assert got[name].device.type == "cpu"
+        np.testing.assert_array_equal(got[name].numpy(), ref[name])

@@ -28,6 +28,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "audiotabs_tpu_torch.runtime.worker", "audiotabs_tpu_torch.runtime.server", "audiotabs_tpu_torch.runtime.celery_integration",
         "audiotabs_tpu_torch.io.native", "audiotabs_tpu_torch.io.mp3", "audiotabs_tpu_torch.io.avdecode",
         "audiotabs_tpu_torch.theory.postprocess", "audiotabs_tpu_torch.decode.melody", "audiotabs_tpu_torch.ops.chroma",
+        "audiotabs_tpu_torch.analysis.metrics", "audiotabs_tpu_torch.train.synth", "audiotabs_tpu_torch.train.golden",
+        "audiotabs_tpu_torch.train.optim", "audiotabs_tpu_torch.train.shifts_eval",
+        *(f"audiotabs_tpu_torch.train.{m}_train" for m in ("htdemucs", "beat_rnn", "key_cnn", "deepchroma", "crf_chords", "basicpitch")),
     } <= set(mods)
     # the GPU machine has no pydantic and no celery: the port must not need them
     code = (
