@@ -12,12 +12,11 @@ package. ``FUSED_SPLIT_FETCH`` and ``PROFILE_DIR`` are the JAX package's
 device→host transfer and trace knobs: the port always copies the fused
 outputs in one transfer, and is traced with ``torch.profiler`` from outside.
 The serving knobs (``FRONTEND_ORIGIN`` to ``BATCH_SONGS_PER_DEVICE``) are read
-by ``runtime/{jobs,server,celery_integration,batch_runner}.py``. The JAX
-package's ``JOB_WORKERS`` is not copied: no code reads it there. ``MESH_SHAPE``
-and ``MESH_AXES`` are not copied either: the port runs on one device, and
-``BATCH_SONGS_PER_DEVICE`` is the batch runner's chunk size on it;
-data parallelism over several cards is not ported (ROADMAP.md, queue 1,
-item 6).
+by ``runtime/{jobs,server,celery_integration,batch_runner}.py``, and
+``MESH_SHAPE``/``MESH_AXES`` by ``parallel/mesh.py::default_mesh`` (empty:
+every card on one ``"data"`` axis; ``"4,2"`` / ``"data,model"`` for a 2-D
+mesh). The JAX package's ``JOB_WORKERS`` is not copied: no code reads it
+there.
 
 There is no module-global ``settings``: every entry point takes a
 ``Settings`` (``Settings.from_env()`` when none is given).
@@ -79,6 +78,8 @@ class Settings:
     CELERY_ENABLED: bool = False
     REDIS_URL: str = "redis://localhost:6379/0"
     BATCH_SONGS_PER_DEVICE: int = 4
+    MESH_SHAPE: str = ""  # e.g. "8" or "4,2"; empty = every card, 1-D
+    MESH_AXES: str = "data"  # axis names matching MESH_SHAPE
 
     @classmethod
     def from_env(cls) -> "Settings":

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..device import on_device
+from ..ops.spectral import as_device
 
 
 @lru_cache(maxsize=8)
@@ -53,7 +54,7 @@ def _dbn_forward(
     n_tempi = len(intervals_np)
     max_int = int(intervals_np.max())
     intervals = torch.from_numpy(intervals_np.astype(np.int64)).to(dev)
-    log_trans = torch.from_numpy(_tempo_transition(min_bpm, max_bpm, fps, transition_lambda)).to(dev)
+    log_trans = as_device(_tempo_transition(min_bpm, max_bpm, fps, transition_lambda), activations)
 
     act = torch.clamp(activations.to(torch.float32), 1e-6, 1.0 - 1e-6)
     T = act.shape[0]
@@ -185,3 +186,31 @@ def normalize_beat_times(beat_times: np.ndarray | None) -> tuple[np.ndarray | No
     bt = np.sort(bt)
     offset = float(bt[0])
     return (bt - offset).astype(np.float32), offset
+
+
+def estimate_beats(
+    y,
+    sr: int,
+    *,
+    fps: int = 100,
+    min_bpm: float = 55.0,
+    max_bpm: float = 215.0,
+    device=None,
+) -> tuple[float, np.ndarray]:
+    """Full beat tracking: the beat activation on the device (the BLSTM
+    ensemble of the checkpoint, else the onset activation) → the DBN decode
+    → (tempo_bpm, beat_times); (0.0, []) when no beat is found. ``y`` is a
+    tensor on its device, or a host array sent to ``device`` (the card
+    unless the caller names the CPU).
+
+    Mirrors the reference's estimate_beats contract (grid/beats.py:61-89)."""
+    from ..models.beat_rnn import beat_activation
+    from ..runtime.fused import load_models
+
+    yd = on_device(y, device)
+    with torch.inference_mode():
+        act = beat_activation(yd, sr, load_models(yd.device).beat, fps)
+    beats = dbn_beat_track(act, fps=fps, min_bpm=min_bpm, max_bpm=max_bpm)
+    if beats.size == 0:
+        return 0.0, np.asarray([], dtype=np.float32)
+    return estimate_tempo(beats), beats

@@ -481,6 +481,95 @@ def save_params(path: str, params: dict) -> None:
     _model.cache_clear()
 
 
+def _strip_prefix(state_dict: dict) -> dict:
+    """Accept BagOfModels-style checkpoints ('models.0.' prefixed keys)."""
+    for pref in ("models.0.", "model.", "module."):
+        if any(k.startswith(pref) for k in state_dict):
+            return {k[len(pref) :]: v for k, v in state_dict.items() if k.startswith(pref)}
+    return state_dict
+
+
+def convert_torch_state_dict(state_dict: dict, audio_channels: int = 2) -> dict:
+    """A released HTDemucs checkpoint's state dict (upstream key naming,
+    ``models.0.`` prefix stripped) → the JAX-layout pytree that
+    ``HTDemucs.from_params`` loads; raises ``KeyError`` on a missing key.
+
+    Counterpart of the JAX ``convert_torch_state_dict``: tensors or numpy
+    arrays; Linear and attention weights transposed to the ``x @ W``
+    layout, conv weights in torch's layout, the embedding times its scale
+    of 10. ``audio_channels`` is read off the weights, as there."""
+    sd = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+          for k, v in _strip_prefix(state_dict).items()}
+
+    def arr(key):
+        if key not in sd:
+            raise KeyError(f"missing checkpoint key: {key}")
+        return sd[key]
+
+    def dconv_params(prefix):
+        blocks = []
+        for j in range(2):
+            b = f"{prefix}.layers.{j}"
+            blocks.append({
+                "conv1_w": arr(f"{b}.0.weight"), "conv1_b": arr(f"{b}.0.bias"),
+                "gn1_g": arr(f"{b}.1.weight"), "gn1_b": arr(f"{b}.1.bias"),
+                "conv2_w": arr(f"{b}.3.weight"), "conv2_b": arr(f"{b}.3.bias"),
+                "gn2_g": arr(f"{b}.4.weight"), "gn2_b": arr(f"{b}.4.bias"),
+                "scale": arr(f"{b}.6.scale"),
+            })
+        return {"blocks": blocks}
+
+    p: dict = {"encoder": [], "tencoder": [], "decoder": [], "tdecoder": []}
+    for i in range(DEPTH):
+        for ours in ("encoder", "tencoder"):
+            p[ours].append({
+                "conv_w": arr(f"{ours}.{i}.conv.weight"), "conv_b": arr(f"{ours}.{i}.conv.bias"),
+                "rewrite_w": arr(f"{ours}.{i}.rewrite.weight"), "rewrite_b": arr(f"{ours}.{i}.rewrite.bias"),
+                "dconv": dconv_params(f"{ours}.{i}.dconv"),
+            })
+        for ours in ("decoder", "tdecoder"):
+            p[ours].append({
+                "rewrite_w": arr(f"{ours}.{i}.rewrite.weight"), "rewrite_b": arr(f"{ours}.{i}.rewrite.bias"),
+                "convtr_w": arr(f"{ours}.{i}.conv_tr.weight"), "convtr_b": arr(f"{ours}.{i}.conv_tr.bias"),
+            })
+
+    # ScaledEmbedding: effective embedding = weight * scale (scale=10)
+    p["freq_emb"] = arr("freq_emb.embedding.weight") * np.float32(10.0)
+    for ours, theirs in (("up_s", "channel_upsampler"), ("up_t", "channel_upsampler_t"),
+                         ("down_s", "channel_downsampler"), ("down_t", "channel_downsampler_t")):
+        p[f"{ours}_w"] = arr(f"{theirs}.weight")[:, :, 0]  # Conv1d 1×1 [out, in, 1]
+        p[f"{ours}_b"] = arr(f"{theirs}.bias")
+    p["norm_in_g"] = arr("crosstransformer.norm_in.weight")
+    p["norm_in_b"] = arr("crosstransformer.norm_in.bias")
+    p["norm_in_t_g"] = arr("crosstransformer.norm_in_t.weight")
+    p["norm_in_t_b"] = arr("crosstransformer.norm_in_t.bias")
+
+    def tlayer_params(prefix, cross: bool):
+        attn = "cross_attn" if cross else "self_attn"
+        in_w = arr(f"{prefix}.{attn}.in_proj_weight")  # [3D, D]
+        in_b = arr(f"{prefix}.{attn}.in_proj_bias")
+        D = in_w.shape[1]
+        lp = {
+            "q_w": in_w[:D].T, "k_w": in_w[D : 2 * D].T, "v_w": in_w[2 * D :].T,
+            "q_b": in_b[:D], "k_b": in_b[D : 2 * D], "v_b": in_b[2 * D :],
+            "o_w": arr(f"{prefix}.{attn}.out_proj.weight").T, "o_b": arr(f"{prefix}.{attn}.out_proj.bias"),
+            "norm1_g": arr(f"{prefix}.norm1.weight"), "norm1_b": arr(f"{prefix}.norm1.bias"),
+            "norm2_g": arr(f"{prefix}.norm2.weight"), "norm2_b": arr(f"{prefix}.norm2.bias"),
+            "lin1_w": arr(f"{prefix}.linear1.weight").T, "lin1_b": arr(f"{prefix}.linear1.bias"),
+            "lin2_w": arr(f"{prefix}.linear2.weight").T, "lin2_b": arr(f"{prefix}.linear2.bias"),
+            "gamma1": arr(f"{prefix}.gamma_1.scale"), "gamma2": arr(f"{prefix}.gamma_2.scale"),
+            "normout_g": arr(f"{prefix}.norm_out.weight"), "normout_b": arr(f"{prefix}.norm_out.bias"),
+        }
+        if cross:
+            lp["norm3_g"] = arr(f"{prefix}.norm3.weight")
+            lp["norm3_b"] = arr(f"{prefix}.norm3.bias")
+        return lp
+
+    p["tlayers"] = [tlayer_params(f"crosstransformer.layers.{i}", cross=i % 2 == 0) for i in range(T_LAYERS)]
+    p["tlayers_t"] = [tlayer_params(f"crosstransformer.layers_t.{i}", cross=i % 2 == 0) for i in range(T_LAYERS)]
+    return p
+
+
 # -------------------------------------------------- the separation program --
 
 

@@ -24,16 +24,26 @@ def hann_window(n: int, periodic: bool = True) -> np.ndarray:
     return w.astype(np.float32)
 
 
+def num_frames(n_samples: int, frame_length: int, hop: int, center: bool = True) -> int:
+    if center:
+        return n_samples // hop + 1
+    return max(0, 1 + (n_samples - frame_length) // hop)
+
+
 def as_device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A numpy constant (window, filterbank, bank) as a tensor on like's device."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+    """A numpy constant (window, filterbank, bank) as a tensor on like's
+    device. Always a copy: on the CPU a ``from_numpy`` view would share its
+    memory with the ``lru_cache``d constant, and an in-place op on it would
+    change the constant for every later caller in the process."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(like.device, copy=True)
 
 
 @lru_cache(maxsize=32)
 def device_hann(n: int, device: torch.device) -> torch.Tensor:
-    """The periodic Hann window, uploaded once per device (not per call)."""
+    """The periodic Hann window, uploaded once per device (not per call);
+    a copy, never a view of ``hann_window``'s cached array."""
     with torch.inference_mode(False):  # a normal tensor, usable in and out of inference mode
-        return torch.from_numpy(hann_window(n)).to(device)
+        return torch.from_numpy(hann_window(n)).to(device, copy=True)
 
 
 def _pad_last(x: torch.Tensor, left: int, right: int, mode: str) -> torch.Tensor:
@@ -128,3 +138,7 @@ def power_to_db(S: torch.Tensor, ref: float = 1.0, amin: float = 1e-10, top_db: 
     if top_db is not None:
         log_spec = torch.maximum(log_spec, log_spec.max() - top_db)
     return log_spec
+
+
+def magnitude_db(spec: torch.Tensor, top_db: float | None = 80.0):
+    return power_to_db(torch.abs(spec) ** 2, top_db=top_db)

@@ -1,25 +1,31 @@
-"""Batch transcription: many songs through one batched analysis on the card.
+"""Batch transcription: many songs through one batched analysis per device.
 
 The port of audiotabs_tpu/runtime/batch_runner.py. Songs are decoded, padded
-to one common bucket multiple and stacked into a [B, T] batch; chunks of
-``BATCH_SONGS_PER_DEVICE`` songs each go through htdemucs separation
-(``separate_program`` on [B, L]) and ``fused_analysis_batch`` as one batched
-call. Every chunk is dispatched first; then each comes to the host in one
-transfer and its songs' host tails (``run_pipeline_from_features``) run in a
-thread pool. Dispatch holds the host (the row-looped stages), so the tails
-start after the last chunk is dispatched and overlap no device work
-(PERF.md §7).
+to one common bucket multiple and stacked into a [B, T] batch, and the batch
+is split over the ``"data"`` axis of a device mesh (``parallel/mesh.py``),
+as the JAX package shards it: zero rows pad B to a multiple of the axis
+size, and a chunk is ``n_dev × BATCH_SONGS_PER_DEVICE`` songs. Each device
+runs its rows of a chunk through htdemucs separation (``separate_program``
+on [b, L]) and ``fused_analysis_batch`` as one batched call, on its own
+stream (each card's own). Every chunk is dispatched first; then each device
+shard comes to the host in one transfer, the shards are put back in row
+order, the pad rows are cropped, and the songs' host tails
+(``run_pipeline_from_features``) run in a thread pool. Dispatch holds the
+host (the row-looped stages), so the tails start after the last chunk is
+dispatched and overlap no device work (PERF.md §7).
 
     from audiotabs_tpu_torch.runtime.batch_runner import transcribe_batch
-    results = transcribe_batch(["a.wav", "b.wav"], "out_root")  # on the card
+    results = transcribe_batch(["a.wav", "b.wav"], "out_root")  # every card
 
-Runs on the card unless ``device="cpu"``; raises when no GPU is present and
-the CPU was not asked for. The JAX package shards a batch over a device
-mesh; the port runs on one device (ROADMAP.md, queue 1, item 6).
+With neither ``mesh`` nor ``device`` the mesh is ``default_mesh()`` (every
+card on one ``"data"`` axis, or ``MESH_SHAPE``/``MESH_AXES``), which raises
+when no GPU is present; ``device="cpu"`` (or any one device) runs the batch
+there in chunks of ``BATCH_SONGS_PER_DEVICE``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -30,6 +36,7 @@ import torch
 
 from ..config import Settings
 from ..device import resolve_device
+from ..parallel.mesh import Mesh, data_shards, default_mesh, make_mesh
 from ..schemas import JobResult
 from .fused import fused_analysis_batch
 from .pipeline import features_to_host
@@ -113,42 +120,74 @@ def _analyse_chunk(y: torch.Tensor, true_lens: np.ndarray, sr: int, s: Settings,
     )
 
 
+def _resolve_mesh(mesh: Mesh | None, device, s: Settings) -> Mesh:
+    """The mesh a batch runs on: ``mesh``, else a one-device mesh of
+    ``device``, else ``default_mesh``."""
+    if mesh is not None and device is not None:
+        raise ValueError("batch runner: pass a mesh or a device, not both")
+    if mesh is not None:
+        return mesh
+    if device is not None:
+        return make_mesh((1,), ("data",), devices=[resolve_device(device)])
+    return default_mesh(s)
+
+
 def batched_fused_analysis_stream(
     batch: np.ndarray,
     sr: int,
     true_lens=None,
     *,
+    mesh: Mesh | None = None,
     device: str | torch.device | None = None,
     settings: Settings | None = None,
 ):
     """Yield (start_row, host feature dict) per chunk of
-    ``BATCH_SONGS_PER_DEVICE`` songs.
+    ``n_dev × BATCH_SONGS_PER_DEVICE`` songs, ``n_dev`` the mesh's
+    ``"data"`` size.
 
-    A tail chunk runs at its own smaller B (no zero rows). Every chunk is
-    dispatched before the first transfer, as in the JAX package; each chunk
-    then comes to the host in one device→host copy. Dispatch is host-bound
-    here, so the caller's work on chunk i starts only after the last chunk's
-    dispatch and overlaps no device work (PERF.md §7)."""
-    dev = resolve_device(device)
+    Zero rows pad B to a multiple of ``n_dev`` and are cropped from every
+    yielded chunk; a tail chunk runs at its own smaller B. Every chunk is
+    dispatched before the first transfer, as in the JAX package; each
+    device's shard of a chunk then comes to the host in one device→host
+    copy. Dispatch is host-bound here, so the caller's work on chunk i
+    starts only after the last chunk's dispatch and overlaps no device work
+    (PERF.md §7)."""
     s = settings or Settings.from_env()
+    mesh = _resolve_mesh(mesh, device, s)
+    n_dev = mesh.shape["data"]
     B = batch.shape[0]
     if true_lens is None:
         true_lens = np.full((B,), batch.shape[1], dtype=np.int32)
     true_lens = np.asarray(true_lens, dtype=np.int32)
-    chunk = max(1, int(s.BATCH_SONGS_PER_DEVICE))
+    chunk = n_dev * max(1, int(s.BATCH_SONGS_PER_DEVICE))
+    pad_rows = (-B) % n_dev
+    if pad_rows:
+        _LOG.info("batch: padding %d zero rows to align B=%d to %d devices", pad_rows, B, n_dev)
+        batch = np.concatenate([batch, np.zeros((pad_rows,) + batch.shape[1:], batch.dtype)])
+        true_lens = np.concatenate([true_lens, np.full((pad_rows,), batch.shape[1], np.int32)])
 
     # real htdemucs separation when the checkpoint exists (same priority
     # logic as the single-song pipeline); else the weight-free HPSS fallback
-    sep_cfg, model, _stem_name = _resolve_separation(s, sr, dev)
+    separation = {dev: _resolve_separation(s, sr, dev) for dev in dict.fromkeys(mesh.axis_devices("data"))}
     outs = []
     # parity trap: cuDNN convolutions and the LSTM default to TF32 on the card
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        for a in range(0, B, chunk):
-            rows = min(chunk, B - a)
-            y = torch.from_numpy(np.ascontiguousarray(batch[a : a + rows], dtype=np.float32)).to(dev)
-            outs.append((a, _analyse_chunk(y, true_lens[a : a + rows], sr, s, sep_cfg, model)))
-    for a, o in outs:
-        yield a, features_to_host(o)
+        for a in range(0, batch.shape[0], chunk):
+            rows = min(chunk, batch.shape[0] - a)
+            shards = []
+            for dev, part in data_shards(mesh, rows):
+                lo, hi = a + part.start, a + part.stop
+                # each card runs its shard on its own (default) stream
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                    y = torch.from_numpy(np.ascontiguousarray(batch[lo:hi], dtype=np.float32)).to(dev)
+                    sep_cfg, model, _stem_name = separation[dev]
+                    shards.append(_analyse_chunk(y, true_lens[lo:hi], sr, s, sep_cfg, model))
+            outs.append((a, rows, shards))
+    for a, rows, shards in outs:
+        hosts = [features_to_host(o) for o in shards]
+        host = hosts[0] if len(hosts) == 1 else {k: np.concatenate([h[k] for h in hosts]) for k in hosts[0]}
+        n = min(rows, B - a)
+        yield a, {k: v[:n] for k, v in host.items()}
 
 
 def batched_fused_analysis(
@@ -156,15 +195,17 @@ def batched_fused_analysis(
     sr: int,
     true_lens=None,
     *,
+    mesh: Mesh | None = None,
     device: str | torch.device | None = None,
     settings: Settings | None = None,
 ) -> dict[str, np.ndarray]:
-    """[B, T] → host fused feature dict with a leading B axis.
+    """[B, T] → host fused feature dict with a leading B axis, sharded over
+    the mesh's ``"data"`` axis.
 
     ``true_lens`` [B] (samples) masks each song's chord decode past its true
     end (defaults to the full row). See batched_fused_analysis_stream for
     the chunking contract; this wrapper concatenates the chunks."""
-    parts = [h for _a, h in batched_fused_analysis_stream(batch, sr, true_lens, device=device, settings=settings)]
+    parts = [h for _a, h in batched_fused_analysis_stream(batch, sr, true_lens, mesh=mesh, device=device, settings=settings)]
     if len(parts) == 1:
         return parts[0]
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
@@ -174,16 +215,20 @@ def transcribe_batch(
     paths: list[Path | str],
     out_root: Path | str,
     *,
+    mesh: Mesh | None = None,
     device: str | torch.device | None = None,
     settings: Settings | None = None,
     host_workers: int = 4,
 ) -> list[JobResult]:
     """Transcribe a batch of songs; writes the usual artifact layout under
-    out_root/jobs/<stem>/ and returns the JobResults."""
+    out_root/jobs/<stem>/ and returns the JobResults. The host tails' device
+    work (their fallbacks) runs on the first device of the mesh's
+    ``"data"`` axis."""
     from .pipeline import run_pipeline_from_features
 
-    dev = resolve_device(device)
     s = settings or Settings.from_env()
+    mesh = _resolve_mesh(mesh, device, s)
+    dev = mesh.axis_devices("data")[0]
     paths = [Path(p) for p in paths]
     out_root = Path(out_root)
     t0 = time.perf_counter()
@@ -213,7 +258,7 @@ def transcribe_batch(
     t0 = time.perf_counter()
     futures = []
     with ThreadPoolExecutor(max_workers=host_workers) as pool:
-        for a, feats_chunk in batched_fused_analysis_stream(batch, sr, true_lens, device=dev, settings=s):
+        for a, feats_chunk in batched_fused_analysis_stream(batch, sr, true_lens, mesh=mesh, settings=s):
             n = next(iter(feats_chunk.values())).shape[0]
             for j in range(min(n, len(paths) - a)):
                 feats_i = {k: np.asarray(v[j]) for k, v in feats_chunk.items()}

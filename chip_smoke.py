@@ -56,6 +56,17 @@
    the batch's (printed, not checked). Step 3 also holds the kernel exactly
    at every batched shape ([B, 1025, 1292], [B·20, 513, 130], [B, 513, 1292]
    for B = 4 and 2, both axes) and times each against its byte bound.
+9a. The mesh (after 9, ``mesh_phase``): ``transcribe_batch`` over the six
+    clips with ``mesh=default_mesh()`` (every card on one "data" axis): 8
+    median launches per chunk, every row's discrete outputs and beat times
+    equal to step 9's and its floats within FLOAT_TOL, the same artifact set;
+    ``batched_fused_analysis`` over a 2-way "data" mesh of [cuda:0, cuda:0]
+    at B = 6 and B = 5 (one zero pad row): 8 launches per device shard as
+    counted from the code, each row equal to the 1-way mesh's, the kernel
+    exact at the shard shapes; htdemucs_6s with its weights sharded over a
+    (1, 2) ("data", "model") mesh of [cuda:0, cuda:0]: the distributed
+    parameters and the bytes in each shard, the 30 s bucket's separation
+    within STEM_TOL of the unsharded module's, both warm times by events.
 10. Decode (after 7): which decoders the machine has (the native library
     built from native/, libmpg123, libmp3lame, the libavformat headers and
     the FFmpeg shim, an ffmpeg binary); the native resampler against
@@ -106,6 +117,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import importlib
 import json
 import shutil
 import statistics
@@ -801,6 +813,7 @@ def batch_phase(median, card: str) -> dict:
         if missing or out["beat_times.json"]["stem_source"] != "guitar" or out["beat_times.json"]["errors"]:
             raise AssertionError(f"batch song {clip.name}: missing {sorted(missing)}, beat_times {out['beat_times.json']['stem_source']} {out['beat_times.json']['errors']}")
     print(f"batch: every song has result.json and the artifact set, stem guitar, no stage error")
+    warm_rows = {k: np.concatenate([res[k] for _, _, res in host.calls]) for k in host.calls[0][2]}
 
     # the last (warm) run's rows: stems against a 1-D separation, fused outputs against fused_analysis on the row
     cfg = htdemucs.program_config(htdemucs.load_params(), s.DEMUCS_MODEL, s.stem_priority())
@@ -854,7 +867,139 @@ def batch_phase(median, card: str) -> dict:
               f"({len(beats[0])} / {len(beats[1])}, largest shift {max((abs(x - y) for x, y in zip(*beats)), default=0.0):.4f} s), "
               f"notes {sum(b_notes.values())} / {sum(s_notes.values())}, {same_notes} in both (start, end, pitch); single run_pipeline {single[-1]:.3f} s")
     print(f"one at a time: {sum(single):.3f} s for the six songs ({audio_s / sum(single):.3f} audio-s per wall s), batch {walls[1]:.3f} s [{card}]")
-    return {"walls": walls, "launches_per_chunk": per_chunk_launches, "profile": prof, "chunks": chunks, "single_s": single}
+    return {"walls": walls, "launches_per_chunk": per_chunk_launches, "profile": prof, "chunks": chunks, "single_s": single,
+            "rows": warm_rows}
+
+
+MESH_JOBS = REPO / "build" / "chip_smoke_mesh"  # git-ignored
+
+
+def mesh_phase(median, card: str, batch: dict) -> dict:
+    """The device mesh (parallel/), on the machine's one card:
+
+    a. ``transcribe_batch`` over the six held-out clips with
+       ``mesh=default_mesh()`` (a 1-D "data" mesh over every card): 8 median
+       launches per chunk of 4 and 2 songs; every row's discrete outputs and
+       beat times equal the batch phase's (``device=``, no mesh), its floats
+       within FLOAT_TOL; the same artifact set.
+    b. ``batched_fused_analysis`` over a 2-way "data" mesh of
+       [cuda:0, cuda:0] at B = 6 and B = 5 (one zero pad row): each chunk's
+       rows split 2 ways, 8 launches per device shard, counted from the code;
+       each row equal to the 1-way mesh's row; the kernel held exactly at the
+       new shard shapes.
+    c. The shipped htdemucs_6s checkpoint at full width with its weights
+       sharded over a ("data", "model") mesh of shape (1, 2) on
+       [cuda:0, cuda:0]: the distributed parameters and the bytes each shard
+       holds, the separation of the 30 s bucket's windows against the
+       unsharded module within STEM_TOL, both warm times by CUDA events."""
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.models import htdemucs
+    from audiotabs_tpu_torch.parallel import default_mesh, make_mesh
+    from audiotabs_tpu_torch.parallel.model_axis import shard_params_model_axis, sharded_count, sharded_parameters
+    from audiotabs_tpu_torch.runtime import batch_runner
+
+    s = Settings.from_env()  # the shipped settings, as the CLI reads them
+    per_shard = []
+
+    class CountShards(Capture):
+        def __enter__(self):
+            super().__enter__()
+            keep = getattr(self.module, self.name)
+
+            def counted(*args, **kwargs):
+                median.LAUNCHES = 0
+                out = keep(*args, **kwargs)
+                per_shard.append((args[0].shape[0], median.LAUNCHES))
+                return out
+
+            setattr(self.module, self.name, counted)
+            return self
+
+    # a. the default mesh: every card on "data"
+    mesh = default_mesh(s)
+    print(f"default mesh: {mesh}")
+    if mesh.shape != {"data": torch.cuda.device_count()}:
+        raise AssertionError(f"default mesh {mesh.shape}, expected every card on one data axis")
+    shutil.rmtree(MESH_JOBS, ignore_errors=True)
+    with CountShards(batch_runner, "_analyse_chunk"), Capture(batch_runner, "features_to_host") as host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = batch_runner.transcribe_batch(HELDOUT, MESH_JOBS, mesh=mesh, settings=s)
+        wall = time.perf_counter() - t0
+    if per_shard != [(b, SEPARATED_LAUNCHES) for b in CHUNK_SONGS]:
+        raise AssertionError(f"default mesh: (songs, median launches) per device shard {per_shard}, expected {SEPARATED_LAUNCHES} for each of {list(CHUNK_SONGS)}")
+    rows = {k: np.concatenate([res[k] for _, _, res in host.calls]) for k in host.calls[0][2]}
+    for i, (clip, r) in enumerate(zip(HELDOUT, results)):
+        compare_with_cpu(f"mesh row {i} vs batch row", {k: v[i] for k, v in batch["rows"].items()}, {k: v[i] for k, v in rows.items()}, quiet=True)
+        m_out, b_out = read_out(MESH_JOBS / "jobs" / clip.stem), read_out(BATCH_JOBS / "jobs" / clip.stem)
+        if set(m_out) != set(b_out) or r.transcription_error is not None:
+            raise AssertionError(f"mesh song {clip.name}: artifacts {sorted(set(m_out) ^ set(b_out))} differ, error {r.transcription_error}")
+        for key in ("raw_beat_times", "beat_times"):
+            if m_out["beat_times.json"][key] != b_out["beat_times.json"][key]:
+                raise AssertionError(f"mesh song {clip.name}: {key} differ from the batch phase's")
+    launches_default = [n for _, n in per_shard]
+    print(f"mesh a (default mesh {mesh.shape}): {len(HELDOUT)} songs in {wall:.3f} s, (songs, median launches) per device shard {per_shard}; "
+          f"every row's discrete outputs and beat times equal the batch phase's, floats within {FLOAT_TOL}; the same artifact set [{card}]")
+
+    # b. a 2-way data mesh on the one card: rows split 2 ways, one zero pad row at B = 5
+    two = make_mesh((2,), ("data",), devices=[torch.device("cuda:0")] * 2)
+    data, true_lens, sr = batch_runner._load_and_bucket(HELDOUT, s.PAD_SECONDS_BUCKET)
+    two_way = {}
+    with RecordMedians(keep=2) as recorder:
+        for b in (6, 5):
+            n_dev = two.shape["data"]
+            rows_padded = b + (-b) % n_dev
+            chunk = n_dev * s.BATCH_SONGS_PER_DEVICE
+            shards = [min(chunk, rows_padded - a) // n_dev for a in range(0, rows_padded, chunk) for _ in range(n_dev)]
+            expect = [(n, SEPARATED_LAUNCHES) for n in shards]  # counted from the code: 8 per device shard
+            per_shard.clear()
+            with CountShards(batch_runner, "_analyse_chunk"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = batch_runner.batched_fused_analysis(data[:b], sr, true_lens[:b], mesh=two, settings=s)
+                wall = time.perf_counter() - t0
+            if per_shard != expect:
+                raise AssertionError(f"2-way mesh, B = {b}: (rows, median launches) per device shard {per_shard}, expected {expect}")
+            if got["crf_path"].shape[0] != b:
+                raise AssertionError(f"2-way mesh, B = {b}: {got['crf_path'].shape[0]} rows came back")
+            for i in range(b):
+                compare_with_cpu(f"2-way row {i} vs 1-way row", {k: v[i] for k, v in rows.items()}, {k: v[i] for k, v in got.items()}, quiet=True)
+            two_way[b] = sum(n for _, n in per_shard)
+            print(f"mesh b (2-way data mesh on one card, B = {b}, {(-b) % n_dev} pad rows): {wall:.3f} s, (rows, median launches) per device shard "
+                  f"{per_shard}; every row equal to the 1-way mesh's (discrete equal, floats within {FLOAT_TOL}) [{card}]")
+    shapes = new_shape_kernel_check(median, recorder)
+
+    # c. the model axis: the shipped checkpoint's weights over "model" = 2
+    params = htdemucs.load_params()
+    cfg = htdemucs.program_config(params, s.DEMUCS_MODEL, s.stem_priority())
+    whole = htdemucs.load_model(torch.device("cuda:0"))  # the unsharded module the other phases ran
+    net = htdemucs.HTDemucs.from_params(params).cuda()
+    total_bytes = sum(p.numel() * p.element_size() for p in net.parameters())
+    shard_params_model_axis(net, make_mesh((1, 2), ("data", "model"), devices=[torch.device("cuda:0")] * 2))
+    shards = sharded_parameters(net)
+    shard_bytes = [sum(parts[j].numel() * parts[j].element_size() for parts in shards.values()) for j in range(2)]
+    replicated = sum(p.numel() * p.element_size() for n, p in net.named_parameters() if "parametrizations" not in n)
+    y = torch.from_numpy(np.ascontiguousarray(batch_runner._load_and_bucket([CLIP], 30.0)[0][0])).cuda()
+
+    def sep(model):
+        return htdemucs.separate_program(model, y, sr, cfg["seg"], cfg["stride"], s.DEMUCS_SHIFTS)
+
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref, out = sep(whole), sep(net)
+        err = float(((out - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1)).max())
+        ms_whole = cuda_ms(lambda: sep(whole), reps=5, warmup=1)
+        ms_sharded = cuda_ms(lambda: sep(net), reps=5, warmup=1)
+    model_axis = dict(sharded_count=sharded_count(net), parameters=len(list(whole.parameters())), bytes_total=total_bytes,
+                      bytes_per_shard=shard_bytes, bytes_replicated=replicated, stem_err_over_peak=err,
+                      ms_unsharded=ms_whole, ms_sharded=ms_sharded)
+    print("mesh c", json.dumps(model_axis), f"[{card}]")
+    print(f"mesh c (htdemucs_6s over a (1, 2) data x model mesh on one card): {model_axis['sharded_count']} of {model_axis['parameters']} parameters "
+          f"distributed, {shard_bytes[0]} + {shard_bytes[1]} bytes in the two shards and {replicated} replicated of {total_bytes}; "
+          f"stems within {err:.3g} of the peak of the unsharded module's (tolerance {STEM_TOL}); separation of the 30 s bucket "
+          f"{ms_sharded:.2f} ms sharded against {ms_whole:.2f} ms by events [{card}]")
+    if model_axis["sharded_count"] < 20 or not err < STEM_TOL or not torch.isfinite(out).all():
+        raise AssertionError(f"model axis: {model_axis['sharded_count']} distributed parameters, stems within {err} of the unsharded module's")
+    return {"launches_default_mesh_per_chunk": launches_default, "launches_two_way": two_way, "new_shapes": shapes, "model_axis": model_axis}
 
 
 def serving_phase(median, card: str, cli_result: dict) -> list[int]:
@@ -947,8 +1092,8 @@ class RecordMedians:
         self.keep = keep
 
     def __enter__(self):
-        from audiotabs_tpu_torch.ops import hpss
-
+        # the module: audiotabs_tpu_torch.ops re-exports the hpss function under its name
+        hpss = importlib.import_module("audiotabs_tpu_torch.ops.hpss")
         self.hpss, self.fn = hpss, hpss.median_filter
 
         def record(x, win, axis=-1):
@@ -1555,6 +1700,7 @@ def main() -> int:
     # the job plane and the batch runner under the shipped settings
     serve_launches = run_phase("serve", lambda: serving_phase(median, card, main_path["out"]["result.json"]))
     batch = run_phase("batch", lambda: batch_phase(median, card))
+    mesh = run_phase("mesh", lambda: mesh_phase(median, card, batch))
 
     def analysis_phase():
         """run_analysis under the shipped settings, separation on; the stems it
@@ -1643,6 +1789,8 @@ def main() -> int:
         "launches_run_analysis": launches,
         "launches_without_separation": off_launches,
         "launches_per_batch_chunk": batch["launches_per_chunk"],
+        "launches_mesh": {"default_mesh_per_chunk": mesh["launches_default_mesh_per_chunk"],
+                          "two_way_by_batch": mesh["launches_two_way"]},
         "launches_inline_and_queued_job": serve_launches,
         "launches_upload_jobs": {k: v["launches"] for k, v in decode.items() if k not in ("decoders", "resampler_vs_scipy")},
         "launches_notes": cases["notes"]["launches"],
@@ -1652,7 +1800,7 @@ def main() -> int:
         "launches_train": train["total"],
         "launches_train_by_trainer": train["launches"],
         "launches_train_by_shape": train["by_shape"],
-        "max_abs_err": max(kernel["max_abs_err"], new_shapes["max_abs_err"], train_shapes["max_abs_err"]),
+        "max_abs_err": max(kernel["max_abs_err"], mesh["new_shapes"]["max_abs_err"], new_shapes["max_abs_err"], train_shapes["max_abs_err"]),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -1661,6 +1809,7 @@ def main() -> int:
         "ms_per_launch": kernel["per_launch"],
         "ms_per_batched_launch": kernel["batched"],
         "ms_per_launch_new_shapes": new_shapes["rows"],
+        "ms_per_launch_mesh_shapes": mesh["new_shapes"]["rows"],
         "ms_per_launch_train_shapes": train_shapes["rows"],
         "per_batch_chunk": kernel["per_chunk"],
         "single_ms": kernel["single_ms"],

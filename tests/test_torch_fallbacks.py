@@ -46,9 +46,17 @@ def melody() -> np.ndarray:
 
 
 def _assert_close(got, ref, rtol: float = 1e-5):
+    """Within rtol, and within rtol of the reference's peak where values
+    cross zero; a failure names the worst element, both values and how far
+    past its tolerance it is."""
     got, ref = np.asarray(got, dtype=np.float64), np.asarray(ref, dtype=np.float64)
-    assert got.shape == ref.shape
-    np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * float(np.abs(ref).max()))
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    atol = rtol * float(np.abs(ref).max())
+    ratio = np.abs(got - ref) / (atol + rtol * np.abs(ref))
+    worst = np.unravel_index(int(np.argmax(ratio)), ratio.shape) if ratio.size else ()
+    msg = (f"worst at {tuple(int(i) for i in worst)}: port {float(got[worst])!r}, jax {float(ref[worst])!r}, "
+           f"{float(ratio[worst]):.3g} × its tolerance (rtol {rtol}, atol {atol:.3g})") if ratio.size else ""
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol, err_msg=msg)
 
 
 def _same_segments(got: list, ref: list):
@@ -267,3 +275,94 @@ def test_postprocess_note_events_matches_jax(seed):
     got = postprocess_note_events(pev, pc, pkey, settings=dataclasses.replace(Settings(), **overrides))
     assert 0 < len(ref) < len(jev)
     _same(ref, got)
+
+
+def test_constant_uploads_do_not_alias_the_cache():
+    """On the CPU a constant's tensor is a copy: an in-place op on it leaves
+    the cached numpy constant, and every later caller, as they were."""
+    from audiotabs_tpu_torch.ops.cqt import cqt_kernel_bank
+    from audiotabs_tpu_torch.ops.spectral import as_device, device_hann, hann_window
+
+    like = torch.zeros(1)
+    window = hann_window(64).copy()
+    as_device(hann_window(64), like).add_(1.0)
+    device_hann(64, torch.device("cpu")).mul_(1.0)  # the cached tensor itself is separate storage
+    np.testing.assert_array_equal(hann_window(64), window)
+    bank = cqt_kernel_bank(SR, n_bins=12)[0]
+    assert not np.shares_memory(as_device(bank, like).numpy(), bank)
+    assert not np.shares_memory(device_hann(64, torch.device("cpu")).numpy(), hann_window(64))
+
+
+def _same(a, b, where: str) -> None:
+    """Bit-equal, through tuples, lists, dicts, dataclasses and modules' state dicts."""
+    import dataclasses
+
+    if isinstance(a, torch.nn.Module):
+        a, b = a.state_dict(), b.state_dict()
+    elif dataclasses.is_dataclass(a) and not isinstance(a, type):
+        a, b = vars(a), vars(b)
+    if isinstance(a, dict):
+        assert list(a) == list(b), where
+        for k in a:
+            _same(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{where}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a.cpu(), b.cpu()), where
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    else:
+        assert a == b, where
+
+
+def test_cached_constants_survive_the_cpu_main_path(strums, tmp_path, monkeypatch):
+    """Every ``lru_cache``d value the port's CPU main path (``run_pipeline``
+    under the shipped settings on a 5 s crop, then ``chroma_features``)
+    reads is bit-equal, after the run, to the same value built afresh: the
+    window, the CQT, mel and log banks, the tempo transitions, the chord
+    templates, the median networks, the htdemucs embeddings and resampling
+    matrices, and the loaded nets' weights."""
+    import importlib
+    import pkgutil
+
+    import audiotabs_tpu_torch
+    from audiotabs_tpu_torch.chords.extract import chroma_features
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.io.wav import write_wav
+    from audiotabs_tpu_torch.runtime.pipeline import run_pipeline
+
+    modules = [importlib.import_module(m.name) for m in pkgutil.walk_packages(audiotabs_tpu_torch.__path__, "audiotabs_tpu_torch.")]
+    cached = {id(v): v for m in modules for v in vars(m).values()
+              if callable(v) and hasattr(v, "cache_info") and getattr(v, "__module__", "").startswith("audiotabs_tpu_torch")}
+    assert {"hann_window", "device_hann", "cqt_kernel_bank", "mel_filterbank", "_tempo_transition", "load_models"} <= {
+        f.__name__ for f in cached.values()}
+    calls = []
+
+    def recorder(fn):
+        def record(*args, **kwargs):
+            calls.append((fn, args, kwargs))
+            return fn(*args, **kwargs)
+        return record
+
+    for m in modules:  # every name a cached function is bound to, in every module
+        for name, v in list(vars(m).items()):
+            if id(v) in cached and callable(v) and hasattr(v, "cache_info"):
+                monkeypatch.setattr(m, name, recorder(v))
+
+    crop = tmp_path / "crop.wav"
+    write_wav(crop, strums, SR)
+    result = run_pipeline(tmp_path / "job", crop, device="cpu", settings=Settings(PAD_SECONDS_BUCKET=6.0))
+    assert result.transcription_error is None
+    chroma_features(strums, SR, device="cpu")
+    monkeypatch.undo()
+
+    seen = set()
+    for fn, args, kwargs in calls:
+        key = (fn.__qualname__, repr(args), repr(sorted(kwargs.items())))
+        if key in seen:
+            continue
+        seen.add(key)
+        _same(fn(*args, **kwargs), fn.__wrapped__(*args, **kwargs), f"{fn.__module__}.{key[0]}{key[1]}")
+    assert {"hann_window", "cqt_kernel_bank", "_tempo_transition", "load_models", "_model"} <= {k[0] for k in seen}

@@ -29,7 +29,9 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "audiotabs_tpu_torch.io.native", "audiotabs_tpu_torch.io.mp3", "audiotabs_tpu_torch.io.avdecode",
         "audiotabs_tpu_torch.theory.postprocess", "audiotabs_tpu_torch.decode.melody", "audiotabs_tpu_torch.ops.chroma",
         "audiotabs_tpu_torch.analysis.metrics", "audiotabs_tpu_torch.train.synth", "audiotabs_tpu_torch.train.golden",
-        "audiotabs_tpu_torch.train.optim", "audiotabs_tpu_torch.train.shifts_eval",
+        "audiotabs_tpu_torch.train.optim", "audiotabs_tpu_torch.train.shifts_eval", "audiotabs_tpu_torch.train.make_heldout",
+        "audiotabs_tpu_torch.parallel", "audiotabs_tpu_torch.parallel.mesh", "audiotabs_tpu_torch.parallel.model_axis",
+        "audiotabs_tpu_torch.score.lead_sheet",
         *(f"audiotabs_tpu_torch.train.{m}_train" for m in ("htdemucs", "beat_rnn", "key_cnn", "deepchroma", "crf_chords", "basicpitch")),
     } <= set(mods)
     # the GPU machine has no pydantic and no celery: the port must not need them
@@ -69,6 +71,19 @@ def test_run_pipeline_and_cli_without_a_device_raise_when_no_gpu(monkeypatch, tm
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main([str(clip), "--job-dir", str(tmp_path / "cli")])
     assert not (tmp_path / "cli" / "out").exists() or not any((tmp_path / "cli" / "out").iterdir())
+
+
+def test_batch_runner_and_mesh_without_a_device_raise_when_no_gpu(monkeypatch):
+    import numpy as np
+
+    from audiotabs_tpu_torch.parallel import make_mesh
+    from audiotabs_tpu_torch.runtime.batch_runner import batched_fused_analysis
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batched_fused_analysis(np.zeros((1, 22050), np.float32), 22050)
 
 
 @pytest.mark.parametrize("device,ok", [(None, False), ("cuda", False), ("cuda:0", False), ("cpu", True), ("mps", False)])

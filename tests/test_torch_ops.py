@@ -15,13 +15,13 @@ import jax.numpy as jnp
 from audiotabs_tpu.ops import features as jfeat
 from audiotabs_tpu.ops import onset as jonset
 from audiotabs_tpu.ops import spectral as jspec
-from audiotabs_tpu_torch.ops import cqt as tcqt
 from audiotabs_tpu_torch.ops import features as tfeat
 from audiotabs_tpu_torch.ops import onset as tonset
 from audiotabs_tpu_torch.ops import spectral as tspec
 
-# the module, not the cqt function that audiotabs_tpu.ops re-exports under its name
+# the modules, not the cqt functions that both packages' ops re-export under their name
 jcqt = importlib.import_module("audiotabs_tpu.ops.cqt")
+tcqt = importlib.import_module("audiotabs_tpu_torch.ops.cqt")
 
 SR = 22050
 TOL = dict(rtol=1e-4, atol=1e-5)
