@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -79,6 +80,32 @@ def load(name: str, headers: dict[str, str] | None = None) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name, headers)))
             _LIBS[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes: list, headers=None):
+    """The C function ``symbol`` of csrc/<name>.cu, taking ``argtypes`` and
+    returning an int (0, a cudaError_t, or a negative code for arguments the
+    kernel does not take); built and loaded at first use, then cached.
+    ``headers`` is a function giving the generated headers, called only then."""
+    with _LOCK:
+        fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name, headers() if headers else None), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        with _LOCK:
+            _FUNCS[(name, symbol)] = fn
+    return fn
+
+
+def check_launch(rc: int, what: str, refused: dict[int, str] | None = None) -> None:
+    """Raise for a launcher's nonzero return: ValueError for a negative code
+    (arguments the kernel does not take, ``refused`` names them), RuntimeError
+    for a cudaError_t."""
+    if rc < 0:
+        raise ValueError(f"the {what} kernel does not take these arguments: {(refused or {}).get(rc, f'code {rc}')}")
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed (cudaError {rc})")
 
 
 def build_native(src: Path, compiler: str, flags: tuple[str, ...], libs: tuple[str, ...] = ()) -> Path:

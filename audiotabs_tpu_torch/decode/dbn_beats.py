@@ -5,19 +5,29 @@ Counterpart of audiotabs_tpu/decode/dbn_beats.py (``_tempo_grid``,
 ``beats_from_decoded``, ``estimate_tempo``, ``normalize_beat_times``). The state
 space is (tempo, phase) stored as a padded [n_tempi, max_interval] score
 matrix; each frame is a phase roll plus a max-plus tempo transition at
-phase 0. The forward pass and the backtrack, lax.scans in JAX, are plain
-loops over frames that stay on the tensor's device.
+phase 0. The forward pass and the backtrack, lax.scans in JAX, are one
+launch of the CUDA kernel csrc/dbn_viterbi.cu for a batch of songs on the
+card, and a plain loop over frames on the CPU (``_dbn_forward_plain``).
+torch computes every logarithm the kernel starts from (``_forward_inputs``),
+so the kernel and the loop agree bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..device import on_device
 from ..ops.spectral import as_device
+
+# Launches of the CUDA kernel (csrc/dbn_viterbi.cu) in this process; only
+# _launch adds to it.
+LAUNCHES = 0
 
 
 @lru_cache(maxsize=8)
@@ -37,6 +47,119 @@ def _tempo_transition(min_bpm: float, max_bpm: float, fps: int, transition_lambd
     return np.log(p).astype(np.float32)
 
 
+class _Forward(NamedTuple):
+    """What the forward pass starts from, computed with torch on the activation's device."""
+
+    intervals: torch.Tensor  # [n_tempi] int64, beat intervals in frames
+    log_trans: torch.Tensor  # [from, to] float32
+    valid: torch.Tensor  # [n_tempi, P]: phase < interval
+    beat_len: torch.Tensor  # [n_tempi, 1] int64: the beat window is phase < beat_len
+    lo_beat: torch.Tensor  # [B, T]: log activation
+    lo_off: torch.Tensor  # [B, T]: log off-beat term
+    init: torch.Tensor  # [B, n_tempi, P]: the score at frame 0
+
+
+def _forward_inputs(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda) -> _Forward:
+    dev = act.device
+    intervals_np = _tempo_grid(min_bpm, max_bpm, fps)
+    intervals = torch.from_numpy(intervals_np.astype(np.int64)).to(dev)
+    log_trans = as_device(_tempo_transition(min_bpm, max_bpm, fps, transition_lambda), act)
+    a = torch.clamp(act.to(torch.float32), 1e-6, 1.0 - 1e-6)
+    phase_idx = torch.arange(int(intervals_np.max()), device=dev)[None, :]
+    valid = phase_idx < intervals[:, None]  # [n_tempi, P]
+    beat_len = torch.ceil(intervals[:, None] / observation_lambda).to(torch.int64)
+    lo_beat = torch.log(a)  # [B, T]
+    lo_off = torch.log((1.0 - a) / (observation_lambda - 1))
+    obs0 = torch.where(phase_idx < beat_len, lo_beat[:, 0, None, None], lo_off[:, 0, None, None])
+    neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+    init = torch.where(valid, torch.log(1.0 / valid.sum().to(torch.float32)), neg_inf) + obs0
+    return _Forward(intervals, log_trans, valid, beat_len, lo_beat, lo_off, init)
+
+
+def _dbn_forward_plain(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda):
+    """The plain version: [B, T] → (phases, intervals) [B, T] int32, a loop over frames."""
+    f = _forward_inputs(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
+    n_tempi, max_int = f.valid.shape
+    beat_win = torch.arange(max_int, device=act.device)[None, :] < f.beat_len
+    neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=act.device)
+    tempo_ar = torch.arange(n_tempi, device=act.device)
+    score = f.init
+    bp_tempi = []
+    for t in range(1, act.shape[1]):
+        # phase advance: new[i, p] = score[i, p-1]; p=0 takes the best tempo change
+        cand = score[:, tempo_ar, f.intervals - 1][:, :, None] + f.log_trans  # [B, from, to]
+        bp = torch.argmax(cand, dim=1)
+        enter0 = cand.gather(1, bp[:, None])[:, 0]
+        shifted = torch.roll(score, 1, dims=2)
+        shifted[:, :, 0] = enter0
+        obs = torch.where(beat_win, f.lo_beat[:, t, None, None], f.lo_off[:, t, None, None])
+        score = torch.where(f.valid, shifted + obs, neg_inf)
+        bp_tempi.append(bp)
+
+    # backtrack: the phase falls by 1 per earlier frame; at phase 0 the
+    # previous state was (bp_tempo, L_prev - 1); the states stay on the device
+    flat = torch.argmax(score.reshape(score.shape[0], -1), dim=-1)
+    tempo, phase = flat // max_int, flat % max_int
+    tempos, phases = [tempo], [phase]
+    for bp in reversed(bp_tempi):
+        at_zero = phase == 0
+        prev_tempo = torch.where(at_zero, bp.gather(1, tempo[:, None])[:, 0], tempo)
+        phase = torch.where(at_zero, f.intervals[prev_tempo] - 1, phase - 1)
+        tempo = prev_tempo
+        tempos.append(tempo)
+        phases.append(phase)
+    tempos = torch.stack(tempos[::-1], dim=1)
+    return torch.stack(phases[::-1], dim=1).to(torch.int32), f.intervals[tempos].to(torch.int32)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the launcher's codes for arguments the kernel does not take
+_REFUSED = {-1: "a batch, length, tempo count or phase count out of range",
+            -2: "the score does not fit in the shared memory one block may use on this card"}
+
+
+def build():
+    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
+    return _build.function("dbn_viterbi", "dbn_viterbi_f32", _ARGTYPES)
+
+
+def _launch_args(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda) -> tuple:
+    """The kernel's arguments for activations [B, T] on the card: what torch
+    computes for it, the backpointer scratch and the two [B, T] outputs."""
+    f = _forward_inputs(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
+    (B, T), n_tempi = act.shape, f.valid.shape[0]
+    dev = act.device
+    return (
+        f.init.contiguous(), f.lo_beat.contiguous(), f.lo_off.contiguous(), f.log_trans.contiguous(),
+        f.intervals.to(torch.int32), f.beat_len[:, 0].to(torch.int32),
+        torch.empty((B, max(T - 1, 1), n_tempi), dtype=torch.uint8, device=dev),
+        torch.empty((B, T), dtype=torch.int32, device=dev), torch.empty((B, T), dtype=torch.int32, device=dev),
+    )
+
+
+def _launch(*args: torch.Tensor) -> None:
+    """One launch of csrc/dbn_viterbi.cu on ``_launch_args``' tensors, one block per song."""
+    global LAUNCHES
+    init, lo_beat = args[:2]
+    (B, n_tempi, max_int), T = init.shape, lo_beat.shape[1]
+    dev = init.device
+    with torch.cuda.device(dev):
+        rc = build()(*(a.data_ptr() for a in args), B, T, n_tempi, max_int, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "dbn_viterbi", _REFUSED)
+    LAUNCHES += 1
+
+
+def _dbn_forward_cuda(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda):
+    """[B, T] on the card → (phases, intervals) [B, T] int32: one launch of
+    csrc/dbn_viterbi.cu."""
+    n_tempi = len(_tempo_grid(min_bpm, max_bpm, fps))
+    if n_tempi > 255:
+        raise ValueError(f"the DBN kernel stores a tempo backpointer in one byte: {n_tempi} tempi is more than 255")
+    args = _launch_args(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
+    _launch(*args)
+    return args[-2], args[-1]
+
+
 def _dbn_forward(
     activations: torch.Tensor,
     fps: int = 100,
@@ -45,58 +168,23 @@ def _dbn_forward(
     transition_lambda: float = 100.0,
     observation_lambda: int = 16,
 ):
-    """Viterbi over the bar-pointer model → (phases [T], intervals [T]) int64.
+    """Viterbi over the bar-pointer model: activations [T] or [B, T] →
+    (phases, intervals) int32 of the same shape.
 
-    Parity trap: every argmax here must return the FIRST maximum, as
-    jnp.argmax does; torch.argmax does so on the CPU and on CUDA."""
-    dev = activations.device
-    intervals_np = _tempo_grid(min_bpm, max_bpm, fps)
-    n_tempi = len(intervals_np)
-    max_int = int(intervals_np.max())
-    intervals = torch.from_numpy(intervals_np.astype(np.int64)).to(dev)
-    log_trans = as_device(_tempo_transition(min_bpm, max_bpm, fps, transition_lambda), activations)
-
-    act = torch.clamp(activations.to(torch.float32), 1e-6, 1.0 - 1e-6)
-    T = act.shape[0]
-    phase_idx = torch.arange(max_int, device=dev)[None, :]
-    valid = phase_idx < intervals[:, None]  # [n_tempi, P]
-    beat_win = phase_idx < torch.ceil(intervals[:, None] / observation_lambda).to(torch.int64)
-    lo_beat = torch.log(act)  # [T]
-    lo_off = torch.log((1.0 - act) / (observation_lambda - 1))
-    neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=dev)
-    tempo_ar = torch.arange(n_tempi, device=dev)
-
-    def obs(t: int) -> torch.Tensor:
-        return torch.where(beat_win, lo_beat[t], lo_off[t])  # [n_tempi, P]
-
-    score = torch.where(valid, torch.log(1.0 / valid.sum().to(torch.float32)), neg_inf) + obs(0)
-    bp_tempi = []
-    for t in range(1, T):
-        # phase advance: new[i, p] = score[i, p-1]; p=0 takes the best tempo change
-        cand = score[tempo_ar, intervals - 1][:, None] + log_trans  # [from, to]
-        bp = torch.argmax(cand, dim=0)
-        enter0 = cand.gather(0, bp[None])[0]
-        shifted = torch.roll(score, 1, dims=1)
-        shifted[:, 0] = enter0
-        score = torch.where(valid, shifted + obs(t), neg_inf)
-        bp_tempi.append(bp)
-
-    # backtrack: the phase falls by 1 per earlier frame; at phase 0 the
-    # previous state was (bp_tempo, L_prev - 1)
-    # states are 1-element tensors: indexing with them stays on the device,
-    # where a 0-d index would be read back to the host at every frame
-    flat = torch.argmax(score).reshape(1)
-    tempo, phase = flat // max_int, flat % max_int
-    tempos, phases = [tempo], [phase]
-    for bp in reversed(bp_tempi):
-        at_zero = phase == 0
-        prev_tempo = torch.where(at_zero, bp[tempo], tempo)
-        phase = torch.where(at_zero, intervals[prev_tempo] - 1, phase - 1)
-        tempo = prev_tempo
-        tempos.append(tempo)
-        phases.append(phase)
-    tempos = torch.cat(tempos[::-1])
-    return torch.cat(phases[::-1]), intervals[tempos]
+    A CUDA tensor launches csrc/dbn_viterbi.cu (every song of the batch in
+    one launch); a CPU tensor takes the plain loop. Any other device raises.
+    Parity trap: every argmax returns the FIRST maximum, as jnp.argmax does."""
+    if activations.ndim not in (1, 2):
+        raise ValueError(f"_dbn_forward takes [T] or [B, T], got shape {tuple(activations.shape)}")
+    act = activations.reshape(1, -1) if activations.ndim == 1 else activations
+    args = (fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
+    if act.device.type == "cpu":
+        phases, intervals = _dbn_forward_plain(act, *args)
+    elif act.device.type == "cuda":
+        phases, intervals = _dbn_forward_cuda(act, *args)
+    else:
+        raise ValueError(f"_dbn_forward runs on cuda or cpu, got {act.device}")
+    return (phases, intervals) if activations.ndim == 2 else (phases[0], intervals[0])
 
 
 @torch.inference_mode()

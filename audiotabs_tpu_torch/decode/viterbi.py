@@ -1,15 +1,26 @@
 """Viterbi decoders (counterpart of audiotabs_tpu/decode/viterbi.py).
 
-The lax.scans of the JAX package are plain loops over frames that stay on
-the tensor's device. Parity trap: every argmax/argmin returns the FIRST
-extremum, as jnp's do; torch's do so on the CPU and on CUDA.
+``viterbi_log_dense`` (the CRF chord decode) is one launch of the CUDA
+kernel csrc/dense_viterbi.cu for a batch of sequences on the card, and a
+plain loop over frames on the CPU (``viterbi_log_dense_plain``).
+``viterbi_constant_switch`` (the template backend only) stays a plain loop
+over frames on the tensor's device. Parity trap: every argmax/argmin returns
+the FIRST extremum, as jnp's do; torch's do so on the CPU and on CUDA, and
+the kernel scans in ascending order with a strict comparison.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
+
+from .. import _build
+
+# Launches of the CUDA kernel (csrc/dense_viterbi.cu) in this process; only
+# _launch adds to it.
+LAUNCHES = 0
 
 
 def viterbi_constant_switch(emissions: torch.Tensor, switch_penalty: float):
@@ -34,22 +45,84 @@ def viterbi_constant_switch(emissions: torch.Tensor, switch_penalty: float):
     return path.to(torch.int32), emissions[path, torch.arange(T, device=emissions.device)]
 
 
-def viterbi_log_dense(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor | None = None):
-    """Max-product Viterbi: [T, S] log-emissions, [S, S] log-transitions
-    (transition[i, j] = log p(j at t+1 | i at t)) → (path [T] int32, final log-prob)."""
-    T, S = log_emissions.shape
-    if log_initial is None:
-        log_initial = torch.full((S,), -math.log(S), device=log_emissions.device)
-    score = log_initial + log_emissions[0]
+def viterbi_log_dense_plain(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor):
+    """The plain version on [B, T, S]: a loop over frames, then over them backwards."""
+    T = log_emissions.shape[1]
+    score = log_initial + log_emissions[:, 0]
     bps = []
     for t in range(1, T):
-        cand = score[:, None] + log_transition  # [S_prev, S_next]
-        bp = torch.argmax(cand, dim=0)
-        score = cand.gather(0, bp[None])[0] + log_emissions[t]
+        cand = score[:, :, None] + log_transition  # [B, S_prev, S_next]
+        bp = torch.argmax(cand, dim=1)
+        score = cand.gather(1, bp[:, None])[:, 0] + log_emissions[:, t]
         bps.append(bp)
-    s = torch.argmax(score).reshape(1)  # a 1-element index stays on the device
+    s = torch.argmax(score, dim=-1)
     path = [s]
     for bp in reversed(bps):
-        s = bp[s]
+        s = bp.gather(1, s[:, None])[:, 0]
         path.append(s)
-    return torch.cat(path[::-1]).to(torch.int32), score.max()
+    return torch.stack(path[::-1], dim=1).to(torch.int32), score.max(dim=-1).values
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def build():
+    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
+    return _build.function("dense_viterbi", "dense_viterbi_f32", _ARGTYPES)
+
+
+def _launch_args(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor) -> tuple:
+    """The kernel's arguments for [B, T, S] on the card: the float32 inputs,
+    the backpointer scratch and the outputs (path [B, T], best [B])."""
+    B, T, S = log_emissions.shape
+    dev = log_emissions.device
+    return (
+        log_emissions.to(torch.float32).contiguous(),
+        log_transition.to(device=dev, dtype=torch.float32).contiguous(),
+        log_initial.to(device=dev, dtype=torch.float32).contiguous(),
+        torch.empty((B, max(T - 1, 1), S), dtype=torch.int32, device=dev),
+        torch.empty((B, T), dtype=torch.int32, device=dev),
+        torch.empty((B,), dtype=torch.float32, device=dev),
+    )
+
+
+def _launch(*args: torch.Tensor) -> None:
+    """One launch of csrc/dense_viterbi.cu on ``_launch_args``' tensors, one block per sequence."""
+    global LAUNCHES
+    B, T, S = args[0].shape
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        rc = build()(*(a.data_ptr() for a in args), B, T, S, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "dense_viterbi")
+    LAUNCHES += 1
+
+
+def _viterbi_log_dense_cuda(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor):
+    """[B, T, S] on the card: one launch, one thread per state."""
+    S = log_emissions.shape[-1]
+    if S > 1024:
+        raise ValueError(f"the dense Viterbi kernel takes at most 1024 states, got {S}")
+    args = _launch_args(log_emissions, log_transition, log_initial)
+    _launch(*args)
+    return args[-2], args[-1]
+
+
+def viterbi_log_dense(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor | None = None):
+    """Max-product Viterbi: [T, S] or [B, T, S] log-emissions, [S, S]
+    log-transitions (transition[i, j] = log p(j at t+1 | i at t)) → (path
+    [T] or [B, T] int32, final log-prob: a scalar or [B]).
+
+    A CUDA tensor launches csrc/dense_viterbi.cu, a CPU tensor takes the
+    plain loop; any other device raises."""
+    if log_emissions.ndim not in (2, 3):
+        raise ValueError(f"viterbi_log_dense takes [T, S] or [B, T, S], got shape {tuple(log_emissions.shape)}")
+    em = log_emissions[None] if log_emissions.ndim == 2 else log_emissions
+    if log_initial is None:
+        log_initial = torch.full((em.shape[-1],), -math.log(em.shape[-1]), device=em.device)
+    if em.device.type == "cpu":
+        path, best = viterbi_log_dense_plain(em, log_transition, log_initial)
+    elif em.device.type == "cuda":
+        path, best = _viterbi_log_dense_cuda(em, log_transition, log_initial)
+    else:
+        raise ValueError(f"viterbi_log_dense runs on cuda or cpu, got {em.device}")
+    return (path, best) if log_emissions.ndim == 3 else (path[0], best[0])

@@ -39,8 +39,6 @@ LAUNCHES = 0
 # main path's shapes (PERF.md). Other odd windows take the rank kernel.
 NET_OUTPUTS = {5: 2, 17: 8, 31: 16}
 
-_FN = None
-
 
 @dataclass(frozen=True)
 class Schedule:
@@ -203,19 +201,12 @@ def _headers() -> dict[str, str]:
     return {"median_schedule.h": schedule_header()}
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = _build.load("median_filter", _headers()).median_filter_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def build() -> None:
-    """Compile and load the kernel now (it is otherwise built at first use)."""
-    _kernel()
+def build():
+    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
+    return _build.function("median_filter", "median_filter_f32", _ARGTYPES, _headers)
 
 
 def ptxas_usage() -> dict[str, dict[str, int]]:
@@ -269,11 +260,10 @@ def median_filter(x: torch.Tensor, win: int, axis: int = -1) -> torch.Tensor:
     batch = x.shape[0] if x.ndim == 3 else 1
     n_slow, n_fast = x.shape[-2], x.shape[-1]
     y = torch.empty_like(x)
-    fn = _kernel()
+    fn = build()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), batch, n_slow, n_fast, win, int(axis == x.ndim - 1), stream)
-    if rc != 0:
-        raise RuntimeError(f"median_filter kernel launch failed (cudaError {rc})")
+    _build.check_launch(rc, "median_filter")
     LAUNCHES += 1
     return y

@@ -1,17 +1,26 @@
 """Onset strength and onset detection (spectral flux + peak pick).
 
 Counterpart of audiotabs_tpu/ops/onset.py. The refractory ``wait`` rule,
-a lax.scan in JAX, is a plain loop over frames here; it stays on the
-tensor's device and never reads a value back to the host.
+a lax.scan in JAX, is one launch of the CUDA kernel csrc/onset_wait.cu for
+every envelope of a batch on the card (``_wait``), and a plain loop over
+frames on the CPU (``_wait_plain``). The candidate frames (local maximum
+and mean plus delta) are torch operations on either device.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from .features import melspectrogram
 from .spectral import power_to_db
+
+# Launches of the CUDA kernel (csrc/onset_wait.cu) in this process; only
+# _launch adds to it.
+LAUNCHES = 0
 
 
 def onset_strength(y: torch.Tensor, sr: int, hop: int = 512, n_fft: int = 2048, n_mels: int = 128, lag: int = 1):
@@ -51,11 +60,62 @@ def onset_detect_frames(
     local_max = _sliding_reduce(env, pre_max, post_max, "max")
     local_avg = _sliding_reduce(env, pre_avg, post_avg, "mean")
     cand = (env >= local_max) & (env >= local_avg + delta)
-    T = env.shape[-1]
-    last = torch.full(env.shape[:-1], -wait - 1, dtype=torch.int64, device=env.device)
+    return _wait(cand, wait)
+
+
+def _wait_plain(cand: torch.Tensor, wait: int) -> torch.Tensor:
+    """The plain version: a frame fires when it is a candidate and more than
+    ``wait`` frames have passed since the last one that fired."""
+    T = cand.shape[-1]
+    last = torch.full(cand.shape[:-1], -wait - 1, dtype=torch.int64, device=cand.device)
     fired = torch.zeros_like(cand)
     for t in range(T):
         fire = cand[..., t] & (t - last > wait)
         last = torch.where(fire, t, last)
         fired[..., t] = fire
     return fired
+
+
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def build():
+    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
+    return _build.function("onset_wait", "onset_wait_u8", _ARGTYPES)
+
+
+def _launch_args(cand: torch.Tensor, wait: int) -> tuple:
+    """The kernel's arguments for bool candidates [..., T] on the card: the contiguous input and the output."""
+    c = cand.contiguous()
+    return c, torch.empty_like(c), wait
+
+
+def _launch(cand: torch.Tensor, fired: torch.Tensor, wait: int) -> None:
+    """One launch of csrc/onset_wait.cu on ``_launch_args``' tensors, one thread per row."""
+    global LAUNCHES
+    rows, T = cand.numel() // cand.shape[-1], cand.shape[-1]
+    with torch.cuda.device(cand.device):
+        rc = build()(cand.data_ptr(), fired.data_ptr(), rows, T, wait, torch.cuda.current_stream(cand.device).cuda_stream)
+    _build.check_launch(rc, "onset_wait")
+    LAUNCHES += 1
+
+
+def _wait_cuda(cand: torch.Tensor, wait: int) -> torch.Tensor:
+    """The rule on the card: one launch."""
+    args = _launch_args(cand, wait)
+    _launch(*args)
+    return args[1]
+
+
+def _wait(cand: torch.Tensor, wait: int) -> torch.Tensor:
+    """The refractory rule over bool candidates [..., T]: the kernel for a
+    CUDA tensor, the plain loop for a CPU tensor; any other device raises."""
+    if cand.dtype != torch.bool:
+        raise TypeError(f"the wait rule takes bool candidates, got {cand.dtype}")
+    if cand.device.type == "cpu":
+        return _wait_plain(cand, wait)
+    if cand.device.type != "cuda":
+        raise ValueError(f"onset_detect_frames runs on cuda or cpu, got {cand.device}")
+    if cand.numel() == 0:
+        return torch.zeros_like(cand)
+    return _wait_cuda(cand, wait)

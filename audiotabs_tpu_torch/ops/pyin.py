@@ -3,12 +3,17 @@
 Counterpart of audiotabs_tpu/ops/pyin.py (Mauch & Dixon 2014): YIN CMNDF by
 FFT cross-correlation, Beta(2, 18) threshold prior, trough probabilities to
 pitch-bin observations, and a banded Viterbi over [voiced | unvoiced] bins.
-The Viterbi's lax.scan is a plain loop over frames here. The content-window
-metrics call it on a batch of windows (the JAX package vmaps it).
+The Viterbi's lax.scans (forward and backtrack) are one launch of the CUDA
+kernel csrc/banded_viterbi.cu for every row of a batch on the card, and a
+plain loop over frames on the CPU (``_banded_viterbi_plain``). The
+content-window metrics call it on a batch of windows (the JAX package vmaps
+it). torch computes every logarithm the kernel takes (``_transition``), so
+the kernel and the loop agree bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from math import comb
 
@@ -16,7 +21,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import _build
 from .spectral import as_device, frame
+
+# Launches of the CUDA kernel (csrc/banded_viterbi.cu) in this process; only
+# _launch adds to it.
+LAUNCHES = 0
 
 
 @lru_cache(maxsize=4)
@@ -113,25 +123,30 @@ def _pyin_observations(
     return obs, voiced_prob
 
 
-def _banded_viterbi(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, switch_prob: float):
-    """Viterbi over [voiced bins | unvoiced bins] [..., T, B] with banded pitch moves.
-
-    Returns (bin path [..., T], voiced path [..., T])."""
-    T, B = log_obs_v.shape[-2:]
-    lead = log_obs_v.shape[:-2]
-    dev = log_obs_v.device
-    offsets = torch.arange(-band, band + 1, device=dev)
+def _transition(band: int, switch_prob: float, n_bins: int, device: torch.device):
+    """(log_tri [2·band + 1] float32 on ``device``, log_stay, log_switch, the
+    initial log score): the float32 values both versions of the Viterbi add."""
+    offsets = torch.arange(-band, band + 1, device=device)
     tri = (band + 1.0 - offsets.abs()).to(torch.float32)
     log_tri = torch.log(tri / tri.sum())
-    log_stay = float(np.log1p(np.float32(-switch_prob)))
-    log_switch = float(np.log(np.float32(switch_prob)))
+    log_stay = np.log1p(np.float32(-switch_prob))
+    log_switch = np.log(np.float32(switch_prob))
+    init = np.log(np.float32(0.5 / n_bins))
+    return log_tri, float(log_stay), float(log_switch), float(init)
+
+
+def _banded_viterbi_plain(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, switch_prob: float):
+    """The plain version: a loop over frames, then over them backwards."""
+    T, B = log_obs_v.shape[-2:]
+    lead = log_obs_v.shape[:-2]
+    log_tri, log_stay, log_switch, init = _transition(band, switch_prob, B, log_obs_v.device)
 
     def shift_scores(s):
         """max-plus banded propagation: out[b] = max_d s[b+d] + log_tri[d]."""
         cand = F.pad(s, (band, band), value=float("-inf")).unfold(-1, 2 * band + 1, 1) + log_tri
         return cand.max(dim=-1).values, torch.argmax(cand, dim=-1) - band
 
-    sv = torch.full((*lead, B), float(np.log(np.float32(0.5 / B))), device=dev)
+    sv = torch.full((*lead, B), init, device=log_obs_v.device)
     su = sv.clone()
     bps = []
     for t in range(T):
@@ -155,6 +170,69 @@ def _banded_viterbi(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int,
         b = torch.clamp(b + delta, 0, B - 1)
         is_v = prev_is_v
     return torch.stack(bins[::-1], dim=-1), torch.stack(voiced[::-1], dim=-1)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def build():
+    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
+    return _build.function("banded_viterbi", "banded_viterbi_f32", _ARGTYPES)
+
+
+def _launch_args(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, switch_prob: float) -> tuple:
+    """The kernel's arguments for [..., T, B] on the card: the [rows, T, B]
+    float32 observations, the transition values torch computes, the four
+    backpointer scratch arrays, the outputs (bins, voiced [rows, T]) and the band."""
+    T, B = log_obs_v.shape[-2:]
+    dev = log_obs_v.device
+    log_tri, log_stay, log_switch, init = _transition(band, switch_prob, B, dev)
+    ov = log_obs_v.to(torch.float32).reshape(-1, T, B).contiguous()
+    ou = log_obs_u.to(torch.float32).expand_as(log_obs_v).reshape(-1, T, B).contiguous()
+    rows = ov.shape[0]
+    offsets = torch.empty((2, rows, T, B), dtype=torch.int8, device=dev)
+    flags = torch.empty((2, rows, T, B), dtype=torch.bool, device=dev)
+    bins = torch.empty((rows, T), dtype=torch.int64, device=dev)
+    voiced = torch.empty((rows, T), dtype=torch.bool, device=dev)
+    return ov, ou, log_tri, log_stay, log_switch, init, offsets[0], offsets[1], flags[0], flags[1], bins, voiced, band
+
+
+def _launch(ov, ou, log_tri, log_stay, log_switch, init, *rest) -> None:
+    """One launch of csrc/banded_viterbi.cu on ``_launch_args``' values, one block per row, one thread per bin."""
+    global LAUNCHES
+    *buffers, band = rest
+    rows, T, B = ov.shape
+    dev = ov.device
+    with torch.cuda.device(dev):
+        rc = build()(ov.data_ptr(), ou.data_ptr(), log_tri.data_ptr(), log_stay, log_switch, init,
+                     *(a.data_ptr() for a in buffers), rows, T, B, band, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "banded_viterbi")
+    LAUNCHES += 1
+
+
+def _banded_viterbi_cuda(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, switch_prob: float):
+    """The Viterbi on the card: one launch."""
+    T, B = log_obs_v.shape[-2:]
+    if B > 1024 or not 1 <= band <= 127:
+        raise ValueError(f"the banded Viterbi kernel takes at most 1024 bins and a band of 1 to 127, got {B} and {band}")
+    args = _launch_args(log_obs_v, log_obs_u, band, switch_prob)
+    _launch(*args)
+    bins, voiced = args[-3], args[-2]
+    lead = log_obs_v.shape[:-2]
+    return bins.reshape(*lead, T), voiced.reshape(*lead, T)
+
+
+def _banded_viterbi(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, switch_prob: float):
+    """Viterbi over [voiced bins | unvoiced bins] [..., T, B] with banded pitch moves.
+
+    Returns (bin path [..., T] int64, voiced path [..., T] bool). A CUDA
+    tensor launches csrc/banded_viterbi.cu, a CPU tensor takes the plain
+    loop; any other device raises."""
+    if log_obs_v.device.type == "cpu":
+        return _banded_viterbi_plain(log_obs_v, log_obs_u, band, switch_prob)
+    if log_obs_v.device.type != "cuda":
+        raise ValueError(f"_banded_viterbi runs on cuda or cpu, got {log_obs_v.device}")
+    return _banded_viterbi_cuda(log_obs_v, log_obs_u, band, switch_prob)
 
 
 def pyin(

@@ -3,11 +3,16 @@
 Counterpart of audiotabs_tpu/runtime/fused.py::fused_analysis, with the same
 arguments, output keys and dtypes, and of the JAX batch runner's vmap of it
 (``fused_analysis_batch``: a batch of songs in one call): HPSS (median
-kernel), BLSTM beat activation and DBN decode, Basic Pitch posteriors,
-salience and DeepChroma chroma, template emissions and the CRF decode, the
-key CNN, the strum envelope, content-window metrics and calibration
-statistics. All outputs stay on the input's device; the caller makes one
-transfer to the host.
+kernel), BLSTM beat activation and DBN decode (csrc/dbn_viterbi.cu, every
+song of the batch in one launch), Basic Pitch posteriors, salience and
+DeepChroma chroma, template emissions and the CRF decode
+(csrc/dense_viterbi.cu), the key CNN, the strum envelope, content-window
+metrics (pYIN's Viterbi in csrc/banded_viterbi.cu, the onset wait rule in
+csrc/onset_wait.cu) and calibration statistics (the onset wait rule again).
+On the card these decoders are the kernels (the template backend's
+``viterbi_constant_switch`` stays a loop over frames); on the CPU they are
+plain loops over frames. All outputs stay on the input's device; the caller
+makes one transfer to the host.
 """
 
 from __future__ import annotations
@@ -47,19 +52,23 @@ class AnalysisModels:
 
 @lru_cache(maxsize=4)
 def load_models(device: torch.device) -> AnalysisModels:
-    """Load every checkpoint through models/convert.py onto ``device`` (once per device)."""
+    """Load every checkpoint through models/convert.py onto ``device`` (once
+    per device). The weights are normal tensors even when the first call
+    comes from inside inference mode, so the cached nets stay usable with
+    autograd on (a trainer, a test) later in the process."""
     br = beat_rnn.load_params()
 
     def net(module_cls, params):
         return None if params is None else module_cls.from_params(params).to(device).eval()
 
-    return AnalysisModels(
-        beat=[] if br is None else [m.to(device) for m in beat_rnn.ensemble_from_params(br)],
-        basicpitch=net(basicpitch.BasicPitchCNN, basicpitch.load_params()),
-        deepchroma=net(deepchroma.DeepChromaDNN, deepchroma.load_params()),
-        key=net(key_cnn.KeyCNN, key_cnn.load_params()),
-        crf=crf_chords.load_params() or crf_chords.template_emission_params(),
-    )
+    with torch.inference_mode(False):
+        return AnalysisModels(
+            beat=[] if br is None else [m.to(device) for m in beat_rnn.ensemble_from_params(br)],
+            basicpitch=net(basicpitch.BasicPitchCNN, basicpitch.load_params()),
+            deepchroma=net(deepchroma.DeepChromaDNN, deepchroma.load_params()),
+            key=net(key_cnn.KeyCNN, key_cnn.load_params()),
+            crf=crf_chords.load_params() or crf_chords.template_emission_params(),
+        )
 
 
 def fused_analysis(
@@ -107,11 +116,14 @@ def fused_analysis_batch(
     with a leading B axis; ``true_lens`` [B], ``y_beat`` and ``y_mix`` [B, T]
     are per song.
 
-    The HPSS splits, the content-window metrics (all songs' windows in one
-    call), the strum envelope and the calibration statistics run once on the
-    whole batch: 8 median launches per batch with ``y_beat``, whatever B is.
-    The nets and the sequential decodes run song by song. Every reduction
-    (energy and envelope maxima, quantiles, masks) stays within its row."""
+    The HPSS splits, the DBN decode, the content-window metrics (all songs'
+    windows in one call), the strum envelope and the calibration statistics
+    run once on the whole batch: 8 median launches per batch with
+    ``y_beat``, and one launch each of the DBN kernel, of the banded Viterbi
+    (pYIN) and of the onset kernel twice (content windows and calibration),
+    whatever B is. The nets, the chord decodes (one dense Viterbi launch per
+    song) and the key CNN run song by song. Every reduction (energy and
+    envelope maxima, quantiles, masks) stays within its row."""
     models = models or load_models(y.device)
     n_songs, n = y.shape
     lens = [None] * n_songs if true_lens is None else [int(t) for t in true_lens]
@@ -132,12 +144,16 @@ def fused_analysis_batch(
     else:
         beat_src = y_perc if separate else y
 
-    # 3-4c. the nets and the sequential decodes, song by song
+    # 3-4b. the nets and the chord decodes, song by song
     rows = [
         _song_stages(y[b], y_harm[b], beat_src[b], sr, switch_penalty, chord_backend, lens[b], models)
         for b in range(n_songs)
     ]
     out.update({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+
+    # 4c. DBN beat decode of every song in one launch (on the f32
+    # activations, before the f16 cast)
+    out["dbn_phases"], out["dbn_intervals"] = _dbn_forward(out["beat_activation"])
 
     # 4d. full-track strum envelope, from the input (not the harmonic) signal
     strum_env = _onset_strength_median(y, sr, 512)
@@ -187,8 +203,8 @@ def _song_stages(
     true_len: int | None,
     models: AnalysisModels,
 ) -> dict[str, torch.Tensor]:
-    """One song's nets and sequential decodes: beat activation and the DBN,
-    the AMT posteriors, chroma and the chord decodes, the key CNN."""
+    """One song's nets and sequential decodes: the beat activation, the AMT
+    posteriors, chroma and the chord decodes, the key CNN."""
     out: dict[str, torch.Tensor] = {}
 
     # 2. beat activation at 100 fps
@@ -234,11 +250,6 @@ def _song_stages(
             valid = torch.arange(feats_t.shape[0], device=y.device) * hop < true_len
             feats_t = torch.where(valid[:, None], feats_t, zeros)
         out["crf_path"], out["crf_conf"] = crf_chords.decode(models.crf, feats_t)
-
-    # 4c. DBN beat decode (on the f32 activation, before the f16 cast)
-    phases, intervals = _dbn_forward(out["beat_activation"])
-    out["dbn_phases"] = phases.to(torch.int32)
-    out["dbn_intervals"] = intervals.to(torch.int32)
 
     # 5b. key CNN: 24-class key probabilities
     if models.key is not None:

@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, and turns TF32 off.
-2. Builds the median kernel (csrc/median_filter.cu, with the selection
-   networks that ops/median.py generates) with nvcc into build/, and prints
-   ptxas's registers and spills for each instantiation (none may spill) and
-   the min/max (FMNMX) per output of each network.
+2. Builds the five kernels with nvcc into build/, one nvcc process per
+   source, all started together: the median kernel (csrc/median_filter.cu,
+   with the selection networks that ops/median.py generates) and the four
+   sequential decoders (csrc/dbn_viterbi.cu, onset_wait.cu,
+   banded_viterbi.cu, dense_viterbi.cu). Prints ptxas's registers and spills
+   for each median instantiation (none may spill) and the min/max (FMNMX)
+   per output of each network.
 3. Holds the kernel against its plain PyTorch version exactly (a median
    selects an input element) at the main path's shapes, on random and
    tie-heavy inputs, on short and ragged extents at every network window, and
@@ -22,31 +25,40 @@
    achieved TFLOP/s; holds each card stem against the port's CPU stem.
 5. The main path: the CLI (``runtime/cli.py::main``, what a user runs) on
    the clip with the shipped settings, cold and then twice warm, each song
-   with the launch count set to 0 just before it: 8 median launches per
-   song, no ``transcription_error``, ``stem_source`` guitar with the drums
-   as beat source and no separation error, the whole artifact set in
-   ``out/`` and ``work/``; one device-to-host copy per song (profiler); the
+   with every kernel's launch count set to 0 just before it: 8 median
+   launches per song and, of the decoder kernels, 1 DBN, 2 onset wait-rule
+   (content windows, calibration), 1 banded Viterbi (pYIN of the content
+   windows) and 1 dense Viterbi (CRF) launch; no ``transcription_error``,
+   ``stem_source`` guitar with the drums as beat source and no separation
+   error, the whole artifact set in ``out/`` and ``work/``; one
+   device-to-host copy per song and each decoder kernel in the trace
+   (profiler: the warm song's device ops and busy share); the
    CPU ``_pipeline_tail`` fed the card's own host features and native audio
    writes byte-equal artifacts. Prints the cold and warm wall and every
    ``profile.json`` stage.
 6. Drives ``run_analysis`` with the shipped settings (separation on): 8
-   median launches per song, the guitar stem analysed, no stage error; the
+   median launches per song and the decoder launches of a CLI song, the
+   guitar stem analysed, no stage error; the
    card's outputs against a CPU ``fused_analysis`` fed the card's own stems
    (discrete outputs and beat times equal). Times each stage and profiles one
    warm song. A CPU ``run_pipeline`` on its own stems must give the card's
    chords, key, time signature and beat times; its note agreement is printed.
 7. Drives ``run_analysis`` with ``ENABLE_DEMUCS=False`` (the mix analysed):
-   6 median launches per song, discrete outputs equal to the CPU run's.
+   6 median launches per song and the decoder launches of a CLI song,
+   discrete outputs equal to the CPU run's.
 8. Serving (between 5 and 6): the job API (``runtime/server.py::serve``) on
    a free port with a data directory in build/: ``heldout_strum_band.wav``
    inline and ``heldout_picked_melody.wav`` queued and drained by
-   ``worker.main(["--once"])`` on the card, 8 median launches each (the
-   count set to 0 just before each job); every artifact route of both jobs
+   ``worker.main(["--once"])`` on the card, 8 median launches and the
+   decoder launches of a CLI song each (the counts set to 0 just before each
+   job); every artifact route of both jobs
    answers 200 with its content type; the inline job's ``result.json``
    equals the CLI's (``job_id`` aside).
 9. The batch runner (after 8): ``transcribe_batch`` over the six held-out
    clips (all in the 30 s bucket) in chunks of 4 and 2 songs, cold and warm:
-   8 median launches per chunk, and in the profiler 8 median launches and 1
+   8 median launches per chunk, one launch each of the DBN and banded
+   Viterbi kernels, two of the onset kernel and one CRF decode per song per
+   chunk, and in the profiler 8 median launches and 1
    device-to-host copy per chunk; each row's stems within STEM_TOL of a 1-D
    ``separate_program`` of the row, and its fused outputs against
    ``fused_analysis`` on the row and the batch's stems; the artifact set of
@@ -58,11 +70,13 @@
    for B = 4 and 2, both axes) and times each against its byte bound.
 9a. The mesh (after 9, ``mesh_phase``): ``transcribe_batch`` over the six
     clips with ``mesh=default_mesh()`` (every card on one "data" axis): 8
-    median launches per chunk, every row's discrete outputs and beat times
+    median launches per chunk and, per device shard, one DBN, two onset, one
+    banded Viterbi launch and a CRF decode per row; every row's discrete outputs and beat times
     equal to step 9's and its floats within FLOAT_TOL, the same artifact set;
     ``batched_fused_analysis`` over a 2-way "data" mesh of [cuda:0, cuda:0]
-    at B = 6 and B = 5 (one zero pad row): 8 launches per device shard as
-    counted from the code, each row equal to the 1-way mesh's, the kernel
+    at B = 6 and B = 5 (one zero pad row): 8 median launches and the same
+    decoder launches per device shard as counted from the code, each row
+    equal to the 1-way mesh's, the kernel
     exact at the shard shapes; htdemucs_6s with its weights sharded over a
     (1, 2) ("data", "model") mesh of [cuda:0, cuda:0]: the distributed
     parameters and the bytes in each shard, the 30 s bucket's separation
@@ -72,23 +86,25 @@
     the FFmpeg shim, an ffmpeg binary); the native resampler against
     scipy's. Inline jobs (``POST /v1/jobs?inline=1``): the clip's WAV bytes
     under a non-WAV suffix (found by its header) and, with libmp3lame and
-    libmpg123 present, the clip encoded to MP3: 8 median launches, no stage
-    error, the WAV job's key and chord labels; and bytes no decoder takes:
-    the job ends in the JAX package's error, with no launch. A library that
+    libmpg123 present, the clip encoded to MP3: 8 median launches and the
+    decoder launches of a CLI song, no stage error, the WAV job's key and
+    chord labels; and bytes no decoder takes: the job ends in the JAX
+    package's error, with no launch of any kernel. A library that
     is absent is printed and only its check skipped.
 11. The settings the fused features do not cover alone, each through the
-    CLI on the clip under the shipped settings with one change, the launch
-    count set to 0 just before it: ``TRANSCRIPTION_MODE=notes`` (8 launches),
-    ``CHORD_DETECTION_BACKEND=template`` with ``CHORD_VOCAB`` majmin7 and
-    majmin7plus (8 each), and 4 s / 2 s content windows (10: the tail's own
-    window pass adds 2). No stage error; the CPU ``_pipeline_tail`` on the
+    CLI on the clip under the shipped settings with one change, every launch
+    count set to 0 just before it: ``TRANSCRIPTION_MODE=notes`` (8 median
+    launches, the decoders' of a CLI song), ``CHORD_DETECTION_BACKEND=template``
+    with ``CHORD_VOCAB`` majmin7 and majmin7plus (8 each, no CRF decode), and
+    4 s / 2 s content windows (10: the tail's own window pass adds 2, and an
+    onset and a pYIN launch). No stage error; the CPU ``_pipeline_tail`` on the
     card's host features writes the same artifacts (byte-equal where the
     tail does no device work; chord confidences and content metrics within
     FLOAT_TOL where it decodes again on the CPU). Prints each profile.json.
 12. Degraded: ``fused_analysis`` made to raise under the shipped settings;
     ``run_pipeline`` on the card recomputes every stage: errors only
     ``analysis: ...``, 6 median launches (harmonic, calibration, content
-    windows), the full artifact set, and the beat times, chord labels, key
+    windows) and the decoder launches of a CLI song, the full artifact set, and the beat times, chord labels, key
     and time signature of a CPU run of the same path on the card's stems.
     Prints the stage times, cold and warm.
 13. Holds the kernel exactly at every shape these paths launched it at (the
@@ -103,10 +119,28 @@
     device's own signs are printed). The five other trainers at their
     shipped widths: 6 timed update steps on batches from each one's own
     dataset function (finite losses), then ``train()`` at a few steps and
-    clips. The median launches of each trainer are counted; the
-    kernel is held exactly on the first 4 launched inputs of every site and
-    at each new shape (random and tie-heavy), and each is timed.
-15. Prints the kernel table as one JSON line, then the result line.
+    clips. The launches of each trainer are counted, of the median and of
+    each decoder kernel (the gates decode beats with the DBN and chords with
+    the CRF), and must be the counts in TRAIN_LAUNCHES and
+    TRAIN_DECODER_LAUNCHES; the median kernel is held exactly on the first 4
+    launched inputs of every site and at each new shape (random and
+    tie-heavy), and each is timed.
+14a. Decoders (``decoders_phase``): every launch of the four decoder
+    kernels from step 5 to step 14 was recorded (its shape, and its first
+    two inputs at each shape). Each kernel must be bit-equal to its plain
+    loop on the card at each of those shapes (the DBN's among them on the
+    30 s bucket, [B, 3007], on the clip's true length and on the trainers'
+    validation clips): on the launched inputs, random ones and tie-heavy
+    ones (a constant and a two-level activation; every frame a candidate,
+    runs of candidates; equal pYIN columns; equal emission columns with
+    uniform transitions). Each shape is timed: the kernel alone on inputs
+    prepared once (CUDA events with and without the spin kernel, and its
+    duration in the profiler), the wrapper with torch's preparation, and the
+    plain loop on the card; beside the bound (adds at 128 and compares at 64
+    per SM per clock at the clock of step 3, or bytes at 3.35 TB/s,
+    whichever is larger) and the time per frame.
+15. Prints the kernel table as one JSON line (the median kernel and the four
+    decoder kernels), then the result line.
 
 Each phase prints its wall time. Any failed phase raises, and the script
 exits non-zero without a result. It imports nothing of JAX or of the JAX
@@ -136,6 +170,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # float min/max per SM per clock on compute capability 9.0 (CUDA C++
 # Programming Guide, throughput of native arithmetic instructions)
 FMNMX_PER_SM_PER_CLOCK = 64
+FADD_PER_SM_PER_CLOCK = 128  # float32 adds, the same table
 SPIN_CYCLES = 2_000_000  # about 1 ms of a spin kernel ahead of each timed call
 # (shape, window, axis) of the median launches per song: HPSS of the
 # 2048-point STFT (win 31), the content-window masks of the 20 batched 3 s
@@ -201,6 +236,21 @@ STAGES = ("decode", "separation", "analysis", "beats", "calibration", "transcrip
           "mode", "quantize", "artifacts", "export")
 
 
+# The sequential decoders' kernels: name → (port module, its CUDA launcher,
+# the JAX package's lax.scan the kernel replaces)
+DECODERS = {
+    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "_dbn_forward_cuda", "audiotabs_tpu/decode/dbn_beats.py:90"),
+    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "_wait_cuda", "audiotabs_tpu/ops/onset.py:70"),
+    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "_banded_viterbi_cuda", "audiotabs_tpu/ops/pyin.py:171"),
+    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "_viterbi_log_dense_cuda", "audiotabs_tpu/decode/viterbi.py:79"),
+}
+# launches per song of the CLI under the shipped settings: the DBN, the onset
+# wait rule of the content windows and of the calibration, pYIN's Viterbi of
+# the content windows, the CRF decode; in a batch chunk of b songs the same,
+# but b CRF decodes (one per song)
+DECODER_LAUNCHES_PER_SONG = {"dbn_viterbi": 1, "onset_wait": 2, "banded_viterbi": 1, "dense_viterbi": 1}
+
+
 def cuda_ms(fn, reps: int = 30, warmup: int = 3, spin: bool = True) -> float:
     """Median over ``reps`` of one call's time on the card (CUDA events).
 
@@ -223,19 +273,23 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3, spin: bool = True) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float | None:
-    """Mean duration of one median kernel in torch.profiler's device trace
-    (the kernel alone, without launch gaps), over the launches the trace
-    holds; None if it holds none."""
+def device_ms(fn, reps: int = 20, key: str = "median_", tries: int = 3) -> float | None:
+    """Mean duration of one kernel whose name holds ``key`` in
+    torch.profiler's device trace (the kernel alone, without launch gaps),
+    over the launches the trace holds. A trace that holds none is taken
+    again, up to ``tries`` times (a short trace sometimes comes back
+    without its kernels); None if none held one."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "median_" in e.key]
-    seen = sum(e.count for e in events)
-    return sum(e.self_device_time_total for e in events) / seen / 1e3 if seen else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durations = [stop - start for name, start, stop in device_events(prof) if key in name]
+        if durations:
+            return sum(durations) / len(durations) / 1e3
+    return None
 
 
 def wall_s(fn, reps: int = 3) -> float:
@@ -383,16 +437,16 @@ def stage_times(y_np: np.ndarray, sr: int) -> dict:
         "separation (htdemucs, 14 windows)": lambda: htdemucs.separate_stems_device(y, sr, shifts=1),
         "hpss (stft, 2 median launches, 2 istft; twice a song with separation on)": lambda: hpss(y),
         "blstm (features + ensemble)": lambda: beat_rnn.beat_activation(y, sr, m.beat),
-        "dbn loop (forward + backtrack)": lambda: _dbn_forward(act),
+        "dbn (dbn_viterbi kernel: forward + backtrack)": lambda: _dbn_forward(act),
         "hcqt + basic pitch cnn": lambda: basicpitch.cnn_apply(m.basicpitch, basicpitch.hcqt(y_harm, sr)),
         "salience posteriors + chroma": lambda: salience_chroma(basicpitch.salience_posteriors(y_harm, sr)[1], 301),
         "deepchroma (features + dnn)": lambda: deepchroma.apply(m.deepchroma, deepchroma.features(y_harm, sr)[:301]),
-        "crf (emissions + viterbi loop)": lambda: crf_chords.decode(m.crf, crf_feats),
+        "crf (emissions + dense_viterbi kernel)": lambda: crf_chords.decode(m.crf, crf_feats),
         "key cnn (features + cnn)": lambda: key_cnn.apply(m.key, key_cnn.features(y_harm, sr)),
         "strum envelope": lambda: _onset_strength_median(y, sr, 512),
-        "content windows (pyin, onset loop, 2 median launches)": lambda: _window_metrics(windows, sr),
+        "content windows (pyin with banded_viterbi, onset_wait, 2 median launches)": lambda: _window_metrics(windows, sr),
         "calibration masks (2 median launches)": lambda: hpss_masks(S1024, 17, 17),
-        "calibration onset loop": lambda: onset_detect_frames(onset_strength(y, sr, hop=512, n_fft=1024), delta=0.5, wait=4),
+        "calibration onsets (envelope + onset_wait kernel)": lambda: onset_detect_frames(onset_strength(y, sr, hop=512, n_fft=1024), delta=0.5, wait=4),
     }
     out = {}
     for name, fn in stages.items():
@@ -441,9 +495,10 @@ def print_top(label: str, events: list, n: int = 8) -> None:
         print(f"{label}: {name[:80]} count {count} device {us / 1e3:.2f} ms")
 
 
-def profile_busy_share(run) -> int:
-    """Device busy share of one warm song from torch.profiler (CUPTI); returns
-    the song's device-to-host copies."""
+def profile_busy_share(run) -> dict:
+    """Device busy share of one warm song from torch.profiler (CUPTI): the
+    song's device ops, busy share, device-to-host copies and the launches of
+    each decoder kernel in the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -455,16 +510,20 @@ def profile_busy_share(run) -> int:
         time.sleep(TRACE_TAIL_S)
     events = device_events(prof)
     dtoh = sum(name.startswith("Memcpy DtoH") for name, _, _ in events)
-    print(f"profile: device-to-host copies per song {dtoh}")
+    decoders = {name: sum(f"{name}_kernel" in e for e, _, _ in events) for name in DECODERS}
+    decoder_ms = {name: sum(stop - start for e, start, stop in events if f"{name}_kernel" in e) / 1e3 for name in DECODERS}
+    print(f"profile: device-to-host copies per song {dtoh}, decoder kernels in the trace {decoders}, their device ms {decoder_ms}")
     if not events:
         print("profile: no device time in the trace; busy share not measured")
-        return dtoh
+        return {"dtoh": dtoh, "decoders": decoders, "decoder_ms": decoder_ms, "device_ops": 0, "busy_share": None, "wall_ms": wall * 1e3}
     busy = busy_ms(events)
     print(f"profile: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms (kernel time summed {sum(stop - start for _, start, stop in events) / 1e3:.1f} ms), "
           f"busy share {busy / 1e3 / wall:.3f}, device ops {len(events)}")
     print_top("profile median", [e for e in events if "median_" in e[0]])
+    print_top("profile decoders", [e for e in events if any(f"{name}_kernel" in e[0] for name in DECODERS)])
     print_top("profile top", events)
-    return dtoh
+    return {"dtoh": dtoh, "decoders": decoders, "decoder_ms": decoder_ms, "device_ops": len(events), "busy_ms": busy, "busy_share": busy / 1e3 / wall,
+            "wall_ms": wall * 1e3}
 
 
 def compare_with_cpu(what: str, cpu: dict, card: dict, quiet: bool = False) -> None:
@@ -495,19 +554,23 @@ def check_outputs(feats: dict, beats: np.ndarray, keys: set) -> None:
 
 
 def drive(median, settings, expect_launches: int) -> tuple:
-    """run_analysis on the card: cold, then twice warm, each song with the launch count set to 0 just before it."""
+    """run_analysis on the card: cold, then twice warm, each song with every
+    kernel's launch count set to 0 just before it (the decoders' per song as
+    the CLI's)."""
     from audiotabs_tpu_torch.runtime.pipeline import run_analysis
 
+    mods = decoder_modules()
     times = []
     for _ in range(3):
-        median.LAUNCHES = 0
+        zero_counts(median, mods)
         t0 = time.perf_counter()
         feats, beats, info = run_analysis(CLIP, device="cuda", settings=settings)
         times.append(time.perf_counter() - t0)
         if median.LAUNCHES != expect_launches:
             raise AssertionError(f"median kernel launched {median.LAUNCHES} times in one song, expected {expect_launches}")
+        decoders = expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, "run_analysis song")
     print(f"run_analysis on {CLIP.name} (ENABLE_DEMUCS={settings.ENABLE_DEMUCS}): cold {times[0]:.3f} s, "
-          f"warm {times[1]:.3f} s / {times[2]:.3f} s, median launches per song {median.LAUNCHES}, {info}")
+          f"warm {times[1]:.3f} s / {times[2]:.3f} s, median launches per song {median.LAUNCHES}, decoder launches {decoders}, {info}")
     return feats, beats, info, median.LAUNCHES
 
 
@@ -540,10 +603,11 @@ class Capture:
         return False
 
 
-def cli_phase(median, card: str) -> dict:
+def cli_phase(median, mods: dict, recorder: RecordDecoders, card: str) -> dict:
     """The main path: the port's CLI on the card under the shipped settings,
-    cold and then twice warm; the artifacts checked, one warm song profiled,
-    and the CPU tail run on the card's own host features."""
+    cold and then twice warm, every kernel's launch count set to 0 just
+    before each song and read just after it; the artifacts checked, one warm
+    song profiled, and the CPU tail run on the card's own host features."""
     from audiotabs_tpu_torch.config import Settings
     from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
     from audiotabs_tpu_torch.runtime import cli, pipeline
@@ -554,15 +618,21 @@ def cli_phase(median, card: str) -> dict:
         for run in range(3):
             job = JOBS / f"cli{run}"
             median.LAUNCHES = 0
+            zero_decoders(mods)
+            recorder.tag = job.name
             t0 = time.perf_counter()
             rc = cli.main([str(CLIP), "--job-dir", str(job), "--keep"])
             cli_walls.append(time.perf_counter() - t0)
             launches = median.LAUNCHES
+            decoder_launches = decoder_counts(mods)
+            recorder.tag = None
             walls.append(result.seconds)
             if rc != 0:
                 raise AssertionError(f"cli exited {rc}")
             if launches != SEPARATED_LAUNCHES:
                 raise AssertionError(f"median kernel launched {launches} times in one CLI song, expected {SEPARATED_LAUNCHES}")
+            if decoder_launches != DECODER_LAUNCHES_PER_SONG:
+                raise AssertionError(f"decoder kernels launched {decoder_launches} times in one CLI song, expected {DECODER_LAUNCHES_PER_SONG}")
             out = read_out(job)
             bt = out["beat_times.json"]
             if out["result.json"]["transcription_error"] is not None:
@@ -577,7 +647,8 @@ def cli_phase(median, card: str) -> dict:
                 raise AssertionError(f"profile.json lacks stages {sorted(set(STAGES) - set(prof))}")
             tail_s = sum(prof[k] for k in STAGES[STAGES.index("beats") :])
             print(f"cli song {run} ({'cold' if run == 0 else 'warm'}): run_pipeline {walls[-1]:.3f} s, cli main {cli_walls[-1]:.3f} s, "
-                  f"host tail (beats to export) {tail_s:.4f} s, median launches {launches}, stages (s) {json.dumps(prof)} [{card}]")
+                  f"host tail (beats to export) {tail_s:.4f} s, median launches {launches}, decoder launches {decoder_launches}, "
+                  f"stages (s) {json.dumps(prof)} [{card}]")
         res = result.last
     if res.key_signature is None or not res.chords or res.score is None or res.transcription_backend != "guitar_hybrid":
         raise AssertionError(f"incomplete result: {res.to_json()[:400]}")
@@ -586,10 +657,10 @@ def cli_phase(median, card: str) -> dict:
           f"{len(res.score.measures)} measures, artifacts {sorted(OUT_ARTIFACTS)} + work {sorted(WORK_ARTIFACTS)} [{card}]")
 
     # one device-to-host copy per song (a trace short of it is taken again: see retrace)
-    dtoh = retrace(lambda: profile_busy_share(lambda: cli.main([str(CLIP), "--job-dir", str(JOBS / "cli_profiled"), "--keep"])),
-                   lambda d: d < 1, "the song's trace holds no device-to-host copy")
-    if dtoh != 1:
-        raise AssertionError(f"{dtoh} device-to-host copies in one run_pipeline, expected 1")
+    traced = retrace(lambda: profile_busy_share(lambda: cli.main([str(CLIP), "--job-dir", str(JOBS / "cli_profiled"), "--keep"])),
+                     lambda p: p["dtoh"] < 1, "the song's trace holds no device-to-host copy")
+    if traced["dtoh"] != 1:
+        raise AssertionError(f"{traced['dtoh']} device-to-host copies in one run_pipeline, expected 1")
 
     # the host tail on the CPU, on the card's own host features and native audio
     job = JOBS / "cli2"
@@ -611,7 +682,9 @@ def cli_phase(median, card: str) -> dict:
         if a != b:
             raise AssertionError(f"{name}: the CPU tail on the card's features writes other bytes")
     print(f"cpu _pipeline_tail on the card's host features: {len(names)} artifacts byte-equal ({', '.join(names)})")
-    return {"walls": walls, "launches": launches, "out": read_out(job)}
+    song_shapes = {name: [shape for n, tag, shape, _ in recorder.launches if (n, tag) == (name, job.name)] for name in DECODERS}
+    return {"walls": walls, "launches": launches, "decoder_launches": decoder_launches, "decoder_shapes": song_shapes,
+            "traced": traced, "out": read_out(job)}
 
 
 def compare_pipelines(card_out: dict, cpu_res, cpu_out: dict) -> None:
@@ -751,7 +824,7 @@ def note_rows(out: dict) -> collections.Counter:
     return collections.Counter(tuple(r.split(",")[:3]) for r in out["note_events.csv"].decode().splitlines()[1:])
 
 
-def batch_phase(median, card: str) -> dict:
+def batch_phase(median, mods: dict, card: str) -> dict:
     """The batch runner under the shipped settings: the six held-out clips
     (all in the 30 s bucket) in chunks of 4 and 2 songs, cold then warm;
     8 median launches and 1 device-to-host copy per chunk; each row's stems
@@ -768,7 +841,7 @@ def batch_phase(median, card: str) -> dict:
     if s.BATCH_SONGS_PER_DEVICE != CHUNK_SONGS[0] or len(HELDOUT) != sum(CHUNK_SONGS):
         raise AssertionError(f"expected {len(HELDOUT)} clips in chunks of {s.BATCH_SONGS_PER_DEVICE}")
     shutil.rmtree(BATCH_JOBS, ignore_errors=True)
-    per_chunk_launches = []
+    per_chunk_launches, per_chunk_decoders = [], []
 
     class CountChunk(Capture):
         def __enter__(self):
@@ -777,8 +850,10 @@ def batch_phase(median, card: str) -> dict:
 
             def counted(*args, **kwargs):
                 median.LAUNCHES = 0
+                zero_decoders(mods)
                 out = keep(*args, **kwargs)
                 per_chunk_launches.append(median.LAUNCHES)
+                per_chunk_decoders.append(decoder_counts(mods))
                 return out
 
             setattr(self.module, self.name, counted)
@@ -787,6 +862,7 @@ def batch_phase(median, card: str) -> dict:
     walls = []
     for run in range(2):
         per_chunk_launches.clear()
+        per_chunk_decoders.clear()
         with CountChunk(batch_runner, "_analyse_chunk"), Capture(htdemucs, "separate_program") as sep, \
                 Capture(batch_runner, "features_to_host") as host:
             torch.cuda.synchronize()
@@ -797,8 +873,12 @@ def batch_phase(median, card: str) -> dict:
             raise AssertionError(f"median launches per chunk {per_chunk_launches}, expected {SEPARATED_LAUNCHES} in each of {len(CHUNK_SONGS)}")
         if [args[1].shape[0] for args, _, _ in sep.calls] != list(CHUNK_SONGS):
             raise AssertionError(f"chunks of {[args[1].shape[0] for args, _, _ in sep.calls]} songs, expected {list(CHUNK_SONGS)}")
+        # one DBN, two onset and one banded Viterbi launch per chunk, one CRF decode per song
+        expect = [DECODER_LAUNCHES_PER_SONG | {"dense_viterbi": b} for b in CHUNK_SONGS]
+        if per_chunk_decoders != expect:
+            raise AssertionError(f"decoder launches per chunk {per_chunk_decoders}, expected {expect}")
         print(f"batch run {run} ({'cold' if run == 0 else 'warm'}): {len(HELDOUT)} songs in {walls[-1]:.3f} s, "
-              f"median launches per chunk {per_chunk_launches} [{card}]")
+              f"median launches per chunk {per_chunk_launches}, decoder launches per chunk {per_chunk_decoders} [{card}]")
     batch, true_lens, sr = batch_runner._load_and_bucket(HELDOUT, s.PAD_SECONDS_BUCKET)
     audio_s = sum(true_lens) / sr
     print(f"batch: {audio_s:.2f} s of audio in {walls[1]:.3f} s warm = {audio_s / walls[1]:.3f} audio-s per wall s (cold {walls[0]:.3f} s) [{card}]")
@@ -867,14 +947,14 @@ def batch_phase(median, card: str) -> dict:
               f"({len(beats[0])} / {len(beats[1])}, largest shift {max((abs(x - y) for x, y in zip(*beats)), default=0.0):.4f} s), "
               f"notes {sum(b_notes.values())} / {sum(s_notes.values())}, {same_notes} in both (start, end, pitch); single run_pipeline {single[-1]:.3f} s")
     print(f"one at a time: {sum(single):.3f} s for the six songs ({audio_s / sum(single):.3f} audio-s per wall s), batch {walls[1]:.3f} s [{card}]")
-    return {"walls": walls, "launches_per_chunk": per_chunk_launches, "profile": prof, "chunks": chunks, "single_s": single,
-            "rows": warm_rows}
+    return {"walls": walls, "launches_per_chunk": per_chunk_launches, "decoder_launches_per_chunk": per_chunk_decoders,
+            "profile": prof, "chunks": chunks, "single_s": single, "rows": warm_rows}
 
 
 MESH_JOBS = REPO / "build" / "chip_smoke_mesh"  # git-ignored
 
 
-def mesh_phase(median, card: str, batch: dict) -> dict:
+def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
     """The device mesh (parallel/), on the machine's one card:
 
     a. ``transcribe_batch`` over the six held-out clips with
@@ -907,9 +987,12 @@ def mesh_phase(median, card: str, batch: dict) -> dict:
             keep = getattr(self.module, self.name)
 
             def counted(*args, **kwargs):
-                median.LAUNCHES = 0
+                zero_counts(median, mods)
                 out = keep(*args, **kwargs)
                 per_shard.append((args[0].shape[0], median.LAUNCHES))
+                # one DBN, two onset and one banded Viterbi launch per shard, a CRF decode per row
+                expect_decoders(mods, DECODER_LAUNCHES_PER_SONG | {"dense_viterbi": args[0].shape[0]},
+                                f"a device shard of {args[0].shape[0]} rows")
                 return out
 
             setattr(self.module, self.name, counted)
@@ -938,7 +1021,8 @@ def mesh_phase(median, card: str, batch: dict) -> dict:
             if m_out["beat_times.json"][key] != b_out["beat_times.json"][key]:
                 raise AssertionError(f"mesh song {clip.name}: {key} differ from the batch phase's")
     launches_default = [n for _, n in per_shard]
-    print(f"mesh a (default mesh {mesh.shape}): {len(HELDOUT)} songs in {wall:.3f} s, (songs, median launches) per device shard {per_shard}; "
+    print(f"mesh a (default mesh {mesh.shape}): {len(HELDOUT)} songs in {wall:.3f} s, (songs, median launches) per device shard {per_shard}, "
+          f"decoder launches per shard {DECODER_LAUNCHES_PER_SONG} but a CRF decode per row; "
           f"every row's discrete outputs and beat times equal the batch phase's, floats within {FLOAT_TOL}; the same artifact set [{card}]")
 
     # b. a 2-way data mesh on the one card: rows split 2 ways, one zero pad row at B = 5
@@ -1002,11 +1086,11 @@ def mesh_phase(median, card: str, batch: dict) -> dict:
     return {"launches_default_mesh_per_chunk": launches_default, "launches_two_way": two_way, "new_shapes": shapes, "model_axis": model_axis}
 
 
-def serving_phase(median, card: str, cli_result: dict) -> list[int]:
+def serving_phase(median, mods: dict, card: str, cli_result: dict) -> list[int]:
     """The job API on the card: an inline job and a queued job drained by
-    the worker, each with the launch count set to 0 just before it (8 median
-    launches each); every artifact route; the inline result.json against the
-    CLI's. Returns the two jobs' launch counts."""
+    the worker, each with every launch count set to 0 just before it (8 median
+    launches each, the decoders' as a CLI song's); every artifact route; the
+    inline result.json against the CLI's. Returns the two jobs' median launch counts."""
     import http.client
     import socket
 
@@ -1033,11 +1117,12 @@ def serving_phase(median, card: str, cli_result: dict) -> list[int]:
             raise AssertionError("health check failed")
         clip, queued = CLIP, REPO / "tests" / "data" / "heldout" / "heldout_picked_melody.wav"
         launches = []
-        median.LAUNCHES = 0
+        zero_counts(median, mods)
         t0 = time.perf_counter()
         status, _, data = request("POST", "/v1/jobs?inline=1", body=clip.read_bytes(), headers={"X-Filename": clip.name})
         inline_s = time.perf_counter() - t0
         launches.append(median.LAUNCHES)
+        expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, "the inline job")
         inline = json.loads(data)
         if status != 200 or inline["status"] != "done":
             raise AssertionError(f"inline job: {status} {inline}")
@@ -1045,12 +1130,13 @@ def serving_phase(median, card: str, cli_result: dict) -> list[int]:
         job = json.loads(data)
         if status != 200 or job["status"] != "queued":
             raise AssertionError(f"queued job: {status} {job}")
-        median.LAUNCHES = 0
+        zero_counts(median, mods)
         t0 = time.perf_counter()
         if worker.main(["--data-dir", str(SERVE_DATA), "--once"]) != 0:
             raise AssertionError("worker exited non-zero")
         worker_s = time.perf_counter() - t0
         launches.append(median.LAUNCHES)
+        expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, "the queued job")
         if launches != [SEPARATED_LAUNCHES] * 2:
             raise AssertionError(f"median launches of the inline and the queued job {launches}, expected {SEPARATED_LAUNCHES} each")
         deadline = time.perf_counter() + 60
@@ -1077,7 +1163,7 @@ def serving_phase(median, card: str, cli_result: dict) -> list[int]:
         httpd.shutdown()
         httpd.server_close()
     print(f"serve: inline job ({clip.name}) {inline_s:.3f} s, worker {worker_s:.3f} s for one queued job ({queued.name}), "
-          f"median launches {launches}; {len(ROUTES)} artifact routes of both jobs 200 with their content types; "
+          f"median launches {launches}, decoder launches {DECODER_LAUNCHES_PER_SONG} each; {len(ROUTES)} artifact routes of both jobs 200 with their content types; "
           f"inline result.json equals the CLI's [{card}]")
     return launches
 
@@ -1144,7 +1230,7 @@ def encode_mp3(path: Path, pcm: np.ndarray, sr: int, kbps: int = 192) -> bool:
     return True
 
 
-def decode_phase(median, card: str, cli_result: dict) -> dict:
+def decode_phase(median, mods: dict, card: str, cli_result: dict) -> dict:
     """Which decoders the machine has; the native resampler against scipy's;
     uploads of other formats as inline jobs on the card (see step 10)."""
     import ctypes
@@ -1202,7 +1288,7 @@ def decode_phase(median, card: str, cli_result: dict) -> dict:
     jobs = {}
     try:
         for name, body in uploads.items():
-            median.LAUNCHES = 0
+            zero_counts(median, mods)
             t0 = time.perf_counter()
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
             conn.request("POST", "/v1/jobs?inline=1", body=body, headers={"X-Filename": name})
@@ -1210,6 +1296,8 @@ def decode_phase(median, card: str, cli_result: dict) -> dict:
             info = json.loads(resp.read())
             conn.close()
             jobs[name] = (resp.status, info, time.perf_counter() - t0, median.LAUNCHES)
+            # an upload no decoder takes launches nothing; the others as a CLI song
+            expect_decoders(mods, dict.fromkeys(DECODERS, 0) if name == "noise.ogg" else DECODER_LAUNCHES_PER_SONG, f"upload {name}")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1224,7 +1312,7 @@ def decode_phase(median, card: str, cli_result: dict) -> dict:
             want = "cannot decode upload.ogg: not a WAV and no ffmpeg binary available"
             if status != 200 or info["status"] != "error" or launches != 0 or (have["ffmpeg_binary"] is None and err != want):
                 raise AssertionError(f"undecodable upload: {status} {info}, {launches} median launches, error {err!r}")
-            print(f"undecodable upload {name}: job error {err!r}, no median launch")
+            print(f"undecodable upload {name}: job error {err!r}, no median or decoder launch")
             continue
         result = json.loads((job / "out" / "result.json").read_text()) if info["status"] == "done" else {}
         if status != 200 or info["status"] != "done" or launches != SEPARATED_LAUNCHES or result["transcription_error"] is not None:
@@ -1234,7 +1322,8 @@ def decode_phase(median, card: str, cli_result: dict) -> dict:
             raise AssertionError(f"job {name} against the WAV job: key {result['key_signature']['name']} / "
                                  f"{cli_result['key_signature']['name']}, chords {labels[0]} / {labels[1]}")
         decode_s = json.loads((job / "out" / "profile.json").read_text())["decode"]
-        print(f"inline job {name}: {wall:.3f} s (decode stage {decode_s} s), median launches {launches}, key "
+        print(f"inline job {name}: {wall:.3f} s (decode stage {decode_s} s), median launches {launches}, decoder launches "
+              f"{DECODER_LAUNCHES_PER_SONG}, key "
               f"{result['key_signature']['name']} and {len(labels[0])} chord labels as the WAV job's [{card}]")
         out[name] = {"wall_s": wall, "decode_s": decode_s, "launches": launches}
     return out
@@ -1258,12 +1347,16 @@ def _same_within(a, b, path: str = "") -> None:
         raise AssertionError(f"{path}: {a!r} / {b!r}")
 
 
+NO_CRF = DECODER_LAUNCHES_PER_SONG | {"dense_viterbi": 0}  # the template backend decodes without the CRF
+# the tail's own pass over 4 s windows adds an onset and a pYIN launch
+OWN_WINDOWS = DECODER_LAUNCHES_PER_SONG | {"onset_wait": 3, "banded_viterbi": 2}
 SETTINGS_CASES = {
-    # name: (environment, median launches per song, whether the tail decodes again on the device)
-    "notes": ({"TRANSCRIPTION_MODE": "notes"}, SEPARATED_LAUNCHES, False),
-    "template": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7"}, SEPARATED_LAUNCHES, False),
-    "template_majmin7plus": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7plus"}, SEPARATED_LAUNCHES, True),
-    "content": ({"CONTENT_ANALYSIS_WINDOW_SEC": "4.0", "CONTENT_ANALYSIS_HOP_SEC": "2.0"}, SEPARATED_LAUNCHES + 2, True),
+    # name: (environment, median launches per song, decoder launches per song,
+    #        whether the tail decodes again on the device)
+    "notes": ({"TRANSCRIPTION_MODE": "notes"}, SEPARATED_LAUNCHES, DECODER_LAUNCHES_PER_SONG, False),
+    "template": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7"}, SEPARATED_LAUNCHES, NO_CRF, False),
+    "template_majmin7plus": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7plus"}, SEPARATED_LAUNCHES, NO_CRF, True),
+    "content": ({"CONTENT_ANALYSIS_WINDOW_SEC": "4.0", "CONTENT_ANALYSIS_HOP_SEC": "2.0"}, SEPARATED_LAUNCHES + 2, OWN_WINDOWS, True),
 }
 
 
@@ -1275,7 +1368,8 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
     from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
     from audiotabs_tpu_torch.runtime import cli, pipeline
 
-    env, expect, redecodes = SETTINGS_CASES[name]
+    env, expect, expect_dec, redecodes = SETTINGS_CASES[name]
+    mods = decoder_modules()
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -1284,9 +1378,9 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
         shutil.rmtree(job, ignore_errors=True)
         n_before = len(recorder.launches)
         with Capture(pipeline, "features_to_host") as feats, Capture(pipeline, "run_pipeline") as result:
-            median.LAUNCHES = 0
+            zero_counts(median, mods)
             rc = cli.main([str(CLIP), "--job-dir", str(job), "--keep"])
-            launches = median.LAUNCHES
+            launches, decoders = median.LAUNCHES, decoder_counts(mods)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1295,11 +1389,12 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
                 os.environ[k] = v
     out = read_out(job)
     errors = out["result.json"]["transcription_error"]
-    if rc != 0 or errors is not None or launches != expect:
-        raise AssertionError(f"{name}: cli rc {rc}, errors {errors}, {launches} median launches (expected {expect})")
+    if rc != 0 or errors is not None or launches != expect or decoders != expect_dec:
+        raise AssertionError(f"{name}: cli rc {rc}, errors {errors}, {launches} median launches (expected {expect}), "
+                             f"decoder launches {decoders} (expected {expect_dec})")
     sites = recorder.sites()[n_before:]
     prof = out["profile.json"]
-    print(f"{name} ({env}): run_pipeline {result.seconds:.3f} s, median launches {launches} at {sites}, backend "
+    print(f"{name} ({env}): run_pipeline {result.seconds:.3f} s, median launches {launches} at {sites}, decoder launches {decoders}, backend "
           f"{out['result.json']['transcription_backend']}, {len(out['result.json']['chords'])} chords "
           f"{[c['label'] for c in out['result.json']['chords']][:8]}, stages (s) {json.dumps(prof)} [{card}]")
 
@@ -1328,7 +1423,7 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
         within.append(art)
     print(f"{name}: cpu _pipeline_tail on the card's host features: {len(names) + 1 - len(within)} artifacts equal, "
           f"{within} equal but for floats within {FLOAT_TOL} (the tail decodes again, on the CPU)")
-    return {"launches": launches, "sites": sites, "wall_s": result.seconds, "profile": prof}
+    return {"launches": launches, "decoder_launches": decoders, "sites": sites, "wall_s": result.seconds, "profile": prof}
 
 
 def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
@@ -1341,6 +1436,7 @@ def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
         raise RuntimeError("forced")
 
     shipped = Settings()
+    mods = decoder_modules()
     runs = []
     real = pipeline.fused_analysis
     pipeline.fused_analysis = fail
@@ -1350,14 +1446,16 @@ def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
             shutil.rmtree(job, ignore_errors=True)
             n_before = len(recorder.launches)
             with Capture(pipeline, "separate_stems_device") as sep:
-                median.LAUNCHES = 0
+                zero_counts(median, mods)
                 t0 = time.perf_counter()
                 res = pipeline.run_pipeline(job, CLIP, device="cuda", settings=shipped)
                 wall = time.perf_counter() - t0
                 launches = median.LAUNCHES
+                # each stage decodes again on the card: the same decoder launches as a fused song
+                decoders = expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, f"degraded run {run}")
             out = read_out(job)
             sites = recorder.sites()[n_before:]
-            print(f"degraded run {run} ({'cold' if run == 0 else 'warm'}): {wall:.3f} s, median launches {launches} at {sites}, "
+            print(f"degraded run {run} ({'cold' if run == 0 else 'warm'}): {wall:.3f} s, median launches {launches} at {sites}, decoder launches {decoders}, "
                   f"errors {out['beat_times.json']['errors']}, stages (s) {json.dumps(out['profile.json'])} [{card}]")
             if out["beat_times.json"]["errors"] != ["analysis: forced"] or res.transcription_error != "analysis: forced":
                 raise AssertionError(f"degraded path errors: {out['beat_times.json']['errors']}")
@@ -1366,7 +1464,7 @@ def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
             # result.json is the caller's to write (cli.py, jobs.py); the calibration cache sits in work/
             if set(out) != OUT_ARTIFACTS - {"result.json"} or {p.name for p in (job / "work").iterdir()} != WORK_ARTIFACTS | {"audio_analysis"}:
                 raise AssertionError(f"degraded artifact set: out {sorted(out)}, work {sorted(p.name for p in (job / 'work').iterdir())}")
-            runs.append({"wall_s": wall, "launches": launches, "sites": sites, "profile": out["profile.json"]})
+            runs.append({"wall_s": wall, "launches": launches, "decoder_launches": decoders, "sites": sites, "profile": out["profile.json"]})
         stems = {k: v.cpu() for k, v in sep.last.items()}
 
         # the same path on the CPU, on the card's stems
@@ -1426,11 +1524,270 @@ def new_shape_kernel_check(median, recorder: RecordMedians) -> dict:
     return {"max_abs_err": err, "rows": rows}
 
 
+
+
+def decoder_modules() -> dict:
+    return {name: importlib.import_module(mod) for name, (mod, _, _) in DECODERS.items()}
+
+
+def zero_decoders(mods: dict) -> None:
+    for m in mods.values():
+        m.LAUNCHES = 0
+
+
+def decoder_counts(mods: dict) -> dict:
+    return {name: m.LAUNCHES for name, m in mods.items()}
+
+
+def zero_counts(median, mods: dict) -> None:
+    """Every kernel's launch count to 0."""
+    median.LAUNCHES = 0
+    zero_decoders(mods)
+
+
+def expect_decoders(mods: dict, expect: dict, what: str) -> dict:
+    """The decoder kernels' launch counts, which must be ``expect``."""
+    got = decoder_counts(mods)
+    if got != expect:
+        raise AssertionError(f"{what}: decoder kernels launched {got} times, expected {expect}")
+    return got
+
+
+class RecordDecoders:
+    """Records every launch of the decoder kernels: which kernel, the tag the
+    caller set (``tag``), the input's shape, and a copy of the first ``keep``
+    inputs at each (kernel, shape)."""
+
+    def __init__(self, mods: dict, keep: int = 2):
+        self.mods, self.keep, self.tag = mods, keep, None
+        self.launches: list[tuple[str, str | None, tuple, tuple | None]] = []
+        self.saved = {}
+
+    def __enter__(self):
+        for name, (_, launcher, _) in DECODERS.items():
+            m = self.mods[name]
+            fn = getattr(m, launcher)
+            self.saved[name] = fn
+
+            def record(*args, name=name, fn=fn):
+                shape = tuple(args[0].shape)
+                kept = sum(1 for n, _, s, a in self.launches if (n, s) == (name, shape) and a is not None)
+                copy = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args) if kept < self.keep else None
+                self.launches.append((name, self.tag, shape, copy))
+                return fn(*args)
+
+            setattr(m, launcher, record)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (_, launcher, _) in DECODERS.items():
+            setattr(self.mods[name], launcher, self.saved[name])
+        return False
+
+
+def decoder_calls(mods: dict) -> dict:
+    """For each kernel: (the wrapper that launches it, its plain version), both taking the launcher's arguments."""
+    dbn, onset, pyin, vit = (mods[n] for n in DECODERS)
+    return {
+        "dbn_viterbi": (dbn._dbn_forward, dbn._dbn_forward_plain),
+        "onset_wait": (onset._wait, onset._wait_plain),
+        "banded_viterbi": (pyin._banded_viterbi, pyin._banded_viterbi_plain),
+        "dense_viterbi": (vit.viterbi_log_dense, vit.viterbi_log_dense_plain),
+    }
+
+
+def decoder_inputs(name: str, shape: tuple, like: tuple, rng) -> dict:
+    """Random and tie-heavy inputs at ``shape`` on ``like``'s device, with its other arguments."""
+    dev = like[0].device
+    if name == "dbn_viterbi":
+        B, T = shape
+        beats = np.where(np.arange(T) % 50 < 3, 0.9, 0.05).astype(np.float32)
+        ties = {"constant": np.full(shape, 0.5, np.float32), "two levels": np.broadcast_to(beats, shape).copy()}
+        cases = {"random": rng.random(shape).astype(np.float32), **ties}
+        return {k: (torch.from_numpy(v).to(dev), *like[1:]) for k, v in cases.items()}
+    if name == "onset_wait":
+        runs = np.repeat(rng.random((*shape[:-1], shape[-1] // 6 + 1)) < 0.5, 6, axis=-1)[..., : shape[-1]]
+        cases = {"random": rng.random(shape) < 0.3, "all candidates": np.ones(shape, bool), "runs": runs}
+        return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dev), like[1]) for k, v in cases.items()}
+    if name == "banded_viterbi":
+        n_bins = shape[-1]
+        obs = rng.random(shape).astype(np.float32)
+        obs /= obs.sum(-1, keepdims=True) * rng.uniform(1.0, 3.0, (*shape[:-1], 1))
+        tied = (rng.integers(0, 3, (*shape[:-1], 1)) * np.ones(n_bins) / (3 * n_bins)).astype(np.float32)
+        cases = {}
+        for k, o in (("random", obs), ("equal columns", tied)):
+            v = np.clip(o.sum(-1), 0.0, 1.0)
+            log_u = np.log(np.maximum(1.0 - v, np.float32(1e-10)) / n_bins).astype(np.float32)[..., None]
+            cases[k] = (torch.from_numpy(np.log(o + np.float32(1e-10))).to(dev),
+                        torch.from_numpy(log_u).to(dev).expand(*shape), *like[2:])
+        return cases
+    B, T, S = shape
+    em = rng.random(shape).astype(np.float32) + 0.01
+    tied = em.copy()
+    tied[:, ::3] = 1.0  # equal emission columns every third frame
+    out = {}
+    for k, e, tr in (("random", em, like[1]), ("equal columns, uniform transitions", tied, torch.full_like(like[1], -float(np.log(S))))):
+        e = np.log(e / e.sum(-1, keepdims=True)).astype(np.float32)
+        out[k] = (torch.from_numpy(e).to(dev), tr, like[2])
+    return out
+
+
+def decoder_work(name: str, args: tuple, mods: dict) -> tuple[int, int, int]:
+    """(adds, compares, bytes) the function needs on these inputs: adds at
+    the float32 add rate, compares and maxima (an argmax is one compare per
+    candidate) at the min/max rate; each input read once and each output
+    written once. Only valid states count: the DBN's phases p < L_i."""
+    if name == "dbn_viterbi":
+        act, fps, min_bpm, max_bpm = args[:4]
+        B, T = act.shape
+        grid = mods[name]._tempo_grid(min_bpm, max_bpm, fps)
+        n, valid = len(grid), int(grid.sum())
+        # each frame: n x n transition candidates (add, compare), each valid phase plus its observation
+        adds, compares = B * (T - 1) * (n * n + valid), B * ((T - 1) * n * n + valid)
+        return adds, compares, B * T * 4 + 2 * B * T * 4 + n * n * 4
+    if name == "onset_wait":
+        cand = args[0]
+        return 0, 3 * cand.numel(), 2 * cand.numel()  # subtract, compare, select; a byte in, a byte out
+    if name == "banded_viterbi":
+        log_v, log_u, band = args[:3]
+        T, n_bins = log_v.shape[-2:]
+        rows = log_v.numel() // (T * n_bins)
+        # candidates inside the bin range only
+        cands = sum(min(2 * band, n_bins - 1 - b + band) - max(0, band - b) + 1 for b in range(n_bins))
+        adds = rows * T * (2 * cands + 6 * n_bins)  # two layers of candidates; stay and switch of both; the observations
+        compares = rows * T * (2 * cands + 2 * n_bins) + rows * 2 * n_bins  # their argmaxes, stay or switch; the last frame
+        u_bytes = (log_u.numel() if log_u.stride(-1) else log_u.numel() // n_bins) * 4
+        return adds, compares, log_v.numel() * 4 + u_bytes + rows * T * 9 + (2 * band + 1) * 4
+    em = args[0]
+    B, T, S = em.shape
+    adds, compares = B * ((T - 1) * (S * S + S) + S), B * ((T - 1) * S * S + S)
+    return adds, compares, em.numel() * 4 + S * S * 4 + S * 4 + B * T * 4 + B * 4
+
+
+def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
+    """Each decoder kernel bit-equal to its plain version on the card at
+    every shape the paths launched it at (their own inputs, random and
+    tie-heavy ones): the DBN on the 30 s bucket ([1, 3007]; batch chunks of
+    4, 2 and mesh shards of 3), on the clip's true length (the failed
+    analysis) and on the trainers' validation clips, the onset rule and pYIN
+    on the calibration and content-window batches, the CRF on every song and
+    training clip. Each shape timed: the kernel by CUDA events on inputs
+    prepared once (``_launch_args``, then ``_launch`` alone) and in the
+    profiler, the wrapper with torch's preparation, the plain loop on the
+    card; beside the bound at ``mhz``."""
+    from audiotabs_tpu_torch import _build
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    add_rate = n_sm * FADD_PER_SM_PER_CLOCK * mhz * 1e6
+    compare_rate = n_sm * FMNMX_PER_SM_PER_CLOCK * mhz * 1e6
+    print(f"decoder bounds: adds at {add_rate / 1e12:.2f} T/s and compares at {compare_rate / 1e12:.2f} T/s "
+          f"({n_sm} SMs x {FADD_PER_SM_PER_CLOCK} / {FMNMX_PER_SM_PER_CLOCK} per clock at {mhz} MHz), bytes at {HBM_BYTES_PER_S / 1e12} TB/s")
+    rng = np.random.default_rng(2)
+    calls = decoder_calls(mods)
+    shapes: dict[str, dict[tuple, list]] = {name: {} for name in DECODERS}
+    for name, tag, shape, args in recorder.launches:
+        kept = shapes[name].setdefault(shape, [])
+        if args is not None:
+            kept.append(args)
+    out = {}
+    for name, by_shape in shapes.items():
+        kernel, plain = calls[name]
+        mod = mods[name]
+        rows, err = {}, 0.0
+        for shape, launched in sorted(by_shape.items()):
+            like = launched[0]
+            cases = {f"launched {i}": a for i, a in enumerate(launched)} | decoder_inputs(name, shape, like, rng)
+            for case, args in cases.items():
+                got, ref = kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                for g, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
+                    err = max(err, float((g.double() - r.double()).abs().max()) if g.numel() else 0.0)
+                    if not torch.equal(g, r):
+                        raise AssertionError(f"{name} kernel differs from its plain version at {shape} ({case}) in "
+                                             f"{int((g != r).sum())} of {g.numel()} elements")
+            args = like
+            prepared = mod._launch_args(*args)
+            adds, compares, nbytes = decoder_work(name, args, mods)
+            row = dict(
+                ms=cuda_ms(lambda: mod._launch(*prepared), reps=20),
+                single_ms=cuda_ms(lambda: mod._launch(*prepared), reps=10, spin=False),
+                device_ms=device_ms(lambda: mod._launch(*prepared), reps=10, key=f"{name}_kernel"),
+                wrapper_ms=cuda_ms(lambda: kernel(*args), reps=10),
+                plain_ms=cuda_ms(lambda: plain(*args), reps=3, warmup=1),
+                adds=adds, compares=compares, bytes=nbytes,
+                ops_bound_ms=max(adds / add_rate, compares / compare_rate) * 1e3, byte_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                frames=shape[-2] if name in ("banded_viterbi", "dense_viterbi") else shape[-1],
+                cases=sorted(cases), launched=sum(1 for n, _, s, _ in recorder.launches if (n, s) == (name, shape)),
+            )
+            row["bound_ms"] = max(row["ops_bound_ms"], row["byte_bound_ms"])
+            row["bound_by"] = "operations" if row["ops_bound_ms"] >= row["byte_bound_ms"] else "bytes"
+            row["ms_per_frame"] = row["ms"] / row["frames"]
+            label = "x".join(map(str, shape))
+            rows[label] = row
+            print(f"{name} {label}: bit-equal to the plain version on {len(cases)} inputs ({', '.join(sorted(cases))}); "
+                  f"kernel {row['ms']:.4f} ms by events ({row['single_ms']:.4f} ms without the spin kernel, {row['device_ms']} ms "
+                  f"in the profiler), {row['ms_per_frame'] * 1e3:.3f} us per frame; the wrapper with torch's preparation "
+                  f"{row['wrapper_ms']:.4f} ms; plain loop on the card {row['plain_ms']:.2f} ms; bound {row['bound_ms']:.6f} ms by "
+                  f"{row['bound_by']} ({adds} adds, {compares} compares, {nbytes} bytes); launched {row['launched']} times by the paths")
+        usage = _build.ptxas_usage(name)
+        print(f"ptxas {name}: {usage}")
+        out[name] = {"rows": rows, "ptxas": usage, "max_abs_err": err}
+    return out
+
+
+def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_path: dict) -> dict:
+    """The kernels-line entry of a decoder kernel: its launches in one warm
+    CLI song (and ``by_path``, each path's count), and its time (the kernel
+    on prepared inputs, by events and in the profiler), the wrapper's, the
+    plain time and the bound summed over that song's launch shapes (the bound
+    from the song's total operations and bytes)."""
+    rows = [measured["rows"]["x".join(map(str, shape))] for shape in main_path["decoder_shapes"][name]]
+    ops_ms, byte_ms = sum(r["ops_bound_ms"] for r in rows), sum(r["byte_bound_ms"] for r in rows)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"audiotabs_tpu_torch/csrc/{name}.cu",
+        "replaces": DECODERS[name][2],
+        "launches": main_path["decoder_launches"][name],
+        "launches_per_batch_chunk": [c[name] for c in batch["decoder_launches_per_chunk"]],
+        "launches_by_path": by_path,
+        "launches_in_traced_song": main_path["traced"]["decoders"][name],
+        "device_ms_in_traced_song": main_path["traced"]["decoder_ms"][name],
+        "max_abs_err": measured["max_abs_err"],
+        "ms": sum(r["ms"] for r in rows),
+        "device_ms": None if any(r["device_ms"] is None for r in rows) else sum(r["device_ms"] for r in rows),
+        "wrapper_ms": sum(r["wrapper_ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": max(ops_ms, byte_ms),
+        "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
+        "library_ms": None,  # no one PyTorch call computes this decoder
+        "shapes_per_song": ["x".join(map(str, shape)) for shape in main_path["decoder_shapes"][name]],
+        "ms_per_frame_per_song": sum(r["ms_per_frame"] for r in rows),
+        "by_shape": measured["rows"],
+        "ptxas": measured["ptxas"],
+    }
+
+
 TRAIN_DIR = REPO / "build" / "chip_smoke_train"  # git-ignored: checkpoint copies and trainer outputs
 HTDEMUCS_TRAIN = dict(n_clips=8, steps=10, batch=4, seed=0, sources=6, n_val=2)
 GRAD_RTOL = 1e-3  # card against CPU: step-0 loss and global gradient norm
 # median launches per trainer in the train phase, counted from the code (PERF.md §6)
 TRAIN_LAUNCHES = {"htdemucs": 8, "beat_rnn": 20, "key_cnn": 124, "deepchroma": 36, "crf_chords": 140, "basicpitch": 24}
+# decoder launches per trainer, counted from the code: htdemucs' gates decode
+# the beats of 2 validation clips from the separated and from the HPSS drums
+# (4); the BLSTM's three evaluations (its epoch, the ensemble, the onset
+# baseline) the beats of 8 validation clips each (24); DeepChroma's gates
+# CRF-decode 10 clips twice (the net's chroma, the salience chroma: 20); the
+# CRF trainer decodes 30 selection clips for each of 24 (tau, alpha), 30
+# validation clips twice and the 6 held-out clips twice (792)
+TRAIN_DECODER_LAUNCHES = {
+    "htdemucs": {"dbn_viterbi": 4},
+    "beat_rnn": {"dbn_viterbi": 24},
+    "key_cnn": {},
+    "deepchroma": {"dense_viterbi": 20},
+    "crf_chords": {"dense_viterbi": 792},
+    "basicpitch": {},
+}
 
 
 def timed_steps(name: str, step, dev: torch.device, n: int = 6) -> dict:
@@ -1465,6 +1822,9 @@ def train_phase(median, recorder: RecordMedians, dev: torch.device = torch.devic
         tempfile.tempdir = old_tmp
     if out["launches"] != TRAIN_LAUNCHES:
         raise AssertionError(f"median launches by trainer {out['launches']}, counted from the code {TRAIN_LAUNCHES}")
+    expect = {t: dict.fromkeys(DECODERS, 0) | n for t, n in TRAIN_DECODER_LAUNCHES.items()}
+    if out["decoder_launches"] != expect:
+        raise AssertionError(f"decoder launches by trainer {out['decoder_launches']}, counted from the code {expect}")
     return out
 
 
@@ -1485,7 +1845,8 @@ def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
     from audiotabs_tpu_torch.train import htdemucs_train, key_cnn_train
     from audiotabs_tpu_torch.train.optim import Trainer
 
-    launches, result = {}, {}
+    mods = decoder_modules()
+    launches, decoders, result = {}, {}, {}
 
     def gates(name: str, res: dict) -> None:
         report = {k: v for k, v in res.items() if k not in ("params", "losses", "step_ms")}
@@ -1538,12 +1899,12 @@ def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
         if not abs(a - b) <= GRAD_RTOL * abs(b):
             raise AssertionError(f"htdemucs step-0 {what} on the card {a} is not within rtol {GRAD_RTOL} of the CPU's {b}")
 
-    median.LAUNCHES = 0
+    zero_counts(median, mods)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = htdemucs_train.train(out_path=str(ckpt), resume=True, device=dev, **cfg)
     wall = time.perf_counter() - t0
-    launches["htdemucs"] = median.LAUNCHES
+    launches["htdemucs"], decoders["htdemucs"] = median.LAUNCHES, decoder_counts(mods)
     losses = res["losses"]
     if len(losses) != cfg["steps"] or not all(np.isfinite(losses)):
         raise AssertionError(f"htdemucs training losses: {losses}")
@@ -1562,13 +1923,13 @@ def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
     rng = np.random.default_rng(0)
 
     def run(name: str, steps_fn, train_fn) -> None:
-        median.LAUNCHES = 0
+        zero_counts(median, mods)
         t0 = time.perf_counter()
         row = timed_steps(name, steps_fn(), dev)
         res = train_fn()
         row["wall_s"] = time.perf_counter() - t0
         row["saved"] = bool(res.get("saved"))
-        launches[name] = median.LAUNCHES
+        launches[name], decoders[name] = median.LAUNCHES, decoder_counts(mods)
         gates(name, res)
         result[name] = row
 
@@ -1650,18 +2011,22 @@ def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
     run("basicpitch", basicpitch_steps, lambda: basicpitch_train.train(
         n_clips=8, steps=5, batch=8, out_path=str(TRAIN_DIR / "basicpitch.npz"), device=dev))
 
+    print(f"train decoder launches by trainer: {json.dumps(decoders)}")
     total = sum(launches.values())
     if total == 0 or len(recorder.launches) != total:
         raise AssertionError(f"training launched the median kernel {total} times, {len(recorder.launches)} through HPSS")
     shapes = collections.Counter(f"{'x'.join(map(str, shape))} win {win} axis {axis}" for shape, win, axis in recorder.sites())
     print(f"train median launches: {total} ({launches}); by shape {dict(shapes)}")
-    return {"launches": launches, "total": total, "by_shape": dict(shapes), "trainers": result}
+    return {"launches": launches, "decoder_launches": decoders, "total": total, "by_shape": dict(shapes), "trainers": result}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
+
+    from audiotabs_tpu_torch import _build
     from audiotabs_tpu_torch.config import Settings
     from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
     from audiotabs_tpu_torch.ops import median
@@ -1677,13 +2042,23 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    mods = decoder_modules()
+    with ThreadPoolExecutor(len(DECODERS) + 1) as pool:  # one nvcc for each source, all started together
+        builds = [pool.submit(_build.build, "median_filter", median._headers())] + [pool.submit(_build.build, n) for n in DECODERS]
+        for b in builds:
+            b.result()
     median.build()
-    print(f"build: median_filter.cu in {time.perf_counter() - t0:.2f} s")
+    for m in mods.values():
+        m.build()
+    print(f"build: median_filter.cu, {', '.join(f'{n}.cu' for n in DECODERS)} in {time.perf_counter() - t0:.2f} s (in parallel)")
 
     t_run = time.perf_counter()
 
+    dec_recorder = RecordDecoders(mods)
+
     def run_phase(name, fn):
         t0 = time.perf_counter()
+        dec_recorder.tag = name
         out = fn()
         print(f"phase {name}: {time.perf_counter() - t0:.2f} s")
         return out
@@ -1695,89 +2070,93 @@ def main() -> int:
     y_pad = np.ascontiguousarray(pipeline._pad_to_bucket(y, sr, 30.0), dtype=np.float32)
     run_phase("separation", lambda: separation_phase(y_pad, sr))
 
-    # the main path: the CLI under the shipped settings
-    main_path = run_phase("cli", lambda: cli_phase(median, card))
-    # the job plane and the batch runner under the shipped settings
-    serve_launches = run_phase("serve", lambda: serving_phase(median, card, main_path["out"]["result.json"]))
-    batch = run_phase("batch", lambda: batch_phase(median, card))
-    mesh = run_phase("mesh", lambda: mesh_phase(median, card, batch))
+    # every decoder kernel launch from here to the end of the train phase is
+    # recorded (its shape, and its first inputs at each shape), for the decoders phase
+    with dec_recorder:
+        # the main path: the CLI under the shipped settings
+        main_path = run_phase("cli", lambda: cli_phase(median, mods, dec_recorder, card))
+        # the job plane and the batch runner under the shipped settings
+        serve_launches = run_phase("serve", lambda: serving_phase(median, mods, card, main_path["out"]["result.json"]))
+        batch = run_phase("batch", lambda: batch_phase(median, mods, card))
+        mesh = run_phase("mesh", lambda: mesh_phase(median, mods, card, batch))
 
-    def analysis_phase():
-        """run_analysis under the shipped settings, separation on; the stems it
-        separates are kept, so the CPU can run the fused analysis on the same inputs."""
-        shipped = Settings()
-        if not shipped.ENABLE_DEMUCS:
-            raise AssertionError("the shipped settings do not separate")
-        used = {}
-        separate = pipeline.separate_stems_device
+        def analysis_phase():
+            """run_analysis under the shipped settings, separation on; the stems it
+            separates are kept, so the CPU can run the fused analysis on the same inputs."""
+            shipped = Settings()
+            if not shipped.ENABLE_DEMUCS:
+                raise AssertionError("the shipped settings do not separate")
+            used = {}
+            separate = pipeline.separate_stems_device
 
-        def keep_stems(*args, **kwargs):
-            used.clear()
-            used.update(separate(*args, **kwargs))
-            return used
+            def keep_stems(*args, **kwargs):
+                used.clear()
+                used.update(separate(*args, **kwargs))
+                return used
 
-        pipeline.separate_stems_device = keep_stems
-        try:
-            feats, beats, info, launches = drive(median, shipped, SEPARATED_LAUNCHES)
-        finally:
-            pipeline.separate_stems_device = separate
-        if info != {"stem_source": "guitar", "errors": []}:
-            raise AssertionError(f"the shipped path did not separate cleanly: {info}")
-        check_outputs(feats, beats, FUSED_DEEP_KEYS | {"beat_from_drums"})
-        print(f"beat_from_drums {bool(feats['beat_from_drums'])}")
+            pipeline.separate_stems_device = keep_stems
+            try:
+                feats, beats, info, launches = drive(median, shipped, SEPARATED_LAUNCHES)
+            finally:
+                pipeline.separate_stems_device = separate
+            if info != {"stem_source": "guitar", "errors": []}:
+                raise AssertionError(f"the shipped path did not separate cleanly: {info}")
+            check_outputs(feats, beats, FUSED_DEEP_KEYS | {"beat_from_drums"})
+            print(f"beat_from_drums {bool(feats['beat_from_drums'])}")
 
-        with torch.inference_mode():
-            cpu_out = fused_analysis(used["guitar"].cpu(), sr, chord_backend="deep", true_len=len(y),
-                                     y_beat=used["drums"].cpu(), y_mix=torch.from_numpy(y_pad))
-            cpu_feats = pipeline.features_to_host(cpu_out)
-        compare_with_cpu("card stems, cuda vs cpu fused", cpu_feats, feats)
-        t100 = int(len(y) / sr * 100)
-        cpu_beats = pipeline.beats_from_decoded(cpu_feats["dbn_phases"][:t100], cpu_feats["dbn_intervals"][:t100],
-                                                np.asarray(cpu_feats["beat_activation"], dtype=np.float32)[:t100], fps=100)
-        if not np.array_equal(cpu_beats, beats):
-            raise AssertionError("beat times differ between cuda and cpu on the card's stems")
-        print(f"card stems, cuda vs cpu fused: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
+            with torch.inference_mode():
+                cpu_out = fused_analysis(used["guitar"].cpu(), sr, chord_backend="deep", true_len=len(y),
+                                         y_beat=used["drums"].cpu(), y_mix=torch.from_numpy(y_pad))
+                cpu_feats = pipeline.features_to_host(cpu_out)
+            compare_with_cpu("card stems, cuda vs cpu fused", cpu_feats, feats)
+            t100 = int(len(y) / sr * 100)
+            cpu_beats = pipeline.beats_from_decoded(cpu_feats["dbn_phases"][:t100], cpu_feats["dbn_intervals"][:t100],
+                                                    np.asarray(cpu_feats["beat_activation"], dtype=np.float32)[:t100], fps=100)
+            if not np.array_equal(cpu_beats, beats):
+                raise AssertionError("beat times differ between cuda and cpu on the card's stems")
+            print(f"card stems, cuda vs cpu fused: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
 
-        stage_times(y_pad, sr)
-        profile_busy_share(lambda: pipeline.run_analysis(CLIP, device="cuda", settings=shipped))
+            stage_times(y_pad, sr)
+            profile_busy_share(lambda: pipeline.run_analysis(CLIP, device="cuda", settings=shipped))
 
-        # the whole pipeline on the CPU, on its own stems, against the card's CLI run
-        t0 = time.perf_counter()
-        with Capture(pipeline, "features_to_host") as cpu_host:
-            cpu_res = pipeline.run_pipeline(JOBS / "cpu", CLIP, device="cpu", settings=shipped)
-        print(f"cpu run_pipeline (shipped settings, own stems): {time.perf_counter() - t0:.3f} s, errors {cpu_res.transcription_error}")
-        e2e_feats = cpu_host.last
-        agree = {k: f"{int((e2e_feats[k] == feats[k]).sum())} of {feats[k].size}" for k in DISCRETE + ("beat_from_drums",)}
-        print(f"end to end, cuda vs cpu (each on its own stems): equal elements {agree}")
-        compare_pipelines(main_path["out"], cpu_res, read_out(JOBS / "cpu"))
-        return launches
+            # the whole pipeline on the CPU, on its own stems, against the card's CLI run
+            t0 = time.perf_counter()
+            with Capture(pipeline, "features_to_host") as cpu_host:
+                cpu_res = pipeline.run_pipeline(JOBS / "cpu", CLIP, device="cpu", settings=shipped)
+            print(f"cpu run_pipeline (shipped settings, own stems): {time.perf_counter() - t0:.3f} s, errors {cpu_res.transcription_error}")
+            e2e_feats = cpu_host.last
+            agree = {k: f"{int((e2e_feats[k] == feats[k]).sum())} of {feats[k].size}" for k in DISCRETE + ("beat_from_drums",)}
+            print(f"end to end, cuda vs cpu (each on its own stems): equal elements {agree}")
+            compare_pipelines(main_path["out"], cpu_res, read_out(JOBS / "cpu"))
+            return launches
 
-    def mix_phase():
-        """The ENABLE_DEMUCS=False path, as before."""
-        off = dataclasses.replace(Settings(), ENABLE_DEMUCS=False)
-        off_feats, off_beats, off_info, off_launches = drive(median, off, len(MAIN_PATH_MEDIANS))
-        if off_info != {"stem_source": "mix", "errors": []}:
-            raise AssertionError(f"unexpected ENABLE_DEMUCS=False run: {off_info}")
-        check_outputs(off_feats, off_beats, FUSED_DEEP_KEYS)
-        t0 = time.perf_counter()
-        cpu_feats, cpu_beats, _ = pipeline.run_analysis(CLIP, device="cpu", settings=off)
-        print(f"cpu run_analysis (ENABLE_DEMUCS=False): {time.perf_counter() - t0:.3f} s")
-        compare_with_cpu("mix, cuda vs cpu", cpu_feats, off_feats)
-        if not np.array_equal(cpu_beats, off_beats):
-            raise AssertionError("beat times differ between cuda and cpu")
-        print(f"mix, cuda vs cpu: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
-        return off_launches
+        def mix_phase():
+            """The ENABLE_DEMUCS=False path, as before."""
+            off = dataclasses.replace(Settings(), ENABLE_DEMUCS=False)
+            off_feats, off_beats, off_info, off_launches = drive(median, off, len(MAIN_PATH_MEDIANS))
+            if off_info != {"stem_source": "mix", "errors": []}:
+                raise AssertionError(f"unexpected ENABLE_DEMUCS=False run: {off_info}")
+            check_outputs(off_feats, off_beats, FUSED_DEEP_KEYS)
+            t0 = time.perf_counter()
+            cpu_feats, cpu_beats, _ = pipeline.run_analysis(CLIP, device="cpu", settings=off)
+            print(f"cpu run_analysis (ENABLE_DEMUCS=False): {time.perf_counter() - t0:.3f} s")
+            compare_with_cpu("mix, cuda vs cpu", cpu_feats, off_feats)
+            if not np.array_equal(cpu_beats, off_beats):
+                raise AssertionError("beat times differ between cuda and cpu")
+            print(f"mix, cuda vs cpu: discrete outputs and beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}")
+            return off_launches
 
-    launches = run_phase("analysis", analysis_phase)
-    off_launches = run_phase("mix", mix_phase)
-    decode = run_phase("decode", lambda: decode_phase(median, card, main_path["out"]["result.json"]))
-    with RecordMedians() as recorder:
-        cases = {name: run_phase(name, lambda name=name: settings_phase(median, card, name, recorder)) for name in SETTINGS_CASES}
-        degraded = run_phase("degraded", lambda: degraded_phase(median, card, recorder))
-    new_shapes = run_phase("new shapes", lambda: new_shape_kernel_check(median, recorder))
-    with RecordMedians(keep=4) as train_recorder:
-        train = run_phase("train", lambda: train_phase(median, train_recorder))
+        launches = run_phase("analysis", analysis_phase)
+        off_launches = run_phase("mix", mix_phase)
+        decode = run_phase("decode", lambda: decode_phase(median, mods, card, main_path["out"]["result.json"]))
+        with RecordMedians() as recorder:
+            cases = {name: run_phase(name, lambda name=name: settings_phase(median, card, name, recorder)) for name in SETTINGS_CASES}
+            degraded = run_phase("degraded", lambda: degraded_phase(median, card, recorder))
+        new_shapes = run_phase("new shapes", lambda: new_shape_kernel_check(median, recorder))
+        with RecordMedians(keep=4) as train_recorder:
+            train = run_phase("train", lambda: train_phase(median, train_recorder))
     train_shapes = run_phase("train shapes", lambda: new_shape_kernel_check(median, train_recorder))
+    decoders = run_phase("decoders", lambda: decoders_phase(mods, dec_recorder, kernel["sm_clock_mhz"]))
     print(f"all phases: {time.perf_counter() - t_run:.2f} s")
 
     print(json.dumps({"kernels": [{
@@ -1818,7 +2197,14 @@ def main() -> int:
         "sm_clock_mhz": kernel["sm_clock_mhz"],
         "fmnmx_per_output": kernel["fmnmx_per_output"],
         "ptxas": kernel["ptxas"],
-    }]}))
+    }] + [decoder_entry(name, decoders[name], main_path, batch, {
+        "run_analysis": DECODER_LAUNCHES_PER_SONG[name],
+        "inline_and_queued_job": DECODER_LAUNCHES_PER_SONG[name],
+        "mesh_shard_of_b_rows": "b" if name == "dense_viterbi" else DECODER_LAUNCHES_PER_SONG[name],
+        **{case: cases[case]["decoder_launches"][name] for case in SETTINGS_CASES},
+        "degraded": degraded["runs"][-1]["decoder_launches"][name],
+        "train_by_trainer": {t: n[name] for t, n in train["decoder_launches"].items()},
+    }) for name in DECODERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
 
