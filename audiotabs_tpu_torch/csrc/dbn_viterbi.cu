@@ -18,170 +18,306 @@
 // Exactness. The caller computes every logarithm (observations, initial
 // score, transition matrix) with torch and passes it in; this kernel only
 // adds and compares, in the order the plain loop of decode/dbn_beats.py uses,
-// so the two agree bit for bit. Every argmax takes the first maximum (an
-// ascending scan with a strict >), the final flat argmax in row-major order.
+// so the two agree bit for bit. The forward pass takes the maximum entering
+// each phase 0 (a max is the same in any order) and keeps each frame's
+// last-phase scores; the backtrack recomputes, at each beat, the same sums
+// and takes their first maximum: each lane scans its ascending candidates
+// with a strict >, and (value, index) pairs then reduce with the lower index
+// winning a tie, which gives the first maximum whatever the order.
 //
-// Bound. One 3,000-frame song needs about 98 M adds and maxima (2,999 frames
-// of 84 x 84 transition candidates and 84 x 110 phase updates, each an add
-// and a compare): about 3 us at 132 SMs x 128 FP32 lanes x 1.98 GHz. Its
-// inputs and outputs are about 76 KB: 0.02 us at 3.35 TB/s. So operations
-// bound it, but a song is a chain of 3,000 dependent frames, and a frame's
-// work (about 16 K operations) fills only a small part of one SM. What the
-// design does about that: one block of 1,024 threads per song keeps the whole
-// score, double-buffered, and the transition matrix in shared memory
-// (103.7 KB at 84 x 110), so a frame is two barriers and no device-memory
-// round trip; the batch's songs run on separate SMs. The backpointers (one
-// byte per tempo per frame) go to device memory, and the backtrack, on one
-// thread, reads one of them per beat only (at phase 0). The latency of the
-// frame chain stays: closing the gap to the bound means splitting a frame
-// over more of the card, a later step.
+// Bound. One 3,000-frame song needs about 60 M adds and compares (2,999
+// frames of 84 x 84 transition candidates, each an add and a compare, and
+// 5,754 valid phases, each an add): about 1.3 us at 132 SMs x 128 FP32 adds
+// (64 compares) per clock at 1.98 GHz. Its inputs and outputs are about
+// 76 KB: 0.02 us at 3.35 TB/s. So operations bound it, but a song is a chain
+// of 3,000 dependent frames, and a frame's work (about 16 K operations) fits
+// one SM. What the design does about that: one block per song (a batch's
+// songs run on separate SMs), and each frame spread over the block behind
+// one barrier. Each target tempo j is owned by a group of kLanes lanes of
+// one warp. Its lanes split the source tempi into runs of S (the transition
+// column in registers, the last-phase scores read as float4 from shared
+// memory) and reduce their maxima by xor shuffles, so the critical path is S
+// adds and maxima and log2(kLanes) shuffle steps. No argmax is taken there:
+// the backtrack needs a backpointer only where the path enters phase 0, once
+// a beat. The same group holds tempo j's phases in registers, R per lane
+// (lane l: phases l R to l R + R - 1), so the roll is a register move plus
+// one shuffle across each lane boundary; phases past L_j hold whatever rolls
+// into them and are set to -1e30 once, before the final argmax. The lane that
+// holds phase L_j - 1 picks it by a tree of selects over the bits of its slot
+// and writes it into a double-buffered vector in shared memory, so one
+// barrier separates frames, and into the song's history in device memory
+// (fire and forget). The observations are staged in shared memory kChunk
+// frames at a time, so no device-memory read is on the frame chain. The
+// backtrack, by one warp, recomputes each beat's backpointer from the
+// history (84 candidates over 32 lanes) and writes the beat's run of frames
+// with its 32 lanes.
 //
 // Interface: a plain C function returning cudaGetLastError() after the
 // launch (0 on success), -1 for arguments the kernel does not take and -2
-// when the score does not fit in the shared memory a block may opt into on
-// the current device (the launcher is the one owner of the layout).
+// when the score does not fit the registers and shared memory of one block
+// (the launcher is the one owner of the layout).
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
+#include <climits>
+
+// clock stamps for scripts/decoder_clock_split.py, which defines them; nothing otherwise
+#ifndef SPLIT
+#define SPLIT_START
+#define SPLIT(part)
+#endif
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kLanes = 8;     // lanes per target tempo: a power of two, within one warp
+constexpr int kChunk = 2048;  // frames of observations staged in shared memory at a time
 constexpr float kNegInf = -1e30f;
 
-__global__ void __launch_bounds__(kThreads)
+// (value, index) pairs: the larger value wins, the lower index a tie
+__device__ __forceinline__ void take_first_max(float& bv, int& bi, float ov, int oi) {
+  if (ov > bv || (ov == bv && oi < bi)) {
+    bv = ov;
+    bi = oi;
+  }
+}
+
+// r[k] for 0 <= k < R by a tree of selects over the bits of k (another k gives any r)
+template <int R>
+__device__ __forceinline__ float pick(const float (&r)[R], int k) {
+  float a[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) a[i] = r[i];
+#pragma unroll
+  for (int lvl = 0; (1 << lvl) < R; ++lvl) {
+    const bool hi = (k >> lvl) & 1;
+#pragma unroll
+    for (int i = 0; i + (1 << lvl) < R; i += 2 << lvl) a[i] = hi ? a[i + (1 << lvl)] : a[i];
+  }
+  return a[0];
+}
+
+__device__ __forceinline__ void reduce_first_max(float& bv, int& bi, int width) {
+#pragma unroll
+  for (int off = width / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    take_first_max(bv, bi, ov, oi);
+  }
+}
+
+// The shared-memory layout, in floats: the last-phase scores [2][S kLanes],
+// the staged observations [2][kChunk], the transition matrix transposed
+// [n][S kLanes + 4] when it is not held in registers, the intervals [n], and
+// the argmax's (value, index) per warp [32][2].
+constexpr size_t smem_floats(int S, bool lt_shared, int n) {
+  return 2 * static_cast<size_t>(S) * kLanes + 2 * kChunk + (lt_shared ? static_cast<size_t>(n) * (S * kLanes + 4) : 0) + n + 64;
+}
+
+// R phases per lane (P <= R kLanes), S source tempi per lane (n <= S kLanes);
+// the transition column in registers, or (kLtShared) in shared memory
+template <int R, int S, bool kLtShared>
+__global__ void __launch_bounds__(S * kLanes * kLanes)
 dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
                    const float* __restrict__ lo_beat,    // [B, T]
                    const float* __restrict__ lo_off,     // [B, T]
                    const float* __restrict__ log_trans,  // [n, n] (from, to)
                    const int* __restrict__ intervals,    // [n]
                    const int* __restrict__ beat_len,     // [n]: ceil(L / lambda)
-                   uint8_t* __restrict__ bp,             // [B, T - 1, n]
+                   float* __restrict__ hist,             // [B, T - 1, n]: last-phase scores after frames 0 .. T - 2
                    int* __restrict__ phases,             // [B, T]
                    int* __restrict__ out_intervals,      // [B, T]
                    int T, int n, int P) {
+  constexpr int NS = S * kLanes;  // source slots; those past n hold -inf
+  constexpr int LT = NS + 4;      // row stride of the shared transition matrix
   extern __shared__ float smem[];
-  const int nP = n * P;
-  float* cur = smem;                 // [n, P]
-  float* nxt = cur + nP;             // [n, P]
-  float* lt = nxt + nP;              // [n, n]
-  float* enter = lt + n * n;         // [n]: score entering phase 0
-  float* lastv = enter + n;          // [n]: score at phase L_i - 1
-  int* L = reinterpret_cast<int*>(lastv + n);
-  int* bl = L + n;
-  float* red_v = reinterpret_cast<float*>(bl + n);  // [kWarps]
-  int* red_i = reinterpret_cast<int*>(red_v + kWarps);
+  float* lastv = smem;          // [2][NS]
+  float* ob = lastv + 2 * NS;   // [kChunk]: log activation of the staged frames
+  float* oo = ob + kChunk;      // [kChunk]: their off-beat term
+  float* ltT = oo + kChunk;     // [n][LT] (kLtShared): ltT[j][i] = log_trans[i][j]
+  int* L = reinterpret_cast<int*>(ltT + (kLtShared ? n * LT : 0));
+  float* red_v = reinterpret_cast<float*>(L + n);  // [32]
+  int* red_i = reinterpret_cast<int*>(red_v + 32);  // [32]
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int l = tid % kLanes;  // lane in the group
+  const int g = tid / kLanes;  // the group: target tempo g
+  const bool active = g < n;
+  const int j = active ? g : n - 1;  // an idle group mirrors the last tempo and stores nothing
+  const int Lj = intervals[j];
+  const int blj = beat_len[j];
+  const int base = l * R;  // this lane's first phase
+  const bool owns_last = active && base <= Lj - 1 && Lj - 1 < base + R;
+  SPLIT_START;
 
-  for (int k = tid; k < n * n; k += kThreads) lt[k] = log_trans[k];
-  for (int k = tid; k < n; k += kThreads) {
-    L[k] = intervals[k];
-    bl[k] = beat_len[k];
+  float lt[kLtShared ? 1 : S];
+  if constexpr (kLtShared) {
+    for (int k = tid; k < n * NS; k += blockDim.x) {
+      const int jj = k / NS, i = k % NS;
+      ltT[jj * LT + i] = i < n ? log_trans[i * n + jj] : 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int i = l * S + s;
+      lt[s] = i < n ? log_trans[i * n + j] : 0.0f;
+    }
   }
-  const float* init_b = init + static_cast<size_t>(b) * nP;
-  for (int k = tid; k < nP; k += kThreads) cur[k] = init_b[k];
-  __syncthreads();
-  for (int k = tid; k < n; k += kThreads) lastv[k] = cur[k * P + L[k] - 1];
-  __syncthreads();
+  for (int k = tid; k < 2 * NS; k += blockDim.x) {
+    if (k % NS >= n) lastv[k] = -INFINITY;  // the padding sources never win
+  }
+  for (int k = tid; k < n; k += blockDim.x) L[k] = intervals[k];
+
+  // the score at frame 0, and tempo j's last phase into buffer 0
+  const float* init_j = init + (static_cast<size_t>(b) * n + j) * P;
+  float r[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) r[k] = base + k < P ? init_j[base + k] : kNegInf;
+  float* hist_b = hist + static_cast<size_t>(b) * (T - 1) * n;
+  float* hist_j = hist_b + j;  // tempo j's entry of the next frame to keep
+  if (owns_last) {
+    lastv[j] = init_j[Lj - 1];
+    if (T > 1) *hist_j = init_j[Lj - 1];
+  }
+  // the first frame stages its observations behind a barrier, which also publishes the above
+  SPLIT(6);
 
   const float* lb_b = lo_beat + static_cast<size_t>(b) * T;
   const float* lo_b = lo_off + static_cast<size_t>(b) * T;
-  uint8_t* bp_b = bp + static_cast<size_t>(b) * (T - 1) * n;
-  for (int t = 1; t < T; ++t) {
-    // phase 0 of each target tempo j: the best source tempo (first maximum)
-    if (tid < n) {
-      float best = lastv[0] + lt[tid];
-      int arg = 0;
-      for (int i = 1; i < n; ++i) {
-        const float v = lastv[i] + lt[i * n + tid];
-        if (v > best) {
-          best = v;
-          arg = i;
-        }
+  const float* ltc = ltT + j * LT + l * S;
+  int c = kChunk;  // the frame's place in the staged chunk
+  for (int t = 1; t < T; ++t, ++c) {
+    if (c == kChunk) {
+      // every thread is past the previous frame's barrier, so the old chunk is free
+      for (int k = tid; k < kChunk && t + k < T; k += blockDim.x) {
+        ob[k] = lb_b[t + k];
+        oo[k] = lo_b[t + k];
       }
-      enter[tid] = best;
-      bp_b[static_cast<size_t>(t - 1) * n + tid] = static_cast<uint8_t>(arg);
+      c = 0;
+      __syncthreads();
     }
-    __syncthreads();
-    const float lb = lb_b[t];
-    const float lo = lo_b[t];
-    for (int i = warp; i < n; i += kWarps) {
-      const int Li = L[i];
-      const int bli = bl[i];
-      for (int p = lane; p < P; p += 32) {
-        float v = kNegInf;
-        if (p < Li) {
-          const float prev = p == 0 ? enter[i] : cur[i * P + p - 1];
-          v = prev + (p < bli ? lb : lo);
-          if (p == Li - 1) lastv[i] = v;
-        }
-        nxt[i * P + p] = v;
-      }
+    const float* cur = lastv + ((t - 1) & 1) * NS;
+    float* nxt = lastv + (t & 1) * NS;
+
+    // the score entering phase 0 of tempo j: the maximum over this lane's
+    // sources l S .. l S + S - 1, then over the group
+    float part[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // four chains, for latency
+#pragma unroll
+    for (int s4 = 0; s4 < S; s4 += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(cur + l * S + s4);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[q] = fmaxf(part[q], xs[q] + (kLtShared ? ltc[s4 + q] : lt[kLtShared ? 0 : s4 + q]));
     }
+    float best = fmaxf(fmaxf(part[0], part[1]), fmaxf(part[2], part[3]));
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
+    SPLIT(0);  // the transition max: the lane's run and the group's shuffles
+
+    // the roll: phase p takes phase p - 1 (across a lane boundary by a
+    // shuffle), phase 0 the best entry; then the observation
+    const float lb = ob[c];
+    const float lo = oo[c];
+    const float carry = __shfl_up_sync(0xffffffffu, r[R - 1], 1, kLanes);
+#pragma unroll
+    for (int k = R - 1; k > 0; --k) r[k] = r[k - 1] + (base + k < blj ? lb : lo);
+    r[0] = (l == 0 ? best : carry) + (base < blj ? lb : lo);
+    const float last = pick(r, Lj - 1 - base);
+    hist_j += n;
+    if (owns_last) {
+      nxt[j] = last;
+      if (t < T - 1) *hist_j = last;
+    }
+    SPLIT(2);  // the phase update and the last phase
     __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    SPLIT(3);  // the barrier (and, once per chunk, the staging)
   }
 
-  // flat argmax over [n, P] in row-major order, first maximum: each thread
-  // starts from index 0 and scans its ascending indices with a strict >, then
-  // (value, index) pairs reduce with the lower index winning a tie
-  float bv = cur[0];
-  int bi = 0;
-  for (int k = tid; k < nP; k += kThreads) {
-    if (cur[k] > bv) {
-      bv = cur[k];
-      bi = k;
+  // flat argmax over [n, P] in row-major order, first maximum: the valid
+  // phases and -1e30 at the others, each lane ascending, then the block
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int p = base + k;
+      const float v = p < Lj ? r[k] : kNegInf;
+      if (p < P && v > bv) {
+        bv = v;
+        bi = j * P + p;
+      }
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    if (ov > bv || (ov == bv && oi < bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
+  reduce_first_max(bv, bi, 32);
   if (lane == 0) {
     red_v[warp] = bv;
     red_i[warp] = bi;
   }
   __syncthreads();
-  if (tid != 0) return;
-  bv = red_v[0];
-  bi = red_i[0];
-  for (int w = 1; w < kWarps; ++w) {
-    if (red_v[w] > bv || (red_v[w] == bv && red_i[w] < bi)) {
-      bv = red_v[w];
-      bi = red_i[w];
-    }
-  }
+  if (warp != 0) return;
+  const int n_warps = (blockDim.x + 31) / 32;
+  bv = lane < n_warps ? red_v[lane] : -INFINITY;
+  bi = lane < n_warps ? red_i[lane] : INT_MAX;
+  reduce_first_max(bv, bi, 32);
+  SPLIT(4);  // the final argmax
 
-  // backtrack: the phase falls by one per earlier frame; at phase 0 the
-  // previous state is (backpointer of the tempo, its last phase)
-  int tempo = bi / P;
-  int phase = bi % P;
+  // backtrack by warp 0: the frames lo .. k of a beat hold one tempo, the
+  // phase falling by one per earlier frame; at phase 0 the previous frame is
+  // at (backpointer of the tempo, its last phase), the backpointer the first
+  // maximum of the last-phase scores after frame lo - 1 plus the transition
   int* ph_b = phases + static_cast<size_t>(b) * T;
   int* iv_b = out_intervals + static_cast<size_t>(b) * T;
-  ph_b[T - 1] = phase;
-  iv_b[T - 1] = L[tempo];
-  for (int k = T - 2; k >= 0; --k) {
-    if (phase == 0) {
-      tempo = bp_b[static_cast<size_t>(k) * n + tempo];
-      phase = L[tempo] - 1;
-    } else {
-      phase -= 1;
+  int tempo = bi / P;
+  int phase = bi % P;
+  int k = T - 1;
+  while (true) {
+    const int lo = max(k - phase, 0);
+    const int Lt = L[tempo];
+    for (int f = lo + lane; f <= k; f += 32) {
+      ph_b[f] = phase - (k - f);
+      iv_b[f] = Lt;
     }
-    ph_b[k] = phase;
-    iv_b[k] = L[tempo];
+    if (lo == 0) break;
+    const float* h = hist_b + static_cast<size_t>(lo - 1) * n;
+    bv = -INFINITY;
+    bi = INT_MAX;
+    for (int i = lane; i < n; i += 32) {
+      const float v = h[i] + log_trans[i * n + tempo];
+      if (v > bv) {
+        bv = v;
+        bi = i;
+      }
+    }
+    reduce_first_max(bv, bi, 32);
+    tempo = bi;
+    phase = L[tempo] - 1;
+    k = lo - 1;
   }
+  SPLIT(5);  // the backtrack
+}
+
+template <int R, int S, bool kLtShared>
+int launch(const void* init, const void* lo_beat, const void* lo_off, const void* log_trans, const void* intervals,
+           const void* beat_len, void* hist, void* phases, void* out_intervals, int B, int T, int n, int P,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * smem_floats(S, kLtShared, n);
+  int device = 0;
+  int limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(limit)) return -2;
+  auto kernel = dbn_viterbi_kernel<R, S, kLtShared>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = (n * kLanes + 31) / 32 * 32;
+  kernel<<<B, threads, smem, stream>>>(
+      static_cast<const float*>(init), static_cast<const float*>(lo_beat), static_cast<const float*>(lo_off),
+      static_cast<const float*>(log_trans), static_cast<const int*>(intervals), static_cast<const int*>(beat_len),
+      static_cast<float*>(hist), static_cast<int*>(phases), static_cast<int*>(out_intervals), T, n, P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -189,28 +325,19 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
 extern "C" {
 
 // init [B, n, P], lo_beat and lo_off [B, T], log_trans [n, n] float32;
-// intervals and beat_len [n] int32; bp [B, T - 1, n] uint8 scratch;
-// phases and out_intervals [B, T] int32. All contiguous, on the device.
+// intervals and beat_len [n] int32; hist [B, max(T - 1, 1), n] float32
+// scratch; phases and out_intervals [B, T] int32. All contiguous, on the
+// device. The shipped tempo grid (84 tempi, 110 phases) takes the first layout.
 int dbn_viterbi_f32(const void* init, const void* lo_beat, const void* lo_off, const void* log_trans,
-                    const void* intervals, const void* beat_len, void* bp, void* phases, void* out_intervals,
+                    const void* intervals, const void* beat_len, void* hist, void* phases, void* out_intervals,
                     int B, int T, int n, int P, void* stream) {
   if (B < 1 || B > 65535 || T < 1 || n < 1 || n > 255 || P < 1) return -1;
-  // the kernel's layout: two scores, the transition matrix, two [n] float
-  // and two [n] int vectors, and the argmax's (value, index) per warp
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(n) * P + n * n + 2 * n + kWarps) + sizeof(int) * (2 * n + kWarps);
-  int device = 0;
-  int limit = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > static_cast<size_t>(limit)) return -2;
-  err = cudaFuncSetAttribute(dbn_viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dbn_viterbi_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(init), static_cast<const float*>(lo_beat), static_cast<const float*>(lo_off),
-      static_cast<const float*>(log_trans), static_cast<const int*>(intervals), static_cast<const int*>(beat_len),
-      static_cast<uint8_t*>(bp), static_cast<int*>(phases), static_cast<int*>(out_intervals), T, n, P);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (n <= 12 * kLanes && P <= 14 * kLanes)
+    return launch<14, 12, false>(init, lo_beat, lo_off, log_trans, intervals, beat_len, hist, phases, out_intervals, B, T, n, P, s);
+  if (n <= 16 * kLanes && P <= 20 * kLanes)
+    return launch<20, 16, true>(init, lo_beat, lo_off, log_trans, intervals, beat_len, hist, phases, out_intervals, B, T, n, P, s);
+  return -2;
 }
 
 }  // extern "C"

@@ -23,7 +23,6 @@ import torch
 
 from .. import _build
 from ..device import on_device
-from ..ops.spectral import as_device
 
 # Launches of the CUDA kernel (csrc/dbn_viterbi.cu) in this process; only
 # _launch adds to it.
@@ -47,53 +46,73 @@ def _tempo_transition(min_bpm: float, max_bpm: float, fps: int, transition_lambd
     return np.log(p).astype(np.float32)
 
 
-class _Forward(NamedTuple):
-    """What the forward pass starts from, computed with torch on the activation's device."""
+class _Grid(NamedTuple):
+    """The tempo grid's tensors on one device: what every call starts from."""
 
     intervals: torch.Tensor  # [n_tempi] int64, beat intervals in frames
     log_trans: torch.Tensor  # [from, to] float32
     valid: torch.Tensor  # [n_tempi, P]: phase < interval
-    beat_len: torch.Tensor  # [n_tempi, 1] int64: the beat window is phase < beat_len
+    beat_win: torch.Tensor  # [n_tempi, P]: the beat window, phase < ceil(interval / observation_lambda)
+    init_prior: torch.Tensor  # [n_tempi, P] float32: log(1 / valid states) where valid, else -1e30
+    intervals32: torch.Tensor  # [n_tempi] int32, for the kernel
+    beat_len32: torch.Tensor  # [n_tempi] int32, for the kernel
+
+
+@lru_cache(maxsize=8)
+def _device_grid(min_bpm: float, max_bpm: float, fps: int, transition_lambda: float, observation_lambda: int,
+                 device: torch.device) -> _Grid:
+    """The tempo grid's tensors, uploaded once per device (not per call):
+    copies, never views of the ``lru_cache``d arrays, and normal tensors, usable
+    in and out of inference mode. Callers read them and never write them."""
+    with torch.inference_mode(False):
+        intervals_np = _tempo_grid(min_bpm, max_bpm, fps)
+        intervals = torch.from_numpy(intervals_np.astype(np.int64)).to(device, copy=True)
+        log_trans = torch.from_numpy(_tempo_transition(min_bpm, max_bpm, fps, transition_lambda)).to(device, copy=True)
+        phase_idx = torch.arange(int(intervals_np.max()), device=device)[None, :]
+        valid = phase_idx < intervals[:, None]
+        beat_len = torch.ceil(intervals[:, None] / observation_lambda).to(torch.int64)
+        neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=device)
+        init_prior = torch.where(valid, torch.log(1.0 / valid.sum().to(torch.float32)), neg_inf)
+        return _Grid(intervals, log_trans, valid, phase_idx < beat_len, init_prior,
+                     intervals.to(torch.int32), beat_len[:, 0].to(torch.int32))
+
+
+class _Forward(NamedTuple):
+    """What the forward pass starts from, computed with torch on the activation's device."""
+
+    grid: _Grid
     lo_beat: torch.Tensor  # [B, T]: log activation
     lo_off: torch.Tensor  # [B, T]: log off-beat term
     init: torch.Tensor  # [B, n_tempi, P]: the score at frame 0
 
 
 def _forward_inputs(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda) -> _Forward:
-    dev = act.device
-    intervals_np = _tempo_grid(min_bpm, max_bpm, fps)
-    intervals = torch.from_numpy(intervals_np.astype(np.int64)).to(dev)
-    log_trans = as_device(_tempo_transition(min_bpm, max_bpm, fps, transition_lambda), act)
+    grid = _device_grid(min_bpm, max_bpm, fps, transition_lambda, observation_lambda, act.device)
     a = torch.clamp(act.to(torch.float32), 1e-6, 1.0 - 1e-6)
-    phase_idx = torch.arange(int(intervals_np.max()), device=dev)[None, :]
-    valid = phase_idx < intervals[:, None]  # [n_tempi, P]
-    beat_len = torch.ceil(intervals[:, None] / observation_lambda).to(torch.int64)
     lo_beat = torch.log(a)  # [B, T]
     lo_off = torch.log((1.0 - a) / (observation_lambda - 1))
-    obs0 = torch.where(phase_idx < beat_len, lo_beat[:, 0, None, None], lo_off[:, 0, None, None])
-    neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=dev)
-    init = torch.where(valid, torch.log(1.0 / valid.sum().to(torch.float32)), neg_inf) + obs0
-    return _Forward(intervals, log_trans, valid, beat_len, lo_beat, lo_off, init)
+    obs0 = torch.where(grid.beat_win, lo_beat[:, 0, None, None], lo_off[:, 0, None, None])
+    return _Forward(grid, lo_beat, lo_off, grid.init_prior + obs0)
 
 
 def _dbn_forward_plain(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda):
     """The plain version: [B, T] → (phases, intervals) [B, T] int32, a loop over frames."""
     f = _forward_inputs(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
-    n_tempi, max_int = f.valid.shape
-    beat_win = torch.arange(max_int, device=act.device)[None, :] < f.beat_len
+    g = f.grid
+    n_tempi, max_int = g.valid.shape
     neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=act.device)
     tempo_ar = torch.arange(n_tempi, device=act.device)
     score = f.init
     bp_tempi = []
     for t in range(1, act.shape[1]):
         # phase advance: new[i, p] = score[i, p-1]; p=0 takes the best tempo change
-        cand = score[:, tempo_ar, f.intervals - 1][:, :, None] + f.log_trans  # [B, from, to]
+        cand = score[:, tempo_ar, g.intervals - 1][:, :, None] + g.log_trans  # [B, from, to]
         bp = torch.argmax(cand, dim=1)
         enter0 = cand.gather(1, bp[:, None])[:, 0]
         shifted = torch.roll(score, 1, dims=2)
         shifted[:, :, 0] = enter0
-        obs = torch.where(beat_win, f.lo_beat[:, t, None, None], f.lo_off[:, t, None, None])
-        score = torch.where(f.valid, shifted + obs, neg_inf)
+        obs = torch.where(g.beat_win, f.lo_beat[:, t, None, None], f.lo_off[:, t, None, None])
+        score = torch.where(g.valid, shifted + obs, neg_inf)
         bp_tempi.append(bp)
 
     # backtrack: the phase falls by 1 per earlier frame; at phase 0 the
@@ -104,18 +123,19 @@ def _dbn_forward_plain(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lamb
     for bp in reversed(bp_tempi):
         at_zero = phase == 0
         prev_tempo = torch.where(at_zero, bp.gather(1, tempo[:, None])[:, 0], tempo)
-        phase = torch.where(at_zero, f.intervals[prev_tempo] - 1, phase - 1)
+        phase = torch.where(at_zero, g.intervals[prev_tempo] - 1, phase - 1)
         tempo = prev_tempo
         tempos.append(tempo)
         phases.append(phase)
     tempos = torch.stack(tempos[::-1], dim=1)
-    return torch.stack(phases[::-1], dim=1).to(torch.int32), f.intervals[tempos].to(torch.int32)
+    return torch.stack(phases[::-1], dim=1).to(torch.int32), g.intervals[tempos].to(torch.int32)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # the launcher's codes for arguments the kernel does not take
 _REFUSED = {-1: "a batch, length, tempo count or phase count out of range",
-            -2: "the score does not fit in the shared memory one block may use on this card"}
+            -2: "the score does not fit the registers and shared memory of one block: at most 128 tempi "
+                "and 160 phases"}
 
 
 def build():
@@ -125,14 +145,15 @@ def build():
 
 def _launch_args(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda) -> tuple:
     """The kernel's arguments for activations [B, T] on the card: what torch
-    computes for it, the backpointer scratch and the two [B, T] outputs."""
+    computes for it (the tempo grid's tensors from the per-device cache), the
+    scratch for each frame's last-phase scores and the two [B, T] outputs."""
     f = _forward_inputs(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
-    (B, T), n_tempi = act.shape, f.valid.shape[0]
+    (B, T), n_tempi = act.shape, f.grid.valid.shape[0]
     dev = act.device
     return (
-        f.init.contiguous(), f.lo_beat.contiguous(), f.lo_off.contiguous(), f.log_trans.contiguous(),
-        f.intervals.to(torch.int32), f.beat_len[:, 0].to(torch.int32),
-        torch.empty((B, max(T - 1, 1), n_tempi), dtype=torch.uint8, device=dev),
+        f.init.contiguous(), f.lo_beat.contiguous(), f.lo_off.contiguous(), f.grid.log_trans, f.grid.intervals32,
+        f.grid.beat_len32,
+        torch.empty((B, max(T - 1, 1), n_tempi), dtype=torch.float32, device=dev),
         torch.empty((B, T), dtype=torch.int32, device=dev), torch.empty((B, T), dtype=torch.int32, device=dev),
     )
 
@@ -154,7 +175,7 @@ def _dbn_forward_cuda(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambd
     csrc/dbn_viterbi.cu."""
     n_tempi = len(_tempo_grid(min_bpm, max_bpm, fps))
     if n_tempi > 255:
-        raise ValueError(f"the DBN kernel stores a tempo backpointer in one byte: {n_tempi} tempi is more than 255")
+        raise ValueError(f"the DBN kernel takes at most 255 tempi, got {n_tempi}")
     args = _launch_args(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
     _launch(*args)
     return args[-2], args[-1]

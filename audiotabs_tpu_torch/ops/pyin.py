@@ -172,7 +172,7 @@ def _banded_viterbi_plain(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band
     return torch.stack(bins[::-1], dim=-1), torch.stack(voiced[::-1], dim=-1)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def build():
@@ -182,23 +182,24 @@ def build():
 
 def _launch_args(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, switch_prob: float) -> tuple:
     """The kernel's arguments for [..., T, B] on the card: the [rows, T, B]
-    float32 observations, the transition values torch computes, the four
-    backpointer scratch arrays, the outputs (bins, voiced [rows, T]) and the band."""
+    float32 observations, the transition values torch computes, the scratch
+    of the kernel's frame records ([rows, T, B, 4] float32: both propagated
+    maxima and both previous scores), the outputs (bins, voiced [rows, T])
+    and the band."""
     T, B = log_obs_v.shape[-2:]
     dev = log_obs_v.device
     log_tri, log_stay, log_switch, init = _transition(band, switch_prob, B, dev)
     ov = log_obs_v.to(torch.float32).reshape(-1, T, B).contiguous()
     ou = log_obs_u.to(torch.float32).expand_as(log_obs_v).reshape(-1, T, B).contiguous()
     rows = ov.shape[0]
-    offsets = torch.empty((2, rows, T, B), dtype=torch.int8, device=dev)
-    flags = torch.empty((2, rows, T, B), dtype=torch.bool, device=dev)
+    records = torch.empty((rows, T, B, 4), dtype=torch.float32, device=dev)
     bins = torch.empty((rows, T), dtype=torch.int64, device=dev)
     voiced = torch.empty((rows, T), dtype=torch.bool, device=dev)
-    return ov, ou, log_tri, log_stay, log_switch, init, offsets[0], offsets[1], flags[0], flags[1], bins, voiced, band
+    return ov, ou, log_tri, log_stay, log_switch, init, records, bins, voiced, band
 
 
 def _launch(ov, ou, log_tri, log_stay, log_switch, init, *rest) -> None:
-    """One launch of csrc/banded_viterbi.cu on ``_launch_args``' values, one block per row, one thread per bin."""
+    """One launch of csrc/banded_viterbi.cu on ``_launch_args``' values, one block per row, a group of 4 lanes per 4 bins."""
     global LAUNCHES
     *buffers, band = rest
     rows, T, B = ov.shape

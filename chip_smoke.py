@@ -138,7 +138,11 @@
     duration in the profiler), the wrapper with torch's preparation, and the
     plain loop on the card; beside the bound (adds at 128 and compares at 64
     per SM per clock at the clock of step 3, or bytes at 3.35 TB/s,
-    whichever is larger) and the time per frame.
+    whichever is larger) and the time per frame. The DBN is also held at the
+    length of the JAX package's 180 s song (``LONG_SONG_S``; the frames of
+    its beat activation, 18,041): at [1, T] on the random, constant and
+    two-level inputs, timed (its plain loop once), and at [4, T] once on
+    random inputs. No decoder kernel may spill registers (ptxas).
 15. Prints the kernel table as one JSON line (the median kernel and the four
     decoder kernels), then the result line.
 
@@ -249,6 +253,17 @@ DECODERS = {
 # the content windows, the CRF decode; in a batch chunk of b songs the same,
 # but b CRF decodes (one per song)
 DECODER_LAUNCHES_PER_SONG = {"dbn_viterbi": 1, "onset_wait": 2, "banded_viterbi": 1, "dense_viterbi": 1}
+# the JAX package's north-star song (bench.py's long_song_wall_s): the DBN is
+# also held and timed at its length, [1, T] on the tie-heavy inputs too and
+# [4, T] once; its plain loop takes seconds there, so it is timed once
+LONG_SONG_S = 180
+LONG_SONG_CASES = {1: ("random", "constant", "two levels"), 4: ("random",)}
+
+
+def beat_frames(seconds: float, sr: int = 22050, fps: int = 100) -> int:
+    """Frames of the beat activation of ``seconds`` of audio at the analysis
+    rate (``models/beat_rnn.py::spectral_features``: hop sr // fps, centred)."""
+    return int(seconds * sr) // (sr // fps) + 1
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3, spin: bool = True) -> float:
@@ -1676,6 +1691,7 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
     profiler, the wrapper with torch's preparation, the plain loop on the
     card; beside the bound at ``mhz``."""
     from audiotabs_tpu_torch import _build
+    from audiotabs_tpu_torch.config import Settings
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     add_rate = n_sm * FADD_PER_SM_PER_CLOCK * mhz * 1e6
@@ -1689,14 +1705,26 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
         kept = shapes[name].setdefault(shape, [])
         if args is not None:
             kept.append(args)
+    bucket = (1, beat_frames(Settings().PAD_SECONDS_BUCKET))
+    if bucket not in shapes["dbn_viterbi"]:
+        raise AssertionError(f"no DBN launch at the 30 s bucket's {bucket}: the frame count of beat_frames is off")
+    long_t = beat_frames(LONG_SONG_S)
+    long_shapes = {(b, long_t): kinds for b, kinds in LONG_SONG_CASES.items()}
+    print(f"the {LONG_SONG_S} s song: {long_t} beat frames (the 30 s bucket: {bucket[1]})")
     out = {}
     for name, by_shape in shapes.items():
         kernel, plain = calls[name]
         mod = mods[name]
         rows, err = {}, 0.0
-        for shape, launched in sorted(by_shape.items()):
-            like = launched[0]
-            cases = {f"launched {i}": a for i, a in enumerate(launched)} | decoder_inputs(name, shape, like, rng)
+        extra = {shape: None for shape in long_shapes} if name == "dbn_viterbi" else {}
+        for shape, launched in sorted(by_shape.items()) + sorted(extra.items()):
+            long_song = launched is None
+            like = shapes[name][bucket][0] if long_song else launched[0]
+            made = decoder_inputs(name, shape, like, rng)
+            if long_song:
+                cases = {k: made[k] for k in long_shapes[shape]}
+            else:
+                cases = {f"launched {i}": a for i, a in enumerate(launched)} | made
             for case, args in cases.items():
                 got, ref = kernel(*args), plain(*args)
                 torch.cuda.synchronize()
@@ -1705,7 +1733,10 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                     if not torch.equal(g, r):
                         raise AssertionError(f"{name} kernel differs from its plain version at {shape} ({case}) in "
                                              f"{int((g != r).sum())} of {g.numel()} elements")
-            args = like
+            if long_song and shape[0] > 1:
+                print(f"{name} {'x'.join(map(str, shape))}: bit-equal to the plain version on {', '.join(cases)} (the {LONG_SONG_S} s song, not timed)")
+                continue
+            args = next(iter(cases.values())) if long_song else like
             prepared = mod._launch_args(*args)
             adds, compares, nbytes = decoder_work(name, args, mods)
             row = dict(
@@ -1713,11 +1744,13 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                 single_ms=cuda_ms(lambda: mod._launch(*prepared), reps=10, spin=False),
                 device_ms=device_ms(lambda: mod._launch(*prepared), reps=10, key=f"{name}_kernel"),
                 wrapper_ms=cuda_ms(lambda: kernel(*args), reps=10),
-                plain_ms=cuda_ms(lambda: plain(*args), reps=3, warmup=1),
+                # seconds a run at the long song's length: once, after the checks' runs
+                plain_ms=cuda_ms(lambda: plain(*args), reps=1, warmup=0) if long_song else cuda_ms(lambda: plain(*args), reps=3, warmup=1),
                 adds=adds, compares=compares, bytes=nbytes,
                 ops_bound_ms=max(adds / add_rate, compares / compare_rate) * 1e3, byte_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 frames=shape[-2] if name in ("banded_viterbi", "dense_viterbi") else shape[-1],
                 cases=sorted(cases), launched=sum(1 for n, _, s, _ in recorder.launches if (n, s) == (name, shape)),
+                long_song=long_song,
             )
             row["bound_ms"] = max(row["ops_bound_ms"], row["byte_bound_ms"])
             row["bound_by"] = "operations" if row["ops_bound_ms"] >= row["byte_bound_ms"] else "bytes"
@@ -1731,6 +1764,9 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                   f"{row['bound_by']} ({adds} adds, {compares} compares, {nbytes} bytes); launched {row['launched']} times by the paths")
         usage = _build.ptxas_usage(name)
         print(f"ptxas {name}: {usage}")
+        for fn, u in usage.items():
+            if u.get("spill_stores", 0) or u.get("spill_loads", 0):
+                raise AssertionError(f"{fn} spills registers: {u}")
         out[name] = {"rows": rows, "ptxas": usage, "max_abs_err": err}
     return out
 
@@ -1764,6 +1800,8 @@ def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_pa
         "shapes_per_song": ["x".join(map(str, shape)) for shape in main_path["decoder_shapes"][name]],
         "ms_per_frame_per_song": sum(r["ms_per_frame"] for r in rows),
         "by_shape": measured["rows"],
+        "long_song": {label: {k: r[k] for k in ("ms", "plain_ms", "ms_per_frame", "bound_ms")}
+                      for label, r in measured["rows"].items() if r["long_song"]},
         "ptxas": measured["ptxas"],
     }
 

@@ -1,0 +1,138 @@
+"""Clocks per part of a frame of the DBN and banded Viterbi kernels, on the card.
+
+    python3 scripts/decoder_clock_split.py
+
+Builds csrc/dbn_viterbi.cu and csrc/banded_viterbi.cu again, into
+build/clock_split/, with their ``SPLIT`` marks defined: at each mark every
+thread reads ``clock64()``, and thread 0 of block 0 adds the clocks since the
+previous mark to the counter of that mark's part. The modules' own
+``_launch_args`` and ``_launch`` then run these builds (their cached
+launchers are swapped for the marked ones), once to warm up and once
+counted: the DBN at [1, 3007] (the 30 s bucket) and the banded Viterbi at
+[20, 130, 241] (the content windows of one song, band 25), on random inputs.
+Prints, for each part, the clocks per frame (parts inside the frame loop) or
+in all (parts after it), the launch's time by CUDA events and the card's
+name, power limit and SM clock. What each part holds is written beside its
+mark in the source. The marks cost a few clocks each, so the marked build is
+a little slower than the one the port runs; its parts are for comparing
+shares, and the port's times come from chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from audiotabs_tpu_torch import _build  # noqa: E402
+
+OUT = REPO / "build" / "clock_split"
+N_PARTS = 8
+WRAPPER = """#include <cuda_runtime.h>
+__device__ unsigned long long g_split[{n}];
+#define SPLIT_START long long split_t0 = clock64()
+#define SPLIT(part)                                                   \\
+  do {{                                                               \\
+    const long long split_t1 = clock64();                             \\
+    if (blockIdx.x == 0 && threadIdx.x == 0) g_split[part] += split_t1 - split_t0; \\
+    split_t0 = split_t1;                                              \\
+  }} while (0)
+#include "{source}"
+extern "C" int split_read(unsigned long long* out) {{
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_split, sizeof(g_split)));
+}}
+extern "C" int split_reset() {{
+  unsigned long long zero[{n}] = {{0}};
+  return static_cast<int>(cudaMemcpyToSymbol(g_split, zero, sizeof(zero)));
+}}
+"""
+KERNELS = {
+    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "dbn_viterbi_f32"),
+    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "banded_viterbi_f32"),
+}
+
+
+def build_marked(name: str) -> ctypes.CDLL:
+    OUT.mkdir(parents=True, exist_ok=True)
+    wrapper = OUT / f"{name}_split.cu"
+    wrapper.write_text(WRAPPER.format(n=N_PARTS, source=_build.PACKAGE_DIR / "csrc" / f"{name}.cu"))
+    lib = OUT / f"{name}_split.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(wrapper)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the marked {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    print(f"ptxas {name} (marked): " + " | ".join(l.strip() for l in (proc.stdout + proc.stderr).splitlines() if "Used" in l or "spill" in l))
+    return ctypes.CDLL(str(lib))
+
+
+def inputs(name: str) -> tuple:
+    rng = np.random.default_rng(0)
+    if name == "dbn_viterbi":
+        act = torch.from_numpy(rng.random((1, 3007)).astype(np.float32)).cuda()
+        return (act, 100, 55.0, 215.0, 100.0, 16), 3006  # frames in the loop: T - 1
+    obs = rng.random((20, 130, 241)).astype(np.float32)
+    obs /= obs.sum(-1, keepdims=True) * rng.uniform(1.0, 3.0, (20, 130, 1))
+    voiced = np.clip(obs.sum(-1), 0.0, 1.0)
+    log_u = np.log(np.maximum(1.0 - voiced, np.float32(1e-10)) / 241).astype(np.float32)[..., None]
+    log_v = torch.from_numpy(np.log(obs + np.float32(1e-10))).cuda()
+    return (log_v, torch.from_numpy(log_u).cuda().expand(20, 130, 241), 25, 0.01), 130
+
+
+def split(name: str) -> dict:
+    module, symbol = KERNELS[name]
+    mod = importlib.import_module(module)
+    lib = build_marked(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
+    _build._FUNCS[(name, symbol)] = fn  # the module's _launch now runs the marked build
+    args, frames = inputs(name)
+    prepared = mod._launch_args(*args)
+    mod._launch(*prepared)
+    torch.cuda.synchronize()
+    if lib.split_reset() != 0:
+        raise RuntimeError("cudaMemcpyToSymbol failed")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    mod._launch(*prepared)
+    end.record()
+    end.synchronize()
+    counts = (ctypes.c_ulonglong * N_PARTS)()
+    if lib.split_read(counts) != 0:
+        raise RuntimeError("cudaMemcpyFromSymbol failed")
+    _build._FUNCS.pop((name, symbol))
+    parts = {i: int(c) for i, c in enumerate(counts) if c}
+    ms = start.elapsed_time(end)
+    total = sum(parts.values())
+    return {
+        "shape": list(args[0].shape), "frames": frames, "ms": ms, "us_per_frame": ms * 1e3 / frames,
+        "clocks": parts, "clocks_per_frame": {i: c / frames for i, c in parts.items()},
+        "clocks_total": total, "mhz_implied": total / (ms * 1e3),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("decoder_clock_split: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip())
+    out = {name: split(name) for name in KERNELS}
+    for name, row in out.items():
+        per = ", ".join(f"part {i}: {c:.1f}" for i, c in row["clocks_per_frame"].items())
+        print(f"{name} {row['shape']}: {row['ms']:.4f} ms by events ({row['us_per_frame']:.3f} us per frame over {row['frames']} frames); "
+              f"thread 0's clocks per frame by part: {per}; {row['clocks_total']} clocks in all ({row['mhz_implied']:.0f} MHz implied)")
+    print(json.dumps({"clock_split": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

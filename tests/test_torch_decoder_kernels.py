@@ -161,6 +161,28 @@ def test_cuda_kernels_at_main_path_shapes(cuda, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("min_bpm", [40.0, 55.0])
+def test_cuda_dbn_kernel_equals_plain_version_on_both_layouts(cuda, min_bpm):
+    # 55 BPM: the shipped grid (84 tempi, 110 phases, the layout with the
+    # transitions in registers); 40 BPM: 124 tempi, 150 phases, the other layout
+    act = torch.from_numpy(_activations("beats")).to(cuda)
+    got = _launched(tdbn, lambda: tdbn._dbn_forward(act, min_bpm=min_bpm))
+    ref = tdbn._dbn_forward_plain(act, 100, min_bpm, 215.0, 100.0, 16)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bins,band", [(301, 25), (700, 127), (1024, 1)])
+def test_cuda_banded_viterbi_kernel_equals_plain_version_at_other_widths(cuda, n_bins, band):
+    # 301 bins: the melody fallback's pYIN (C2 to C7); the widest band and the most bins the kernel takes
+    for kind in ("random", "ties"):
+        log_v, log_u = (torch.from_numpy(a).to(cuda) for a in _pyin_obs(kind, R=2, T=40, n_bins=n_bins))
+        got = _launched(tpyin, lambda: tpyin._banded_viterbi(log_v, log_u, band, 0.01))
+        ref = tpyin._banded_viterbi_plain(log_v, log_u, band, 0.01)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
 def test_cuda_dbn_score_too_large_for_shared_memory_raises(cuda):
     # 25 BPM at 100 fps: 214 tempi x 240 phases, two scores of 411 KB
     with pytest.raises(ValueError, match="shared memory"):

@@ -251,3 +251,40 @@ def test_cached_nets_built_in_inference_mode_stay_usable_with_autograd():
         assert torch.isfinite(beat_activation(y, 22050, nets.beat, 100)).all()
     finally:
         fused.load_models.cache_clear()
+
+
+def test_cached_dbn_grid_survives_in_place_ops_and_autograd():
+    """The DBN's tempo-grid tensors are built once per device
+    (``_device_grid``), here first from inside inference mode. They must be
+    normal tensors (an autograd call may save them), copies of the
+    ``lru_cache``d numpy arrays, and a call's own tensors (observations,
+    initial score, the kernel's buffers) must be fresh, so a caller's
+    in-place op on them leaves the grid, and every later decode, as it was."""
+    args = (100, 55.0, 215.0, 100.0, 16)
+    cpu = torch.device("cpu")
+    act = torch.from_numpy(_activations("beats", B=2))
+    tdbn._device_grid.cache_clear()
+    try:
+        with torch.inference_mode():
+            first = tdbn._dbn_forward(act)
+        grid = tdbn._device_grid(55.0, 215.0, 100, 100.0, 16, cpu)
+        assert not any(t.is_inference() for t in grid)
+        assert not np.shares_memory(grid.log_trans.numpy(), tdbn._tempo_transition(55.0, 215.0, 100, 100.0))
+        assert not np.shares_memory(grid.intervals.numpy(), tdbn._tempo_grid(55.0, 215.0, 100))
+
+        f = tdbn._forward_inputs(act, *args)
+        launch = tdbn._launch_args(act, *args)
+        shared = [t for t in launch if any(t is g for g in grid)]
+        assert len(shared) == 3  # the transition matrix and the int32 intervals and beat windows, read only
+        for t in (f.lo_beat, f.lo_off, f.init, *(t for t in launch if not any(t is g for g in grid))):
+            t.fill_(-3)
+        weights = torch.ones_like(grid.log_trans, requires_grad=True)
+        (weights * grid.log_trans).sum().backward()
+        assert torch.equal(weights.grad, grid.log_trans)
+
+        fresh = tdbn._device_grid.__wrapped__(55.0, 215.0, 100, 100.0, 16, cpu)
+        assert all(torch.equal(a, b) for a, b in zip(grid, fresh))
+        again = tdbn._dbn_forward(act)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    finally:
+        tdbn._device_grid.cache_clear()

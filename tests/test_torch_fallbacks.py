@@ -330,6 +330,7 @@ def test_cached_constants_survive_the_cpu_main_path(strums, tmp_path, monkeypatc
     import audiotabs_tpu_torch
     from audiotabs_tpu_torch.chords.extract import chroma_features
     from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.decode.dbn_beats import _device_grid
     from audiotabs_tpu_torch.io.wav import write_wav
     from audiotabs_tpu_torch.runtime.pipeline import run_pipeline
 
@@ -351,6 +352,9 @@ def test_cached_constants_survive_the_cpu_main_path(strums, tmp_path, monkeypatc
             if id(v) in cached and callable(v) and hasattr(v, "cache_info"):
                 monkeypatch.setattr(m, name, recorder(v))
 
+    # the DBN's per-device grid is built from _tempo_transition at its first
+    # call only, and an earlier test in this process may have made that call
+    _device_grid.cache_clear()
     crop = tmp_path / "crop.wav"
     write_wav(crop, strums, SR)
     result = run_pipeline(tmp_path / "job", crop, device="cpu", settings=Settings(PAD_SECONDS_BUCKET=6.0))
@@ -365,4 +369,4 @@ def test_cached_constants_survive_the_cpu_main_path(strums, tmp_path, monkeypatc
             continue
         seen.add(key)
         _same(fn(*args, **kwargs), fn.__wrapped__(*args, **kwargs), f"{fn.__module__}.{key[0]}{key[1]}")
-    assert {"hann_window", "cqt_kernel_bank", "_tempo_transition", "load_models", "_model"} <= {k[0] for k in seen}
+    assert {"hann_window", "cqt_kernel_bank", "_tempo_transition", "_device_grid", "load_models", "_model"} <= {k[0] for k in seen}
