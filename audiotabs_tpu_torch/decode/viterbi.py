@@ -1,12 +1,14 @@
 """Viterbi decoders (counterpart of audiotabs_tpu/decode/viterbi.py).
 
-``viterbi_log_dense`` (the CRF chord decode) is one launch of the CUDA
-kernel csrc/dense_viterbi.cu for a batch of sequences on the card, and a
-plain loop over frames on the CPU (``viterbi_log_dense_plain``).
-``viterbi_constant_switch`` (the template backend only) stays a plain loop
-over frames on the tensor's device. Parity trap: every argmax/argmin returns
-the FIRST extremum, as jnp's do; torch's do so on the CPU and on CUDA, and
-the kernel scans in ascending order with a strict comparison.
+``viterbi_log_dense`` (the CRF chord decode) and ``viterbi_constant_switch``
+(the template chord backend) are each one launch of a CUDA kernel for a
+batch of sequences on the card (csrc/dense_viterbi.cu,
+csrc/constant_switch_viterbi.cu), and a plain loop over frames on the CPU
+(``viterbi_log_dense_plain``, ``viterbi_constant_switch_plain``). Parity
+trap: every argmax/argmin returns the FIRST extremum, as jnp's do; torch's
+do so on the CPU and on CUDA, and the kernels keep the lowest state on a
+tie. The constant-switch decode stays on ``s`` when ``dp[s] <= min +
+penalty``: a tie stays, whatever state holds the minimum.
 """
 
 from __future__ import annotations
@@ -18,31 +20,96 @@ import torch
 
 from .. import _build
 
-# Launches of the CUDA kernel (csrc/dense_viterbi.cu) in this process; only
-# _launch adds to it.
+# Launches of the CUDA kernels in this process: csrc/dense_viterbi.cu
+# (only _launch adds to LAUNCHES) and csrc/constant_switch_viterbi.cu (only
+# _switch_launch adds to SWITCH_LAUNCHES).
 LAUNCHES = 0
+SWITCH_LAUNCHES = 0
+
+
+def viterbi_constant_switch_plain(emissions: torch.Tensor, switch_penalty: float):
+    """The plain version on [B, S, T]: a loop over frames, then over them backwards."""
+    B, S, T = emissions.shape
+    logp = -torch.log(torch.clamp(emissions, 1e-9, 1.0))
+    states = torch.arange(S, device=emissions.device)
+    dp = logp[:, :, 0]
+    bps = []
+    for t in range(1, T):
+        argm = torch.argmin(dp, dim=1, keepdim=True)
+        switch_cost = dp.min(dim=1, keepdim=True).values + switch_penalty
+        # stay on s unless switching from the global argmin wins
+        bps.append(torch.where(dp <= switch_cost, states, argm))
+        dp = torch.minimum(dp, switch_cost) + logp[:, :, t]
+    s = torch.argmin(dp, dim=1)
+    path = [s]
+    for bp in reversed(bps):
+        s = bp.gather(1, s[:, None])[:, 0]
+        path.append(s)
+    path = torch.stack(path[::-1], dim=1)
+    return path.to(torch.int32), emissions.gather(1, path[:, None, :])[:, 0]
+
+
+_SWITCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def build_switch():
+    """Compile and load the constant-switch kernel now (it is otherwise built at first use); returns its launcher."""
+    return _build.function("constant_switch_viterbi", "constant_switch_viterbi_f32", _SWITCH_ARGTYPES)
+
+
+def _switch_launch_args(emissions: torch.Tensor, switch_penalty: float) -> tuple:
+    """The kernel's arguments for [B, S, T] float32 emissions on the card:
+    the costs -log(clamp(emissions, 1e-9, 1)) from torch, the backpointer
+    records (per frame, a ballot word of the states that stay for each 32
+    states, then the first minimum), the path [B, T] and the penalty."""
+    if emissions.dtype != torch.float32:
+        raise TypeError(f"the constant-switch Viterbi kernel takes float32 emissions, got {emissions.dtype}")
+    B, S, T = emissions.shape
+    dev = emissions.device
+    return (
+        (-torch.log(torch.clamp(emissions, 1e-9, 1.0))).contiguous(),
+        torch.empty((B, max(T - 1, 1), -(-S // 32) + 1), dtype=torch.int32, device=dev),
+        torch.empty((B, T), dtype=torch.int32, device=dev),
+        float(switch_penalty),
+    )
+
+
+def _switch_launch(logp: torch.Tensor, records: torch.Tensor, path: torch.Tensor, switch_penalty: float) -> None:
+    """One launch of csrc/constant_switch_viterbi.cu on ``_switch_launch_args``' tensors, one warp per sequence."""
+    global SWITCH_LAUNCHES
+    B, S, T = logp.shape
+    dev = logp.device
+    with torch.cuda.device(dev):
+        rc = build_switch()(logp.data_ptr(), records.data_ptr(), path.data_ptr(), B, T, S, switch_penalty,
+                            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "constant_switch_viterbi", {-1: f"{B} sequences of {T} frames and {S} states (at most 64)"})
+    SWITCH_LAUNCHES += 1
+
+
+def _viterbi_constant_switch_cuda(emissions: torch.Tensor, switch_penalty: float):
+    """[B, S, T] on the card: one launch; the confidences gathered by torch."""
+    args = _switch_launch_args(emissions, switch_penalty)
+    _switch_launch(*args)
+    path = args[2]
+    return path, emissions.gather(1, path[:, None, :].long())[:, 0]
 
 
 def viterbi_constant_switch(emissions: torch.Tensor, switch_penalty: float):
-    """Min-cost path through [S, T] emission probabilities → (path [T] int32, conf [T])."""
-    S, T = emissions.shape
-    logp = -torch.log(torch.clamp(emissions, 1e-9, 1.0))
-    states = torch.arange(S, device=emissions.device)
-    dp = logp[:, 0]
-    bps = []
-    for t in range(1, T):
-        argm = torch.argmin(dp)
-        switch_cost = dp.min() + switch_penalty
-        # stay on s unless switching from the global argmin wins
-        bps.append(torch.where(dp <= switch_cost, states, argm))
-        dp = torch.minimum(dp, switch_cost) + logp[:, t]
-    s = torch.argmin(dp).reshape(1)  # a 1-element index stays on the device
-    path = [s]
-    for bp in reversed(bps):
-        s = bp[s]
-        path.append(s)
-    path = torch.cat(path[::-1])
-    return path.to(torch.int32), emissions[path, torch.arange(T, device=emissions.device)]
+    """Min-cost path through [S, T] or [B, S, T] emission probabilities →
+    (path [T] or [B, T] int32, conf [T] or [B, T]: the emission of the chosen state).
+
+    A CUDA tensor launches csrc/constant_switch_viterbi.cu, a CPU tensor takes
+    the plain loop; any other device raises."""
+    if emissions.ndim not in (2, 3):
+        raise ValueError(f"viterbi_constant_switch takes [S, T] or [B, S, T], got shape {tuple(emissions.shape)}")
+    em = emissions[None] if emissions.ndim == 2 else emissions
+    if em.device.type == "cpu":
+        path, conf = viterbi_constant_switch_plain(em, switch_penalty)
+    elif em.device.type == "cuda":
+        path, conf = _viterbi_constant_switch_cuda(em, switch_penalty)
+    else:
+        raise ValueError(f"viterbi_constant_switch runs on cuda or cpu, got {em.device}")
+    return (path, conf) if emissions.ndim == 3 else (path[0], conf[0])
 
 
 def viterbi_log_dense_plain(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor):

@@ -6,10 +6,15 @@ Counterpart of audiotabs_tpu/models/basicpitch.py (``hcqt``, ``cnn_apply``,
 unchanged, and ``transcribe_polyphonic``, the whole path from audio with the
 posteriors on the device). The CNN is an
 nn.Module of Conv2d layers in NCHW with the JAX "SAME" padding written out.
+The salience's block-max envelope (``salience_envelope``, two lax.scans in
+JAX) is one launch of the CUDA kernel csrc/salience_envelope.cu for a batch
+of rows on the card, and a plain loop over blocks on the CPU
+(``salience_envelope_plain``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .. import _build
 from ..device import on_device
 from ..ops.cqt import hybrid_cqt
 from ..theory.events import NoteEvent
@@ -30,6 +36,15 @@ N_BINS = N_SEMITONES * BINS_PER_SEMITONE  # 264
 HOP = 256
 HARMONICS = (0.5, 1.0, 2.0, 3.0, 4.0, 5.0, 6.0, 7.0)
 MIDI_A0 = 21
+# the salience normaliser: blocks of 64 frames (about 0.75 s at 86 fps), a
+# decay of 0.6 per block (-20 dB in about 3.4 s), a floor at 5 % of the peak
+ENVELOPE_STRIDE = 64
+ENVELOPE_DECAY = 0.6
+ENVELOPE_FLOOR = 0.05
+
+# Launches of the CUDA kernel (csrc/salience_envelope.cu) in this process;
+# only _launch adds to it.
+LAUNCHES = 0
 
 
 def hcqt(y: torch.Tensor, sr: int) -> torch.Tensor:
@@ -128,11 +143,81 @@ def load_params(path: str | None = None) -> dict | None:
     return load_pytree_npz(path)
 
 
+def salience_envelope_plain(sal: torch.Tensor, stride: int = ENVELOPE_STRIDE, decay: float = ENVELOPE_DECAY):
+    """The plain version: salience [88, T] or [R, 88, T] → norm [nblk] or
+    [R, nblk], nblk = ceil(T / stride): the block maxima (the last block
+    padded with zeros), the larger of a forward and a reverse decaying max
+    over them, floored at 5 % of the salience's peak."""
+    T = sal.shape[-1]
+    nblk = max(1, -(-T // stride))
+    m = F.pad(sal, (0, nblk * stride - T)).reshape(*sal.shape[:-1], nblk, stride).amax(dim=(-3, -1))  # [..., nblk]
+    fwd, bwd = [], []
+    e = torch.zeros(m.shape[:-1], device=sal.device)
+    for i in range(nblk):
+        e = torch.maximum(m[..., i], decay * e)
+        fwd.append(e)
+    e = torch.zeros(m.shape[:-1], device=sal.device)
+    for i in reversed(range(nblk)):
+        e = torch.maximum(m[..., i], decay * e)
+        bwd.append(e)
+    env = torch.maximum(torch.stack(fwd, dim=-1), torch.stack(bwd[::-1], dim=-1))
+    return torch.maximum(env, ENVELOPE_FLOOR * sal.amax(dim=(-2, -1))[..., None])
+
+
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+
+
+def build():
+    """Compile and load the envelope kernel now (it is otherwise built at first use); returns its launcher."""
+    return _build.function("salience_envelope", "salience_envelope_f32", _ARGTYPES)
+
+
+def _launch_args(sal: torch.Tensor, stride: int, decay: float) -> tuple:
+    """The kernel's arguments for float32 salience [R, 88, T] on the card: the contiguous input, the output [R, nblk]."""
+    if sal.dtype != torch.float32:
+        raise TypeError(f"the salience envelope kernel takes float32 salience, got {sal.dtype}")
+    R, T = sal.shape[0], sal.shape[-1]
+    return sal.contiguous(), torch.empty((R, max(1, -(-T // stride))), dtype=torch.float32, device=sal.device), stride, decay
+
+
+def _launch(sal: torch.Tensor, norm: torch.Tensor, stride: int, decay: float) -> None:
+    """One launch of csrc/salience_envelope.cu on ``_launch_args``' tensors, one cluster of blocks per row."""
+    global LAUNCHES
+    R, rows, T = sal.shape
+    with torch.cuda.device(sal.device):
+        rc = build()(sal.data_ptr(), norm.data_ptr(), R, rows, T, stride, decay, ENVELOPE_FLOOR,
+                     torch.cuda.current_stream(sal.device).cuda_stream)
+    _build.check_launch(rc, "salience_envelope", {-1: f"{R} rows of {rows} x {T}", -2: f"a stride of {stride} frames (a multiple of 32)"})
+    LAUNCHES += 1
+
+
+def _salience_envelope_cuda(sal: torch.Tensor, stride: int, decay: float) -> torch.Tensor:
+    """[R, 88, T] on the card: one launch."""
+    args = _launch_args(sal, stride, decay)
+    _launch(*args)
+    return args[1]
+
+
+def salience_envelope(sal: torch.Tensor, stride: int = ENVELOPE_STRIDE, decay: float = ENVELOPE_DECAY) -> torch.Tensor:
+    """The salience normaliser of [88, T] or [R, 88, T] → [nblk] or [R, nblk]
+    (see ``salience_envelope_plain``). A CUDA tensor launches
+    csrc/salience_envelope.cu, a CPU tensor takes the plain loop; any other
+    device raises."""
+    if sal.ndim not in (2, 3):
+        raise ValueError(f"salience_envelope takes [88, T] or [R, 88, T], got shape {tuple(sal.shape)}")
+    if sal.device.type == "cpu":
+        return salience_envelope_plain(sal, stride, decay)
+    if sal.device.type != "cuda":
+        raise ValueError(f"salience_envelope runs on cuda or cpu, got {sal.device}")
+    norm = _salience_envelope_cuda(sal[None] if sal.ndim == 2 else sal, stride, decay)
+    return norm[0] if sal.ndim == 2 else norm
+
+
 def salience_posteriors(y: torch.Tensor, sr: int):
     """Fundamental-gated harmonic salience → (onset [T, 88], frame [T, 88]).
 
-    The bidirectional block-max envelope, two lax.scans in JAX, is two short
-    loops over ~0.75 s blocks here."""
+    The frame posteriors are normalised by ``salience_envelope``, a
+    bidirectional block-max envelope over ~0.75 s blocks."""
     hc = hcqt(y, sr)  # [H, 264, T]; rows follow HARMONICS (0.5, 1, 2, ..7)
     peak = hc[1].max()
     A = hc / (peak + 1e-8)
@@ -143,23 +228,9 @@ def salience_posteriors(y: torch.Tensor, sr: int):
     sal = torch.where(peak > 1e-4, sal, torch.zeros_like(sal))
     sal = sal.reshape(N_SEMITONES, BINS_PER_SEMITONE, -1).max(dim=1).values  # [88, T]
 
-    stride = 64  # frames ≈ 0.75 s at ~86 fps
     T = sal.shape[-1]
-    nblk = max(1, -(-T // stride))
-    m = F.pad(sal, (0, nblk * stride - T)).reshape(sal.shape[0], nblk, stride).amax(dim=(0, 2))  # [nblk]
-    decay = 0.6  # per block → -20 dB in ~3.4 s
-    fwd, bwd = [], []
-    e = torch.zeros((), device=y.device)
-    for i in range(nblk):
-        e = torch.maximum(m[i], decay * e)
-        fwd.append(e)
-    e = torch.zeros((), device=y.device)
-    for i in reversed(range(nblk)):
-        e = torch.maximum(m[i], decay * e)
-        bwd.append(e)
-    env = torch.maximum(torch.stack(fwd), torch.stack(bwd[::-1]))
-    norm = torch.maximum(env, 0.05 * sal.max())
-    norm_t = norm.repeat_interleave(stride)[:T]
+    norm = salience_envelope(sal)
+    norm_t = norm.repeat_interleave(ENVELOPE_STRIDE)[:T]
     frame_post = torch.clamp(sal / (norm_t[None, :] + 1e-2), 0.0, 1.0)
 
     diff = frame_post[:, 1:] - frame_post[:, :-1]

@@ -4,13 +4,13 @@ Counterpart of audiotabs_tpu/runtime/fused.py::fused_analysis, with the same
 arguments, output keys and dtypes, and of the JAX batch runner's vmap of it
 (``fused_analysis_batch``: a batch of songs in one call): HPSS (median
 kernel), BLSTM beat activation and DBN decode (csrc/dbn_viterbi.cu, every
-song of the batch in one launch), Basic Pitch posteriors, salience and
-DeepChroma chroma, template emissions and the CRF decode
-(csrc/dense_viterbi.cu), the key CNN, the strum envelope, content-window
-metrics (pYIN's Viterbi in csrc/banded_viterbi.cu, the onset wait rule in
-csrc/onset_wait.cu) and calibration statistics (the onset wait rule again).
-On the card these decoders are the kernels (the template backend's
-``viterbi_constant_switch`` stays a loop over frames); on the CPU they are
+song of the batch in one launch), Basic Pitch posteriors, salience (its
+envelope in csrc/salience_envelope.cu) and DeepChroma chroma, template
+emissions, the template backend's decode (csrc/constant_switch_viterbi.cu)
+and the CRF decode (csrc/dense_viterbi.cu), the key CNN, the strum envelope,
+content-window metrics (pYIN's Viterbi in csrc/banded_viterbi.cu, the onset
+wait rule in csrc/onset_wait.cu) and calibration statistics (the onset wait
+rule again). On the card these decoders are the kernels; on the CPU they are
 plain loops over frames. All outputs stay on the input's device; the caller
 makes one transfer to the host.
 """

@@ -3,11 +3,12 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, and turns TF32 off.
-2. Builds the five kernels with nvcc into build/, one nvcc process per
+2. Builds the seven kernels with nvcc into build/, one nvcc process per
    source, all started together: the median kernel (csrc/median_filter.cu,
-   with the selection networks that ops/median.py generates) and the four
+   with the selection networks that ops/median.py generates) and the six
    sequential decoders (csrc/dbn_viterbi.cu, onset_wait.cu,
-   banded_viterbi.cu, dense_viterbi.cu). Prints ptxas's registers and spills
+   banded_viterbi.cu, dense_viterbi.cu, salience_envelope.cu,
+   constant_switch_viterbi.cu). Prints ptxas's registers and spills
    for each median instantiation (none may spill) and the min/max (FMNMX)
    per output of each network.
 3. Holds the kernel against its plain PyTorch version exactly (a median
@@ -28,7 +29,8 @@
    with every kernel's launch count set to 0 just before it: 8 median
    launches per song and, of the decoder kernels, 1 DBN, 2 onset wait-rule
    (content windows, calibration), 1 banded Viterbi (pYIN of the content
-   windows) and 1 dense Viterbi (CRF) launch; no ``transcription_error``,
+   windows), 1 dense Viterbi (CRF) and 1 salience envelope launch, no
+   constant-switch Viterbi; no ``transcription_error``,
    ``stem_source`` guitar with the drums as beat source and no separation
    error, the whole artifact set in ``out/`` and ``work/``; one
    device-to-host copy per song and each decoder kernel in the trace
@@ -57,8 +59,8 @@
 9. The batch runner (after 8): ``transcribe_batch`` over the six held-out
    clips (all in the 30 s bucket) in chunks of 4 and 2 songs, cold and warm:
    8 median launches per chunk, one launch each of the DBN and banded
-   Viterbi kernels, two of the onset kernel and one CRF decode per song per
-   chunk, and in the profiler 8 median launches and 1
+   Viterbi kernels, two of the onset kernel and one CRF decode and salience
+   envelope per song per chunk, and in the profiler 8 median launches and 1
    device-to-host copy per chunk; each row's stems within STEM_TOL of a 1-D
    ``separate_program`` of the row, and its fused outputs against
    ``fused_analysis`` on the row and the batch's stems; the artifact set of
@@ -71,7 +73,8 @@
 9a. The mesh (after 9, ``mesh_phase``): ``transcribe_batch`` over the six
     clips with ``mesh=default_mesh()`` (every card on one "data" axis): 8
     median launches per chunk and, per device shard, one DBN, two onset, one
-    banded Viterbi launch and a CRF decode per row; every row's discrete outputs and beat times
+    banded Viterbi launch and a CRF decode and a salience envelope per row;
+    every row's discrete outputs and beat times
     equal to step 9's and its floats within FLOAT_TOL, the same artifact set;
     ``batched_fused_analysis`` over a 2-way "data" mesh of [cuda:0, cuda:0]
     at B = 6 and B = 5 (one zero pad row): 8 median launches and the same
@@ -95,16 +98,21 @@
     CLI on the clip under the shipped settings with one change, every launch
     count set to 0 just before it: ``TRANSCRIPTION_MODE=notes`` (8 median
     launches, the decoders' of a CLI song), ``CHORD_DETECTION_BACKEND=template``
-    with ``CHORD_VOCAB`` majmin7 and majmin7plus (8 each, no CRF decode), and
-    4 s / 2 s content windows (10: the tail's own window pass adds 2, and an
-    onset and a pYIN launch). No stage error; the CPU ``_pipeline_tail`` on the
+    with ``CHORD_VOCAB`` majmin7 and majmin7plus (8 each, no CRF decode; one
+    constant-switch decode in the fused analysis, and for majmin7plus the
+    tail's own chroma and decode: a second salience envelope and a second
+    constant-switch decode; one warm majmin7 song traced), and 4 s / 2 s
+    content windows (10: the tail's own window pass adds 2, and an onset and
+    a pYIN launch). No stage error; the CPU ``_pipeline_tail`` on the
     card's host features writes the same artifacts (byte-equal where the
     tail does no device work; chord confidences and content metrics within
     FLOAT_TOL where it decodes again on the CPU). Prints each profile.json.
 12. Degraded: ``fused_analysis`` made to raise under the shipped settings;
     ``run_pipeline`` on the card recomputes every stage: errors only
     ``analysis: ...``, 6 median launches (harmonic, calibration, content
-    windows) and the decoder launches of a CLI song, the full artifact set, and the beat times, chord labels, key
+    windows) and the decoder launches of a CLI song but no salience envelope
+    (the Basic Pitch CNN and DeepChroma run instead), the full artifact set,
+    and the beat times, chord labels, key
     and time signature of a CPU run of the same path on the card's stems.
     Prints the stage times, cold and warm.
 13. Holds the kernel exactly at every shape these paths launched it at (the
@@ -122,29 +130,40 @@
     clips. The launches of each trainer are counted, of the median and of
     each decoder kernel (the gates decode beats with the DBN and chords with
     the CRF), and must be the counts in TRAIN_LAUNCHES and
-    TRAIN_DECODER_LAUNCHES; the median kernel is held exactly on the first 4
+    TRAIN_DECODER_LAUNCHES (and the salience envelope's: the trainers'
+    salience baselines); the median kernel is held exactly on the first 4
     launched inputs of every site and at each new shape (random and
     tie-heavy), and each is timed.
-14a. Decoders (``decoders_phase``): every launch of the four decoder
+14a. Decoders (``decoders_phase``): every launch of the six decoder
     kernels from step 5 to step 14 was recorded (its shape, and its first
     two inputs at each shape). Each kernel must be bit-equal to its plain
     loop on the card at each of those shapes (the DBN's among them on the
     30 s bucket, [B, 3007], on the clip's true length and on the trainers'
-    validation clips): on the launched inputs, random ones and tie-heavy
-    ones (a constant and a two-level activation; every frame a candidate,
-    runs of candidates; equal pYIN columns; equal emission columns with
-    uniform transitions). Each shape is timed: the kernel alone on inputs
+    validation clips; the salience envelope's at [1, 88, 2584] and the
+    trainers' clips; the constant-switch Viterbi's at [1, 49, 301] and
+    majmin7plus' [1, 61, T]): on the launched inputs, random ones and
+    tie-heavy ones (a constant and a two-level activation; every frame a
+    candidate, runs of candidates; equal pYIN columns; equal emission
+    columns with uniform transitions; constant block maxima, a loud then
+    silent row and a negative one whose padding holds the last block's
+    maximum; equal emission columns, and costs exactly at the minimum plus
+    the penalty). Each shape is timed: the kernel alone on inputs
     prepared once (CUDA events with and without the spin kernel, and its
     duration in the profiler), the wrapper with torch's preparation, and the
     plain loop on the card; beside the bound (adds at 128 and compares at 64
     per SM per clock at the clock of step 3, or bytes at 3.35 TB/s,
-    whichever is larger) and the time per frame. The DBN is also held at the
-    length of the JAX package's 180 s song (``LONG_SONG_S``; the frames of
-    its beat activation, 18,041): at [1, T] on the random, constant and
-    two-level inputs, timed (its plain loop once), and at [4, T] once on
-    random inputs. No decoder kernel may spill registers (ptxas).
-15. Prints the kernel table as one JSON line (the median kernel and the four
-    decoder kernels), then the result line.
+    whichever is larger) and the time per frame. The DBN, the salience
+    envelope and the constant-switch Viterbi are also held at the length of
+    the JAX package's 180 s song (``LONG_SONG_S``): the DBN at [1, 18041] on
+    the random, constant and two-level inputs and at [4, 18041] once on
+    random inputs, the envelope at [1, 88, 15504] and the constant-switch
+    Viterbi at [1, 49, 1801] on their random and tie-heavy inputs; each
+    [1, ...] shape timed (its plain loop once). No decoder kernel may spill
+    registers (ptxas).
+15. Prints the kernel table as one JSON line (the median kernel and the six
+    decoder kernels, each decoder with its launches on its own path: the
+    CLI under the shipped settings, the template backend for the
+    constant-switch Viterbi), then the result line.
 
 Each phase prints its wall time. Any failed phase raises, and the script
 exits non-zero without a result. It imports nothing of JAX or of the JAX
@@ -240,30 +259,65 @@ STAGES = ("decode", "separation", "analysis", "beats", "calibration", "transcrip
           "mode", "quantize", "artifacts", "export")
 
 
-# The sequential decoders' kernels: name → (port module, its CUDA launcher,
-# the JAX package's lax.scan the kernel replaces)
+# The sequential decoders' kernels: name (that of its source, csrc/<name>.cu)
+# → (port module, its CUDA launcher, the JAX package's lax.scan the kernel
+# replaces, the module's prefix for it: "" where the kernel is the module's
+# only one, else its count is <PREFIX>_LAUNCHES and its functions
+# _<prefix>_launch_args, _<prefix>_launch and build_<prefix>)
 DECODERS = {
-    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "_dbn_forward_cuda", "audiotabs_tpu/decode/dbn_beats.py:90"),
-    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "_wait_cuda", "audiotabs_tpu/ops/onset.py:70"),
-    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "_banded_viterbi_cuda", "audiotabs_tpu/ops/pyin.py:171"),
-    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "_viterbi_log_dense_cuda", "audiotabs_tpu/decode/viterbi.py:79"),
+    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "_dbn_forward_cuda", "audiotabs_tpu/decode/dbn_beats.py:90", ""),
+    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "_wait_cuda", "audiotabs_tpu/ops/onset.py:70", ""),
+    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "_banded_viterbi_cuda", "audiotabs_tpu/ops/pyin.py:171", ""),
+    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "_viterbi_log_dense_cuda", "audiotabs_tpu/decode/viterbi.py:79", ""),
+    "salience_envelope": ("audiotabs_tpu_torch.models.basicpitch", "_salience_envelope_cuda", "audiotabs_tpu/models/basicpitch.py:201", ""),
+    "constant_switch_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "_viterbi_constant_switch_cuda", "audiotabs_tpu/decode/viterbi.py:46", "switch"),
 }
 # launches per song of the CLI under the shipped settings: the DBN, the onset
 # wait rule of the content windows and of the calibration, pYIN's Viterbi of
-# the content windows, the CRF decode; in a batch chunk of b songs the same,
-# but b CRF decodes (one per song)
-DECODER_LAUNCHES_PER_SONG = {"dbn_viterbi": 1, "onset_wait": 2, "banded_viterbi": 1, "dense_viterbi": 1}
-# the JAX package's north-star song (bench.py's long_song_wall_s): the DBN is
-# also held and timed at its length, [1, T] on the tie-heavy inputs too and
-# [4, T] once; its plain loop takes seconds there, so it is timed once
+# the content windows, the CRF decode, the salience envelope; no
+# constant-switch decode (the template backend's); in a batch chunk or a
+# mesh shard of b songs the same, but a CRF decode and a salience envelope
+# per song (ROW_KERNELS)
+DECODER_LAUNCHES_PER_SONG = {"dbn_viterbi": 1, "onset_wait": 2, "banded_viterbi": 1, "dense_viterbi": 1,
+                             "salience_envelope": 1, "constant_switch_viterbi": 0}
+ROW_KERNELS = ("dense_viterbi", "salience_envelope")
+# the JAX package's north-star song (bench.py's long_song_wall_s): the DBN,
+# the salience envelope and the constant-switch Viterbi (majmin7's 49
+# states) are also held and timed at its length, [1, ...] on the tie-heavy
+# inputs too and the DBN at [4, T] once; the plain loops take up to seconds
+# there, so each is timed once
 LONG_SONG_S = 180
-LONG_SONG_CASES = {1: ("random", "constant", "two levels"), 4: ("random",)}
 
 
 def beat_frames(seconds: float, sr: int = 22050, fps: int = 100) -> int:
     """Frames of the beat activation of ``seconds`` of audio at the analysis
     rate (``models/beat_rnn.py::spectral_features``: hop sr // fps, centred)."""
     return int(seconds * sr) // (sr // fps) + 1
+
+
+def hcqt_frames(seconds: float, sr: int = 22050, hop: int = 256) -> int:
+    """Frames of the hCQT, and so of the salience, of ``seconds`` of audio (``models/basicpitch.py::HOP``, centred)."""
+    return int(seconds * sr) // hop + 1
+
+
+def chroma_frames(seconds: float, sr: int = 22050, fps: int = 10) -> int:
+    """Frames of the chord chroma and emissions of ``seconds`` of audio (``runtime/fused.py``: hop sr / 10)."""
+    return int(seconds * sr) // round(sr / fps) + 1
+
+
+def decoder_shapes_at(seconds: float) -> dict[str, dict[tuple, tuple[str, ...]]]:
+    """The shapes of one song of ``seconds`` for the kernels checked at the
+    long song's length, each with the inputs to hold it on."""
+    return {
+        "dbn_viterbi": {(1, beat_frames(seconds)): ("random", "constant", "two levels"), (4, beat_frames(seconds)): ("random",)},
+        "salience_envelope": {(1, 88, hcqt_frames(seconds)): ("random", "constant block maxima", "loud then silent", "negative")},
+        "constant_switch_viterbi": {(1, 49, chroma_frames(seconds)): ("random", "equal columns", "at min + penalty")},
+    }
+
+
+def per_rows(b: int) -> dict:
+    """Decoder launches of a batch chunk or a mesh shard of ``b`` songs."""
+    return DECODER_LAUNCHES_PER_SONG | dict.fromkeys(ROW_KERNELS, b)
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3, spin: bool = True) -> float:
@@ -888,8 +942,8 @@ def batch_phase(median, mods: dict, card: str) -> dict:
             raise AssertionError(f"median launches per chunk {per_chunk_launches}, expected {SEPARATED_LAUNCHES} in each of {len(CHUNK_SONGS)}")
         if [args[1].shape[0] for args, _, _ in sep.calls] != list(CHUNK_SONGS):
             raise AssertionError(f"chunks of {[args[1].shape[0] for args, _, _ in sep.calls]} songs, expected {list(CHUNK_SONGS)}")
-        # one DBN, two onset and one banded Viterbi launch per chunk, one CRF decode per song
-        expect = [DECODER_LAUNCHES_PER_SONG | {"dense_viterbi": b} for b in CHUNK_SONGS]
+        # one DBN, two onset and one banded Viterbi launch per chunk, one CRF decode and salience envelope per song
+        expect = [per_rows(b) for b in CHUNK_SONGS]
         if per_chunk_decoders != expect:
             raise AssertionError(f"decoder launches per chunk {per_chunk_decoders}, expected {expect}")
         print(f"batch run {run} ({'cold' if run == 0 else 'warm'}): {len(HELDOUT)} songs in {walls[-1]:.3f} s, "
@@ -1005,9 +1059,8 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
                 zero_counts(median, mods)
                 out = keep(*args, **kwargs)
                 per_shard.append((args[0].shape[0], median.LAUNCHES))
-                # one DBN, two onset and one banded Viterbi launch per shard, a CRF decode per row
-                expect_decoders(mods, DECODER_LAUNCHES_PER_SONG | {"dense_viterbi": args[0].shape[0]},
-                                f"a device shard of {args[0].shape[0]} rows")
+                # one DBN, two onset and one banded Viterbi launch per shard, a CRF decode and salience envelope per row
+                expect_decoders(mods, per_rows(args[0].shape[0]), f"a device shard of {args[0].shape[0]} rows")
                 return out
 
             setattr(self.module, self.name, counted)
@@ -1037,7 +1090,7 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
                 raise AssertionError(f"mesh song {clip.name}: {key} differ from the batch phase's")
     launches_default = [n for _, n in per_shard]
     print(f"mesh a (default mesh {mesh.shape}): {len(HELDOUT)} songs in {wall:.3f} s, (songs, median launches) per device shard {per_shard}, "
-          f"decoder launches per shard {DECODER_LAUNCHES_PER_SONG} but a CRF decode per row; "
+          f"decoder launches per shard {DECODER_LAUNCHES_PER_SONG} but a CRF decode and a salience envelope per row; "
           f"every row's discrete outputs and beat times equal the batch phase's, floats within {FLOAT_TOL}; the same artifact set [{card}]")
 
     # b. a 2-way data mesh on the one card: rows split 2 ways, one zero pad row at B = 5
@@ -1362,15 +1415,26 @@ def _same_within(a, b, path: str = "") -> None:
         raise AssertionError(f"{path}: {a!r} / {b!r}")
 
 
-NO_CRF = DECODER_LAUNCHES_PER_SONG | {"dense_viterbi": 0}  # the template backend decodes without the CRF
+# the template backend decodes without the CRF: one constant-switch decode in
+# the fused analysis (majmin7's emissions), whose path the tail takes for
+# majmin7; for another vocabulary the tail builds its chroma again
+# (chords/extract.py::chroma_features: a second salience envelope) and decodes
+# its own emissions (a second constant-switch decode)
+TEMPLATE = DECODER_LAUNCHES_PER_SONG | {"dense_viterbi": 0, "constant_switch_viterbi": 1}
+TEMPLATE_OTHER_VOCAB = TEMPLATE | {"salience_envelope": 2, "constant_switch_viterbi": 2}
 # the tail's own pass over 4 s windows adds an onset and a pYIN launch
 OWN_WINDOWS = DECODER_LAUNCHES_PER_SONG | {"onset_wait": 3, "banded_viterbi": 2}
+# a failed fused analysis: each stage recomputes its device work, as the fused
+# analysis would but for the salience (transcription and chords run the
+# Basic Pitch CNN and DeepChroma, whose weights load)
+DEGRADED = DECODER_LAUNCHES_PER_SONG | {"salience_envelope": 0}
 SETTINGS_CASES = {
     # name: (environment, median launches per song, decoder launches per song,
     #        whether the tail decodes again on the device)
     "notes": ({"TRANSCRIPTION_MODE": "notes"}, SEPARATED_LAUNCHES, DECODER_LAUNCHES_PER_SONG, False),
-    "template": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7"}, SEPARATED_LAUNCHES, NO_CRF, False),
-    "template_majmin7plus": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7plus"}, SEPARATED_LAUNCHES, NO_CRF, True),
+    "template": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7"}, SEPARATED_LAUNCHES, TEMPLATE, False),
+    "template_majmin7plus": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7plus"}, SEPARATED_LAUNCHES,
+                             TEMPLATE_OTHER_VOCAB, True),
     "content": ({"CONTENT_ANALYSIS_WINDOW_SEC": "4.0", "CONTENT_ANALYSIS_HOP_SEC": "2.0"}, SEPARATED_LAUNCHES + 2, OWN_WINDOWS, True),
 }
 
@@ -1396,6 +1460,10 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
             zero_counts(median, mods)
             rc = cli.main([str(CLIP), "--job-dir", str(job), "--keep"])
             launches, decoders = median.LAUNCHES, decoder_counts(mods)
+        sites = recorder.sites()[n_before:]
+        traced = None
+        if name == "template":  # the constant-switch Viterbi's path: one warm song traced
+            traced = profile_busy_share(lambda: cli.main([str(CLIP), "--job-dir", str(JOBS / "template_profiled"), "--keep"]))
     finally:
         for k, v in saved.items():
             if v is None:
@@ -1407,7 +1475,6 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
     if rc != 0 or errors is not None or launches != expect or decoders != expect_dec:
         raise AssertionError(f"{name}: cli rc {rc}, errors {errors}, {launches} median launches (expected {expect}), "
                              f"decoder launches {decoders} (expected {expect_dec})")
-    sites = recorder.sites()[n_before:]
     prof = out["profile.json"]
     print(f"{name} ({env}): run_pipeline {result.seconds:.3f} s, median launches {launches} at {sites}, decoder launches {decoders}, backend "
           f"{out['result.json']['transcription_backend']}, {len(out['result.json']['chords'])} chords "
@@ -1438,7 +1505,7 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
         within.append(art)
     print(f"{name}: cpu _pipeline_tail on the card's host features: {len(names) + 1 - len(within)} artifacts equal, "
           f"{within} equal but for floats within {FLOAT_TOL} (the tail decodes again, on the CPU)")
-    return {"launches": launches, "decoder_launches": decoders, "sites": sites, "wall_s": result.seconds, "profile": prof}
+    return {"launches": launches, "decoder_launches": decoders, "sites": sites, "wall_s": result.seconds, "profile": prof, "traced": traced}
 
 
 def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
@@ -1466,8 +1533,8 @@ def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
                 res = pipeline.run_pipeline(job, CLIP, device="cuda", settings=shipped)
                 wall = time.perf_counter() - t0
                 launches = median.LAUNCHES
-                # each stage decodes again on the card: the same decoder launches as a fused song
-                decoders = expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, f"degraded run {run}")
+                # each stage decodes again on the card: the decoder launches of a fused song but the salience's
+                decoders = expect_decoders(mods, DEGRADED, f"degraded run {run}")
             out = read_out(job)
             sites = recorder.sites()[n_before:]
             print(f"degraded run {run} ({'cold' if run == 0 else 'warm'}): {wall:.3f} s, median launches {launches} at {sites}, decoder launches {decoders}, "
@@ -1542,16 +1609,24 @@ def new_shape_kernel_check(median, recorder: RecordMedians) -> dict:
 
 
 def decoder_modules() -> dict:
-    return {name: importlib.import_module(mod) for name, (mod, _, _) in DECODERS.items()}
+    return {name: importlib.import_module(mod) for name, (mod, _, _, _) in DECODERS.items()}
+
+
+def decoder_api(mods: dict, name: str) -> tuple:
+    """(the name of its launch count, _launch_args, _launch, build) of a decoder kernel in its module."""
+    m, prefix = mods[name], DECODERS[name][3]
+    if not prefix:
+        return "LAUNCHES", m._launch_args, m._launch, m.build
+    return f"{prefix.upper()}_LAUNCHES", getattr(m, f"_{prefix}_launch_args"), getattr(m, f"_{prefix}_launch"), getattr(m, f"build_{prefix}")
 
 
 def zero_decoders(mods: dict) -> None:
-    for m in mods.values():
-        m.LAUNCHES = 0
+    for name, m in mods.items():
+        setattr(m, decoder_api(mods, name)[0], 0)
 
 
 def decoder_counts(mods: dict) -> dict:
-    return {name: m.LAUNCHES for name, m in mods.items()}
+    return {name: getattr(m, decoder_api(mods, name)[0]) for name, m in mods.items()}
 
 
 def zero_counts(median, mods: dict) -> None:
@@ -1579,7 +1654,7 @@ class RecordDecoders:
         self.saved = {}
 
     def __enter__(self):
-        for name, (_, launcher, _) in DECODERS.items():
+        for name, (_, launcher, _, _) in DECODERS.items():
             m = self.mods[name]
             fn = getattr(m, launcher)
             self.saved[name] = fn
@@ -1595,19 +1670,21 @@ class RecordDecoders:
         return self
 
     def __exit__(self, *exc):
-        for name, (_, launcher, _) in DECODERS.items():
+        for name, (_, launcher, _, _) in DECODERS.items():
             setattr(self.mods[name], launcher, self.saved[name])
         return False
 
 
 def decoder_calls(mods: dict) -> dict:
     """For each kernel: (the wrapper that launches it, its plain version), both taking the launcher's arguments."""
-    dbn, onset, pyin, vit = (mods[n] for n in DECODERS)
+    dbn, onset, pyin, vit, bp = (mods[n] for n in ("dbn_viterbi", "onset_wait", "banded_viterbi", "dense_viterbi", "salience_envelope"))
     return {
         "dbn_viterbi": (dbn._dbn_forward, dbn._dbn_forward_plain),
         "onset_wait": (onset._wait, onset._wait_plain),
         "banded_viterbi": (pyin._banded_viterbi, pyin._banded_viterbi_plain),
         "dense_viterbi": (vit.viterbi_log_dense, vit.viterbi_log_dense_plain),
+        "salience_envelope": (bp.salience_envelope, bp.salience_envelope_plain),
+        "constant_switch_viterbi": (vit.viterbi_constant_switch, vit.viterbi_constant_switch_plain),
     }
 
 
@@ -1624,6 +1701,24 @@ def decoder_inputs(name: str, shape: tuple, like: tuple, rng) -> dict:
         runs = np.repeat(rng.random((*shape[:-1], shape[-1] // 6 + 1)) < 0.5, 6, axis=-1)[..., : shape[-1]]
         cases = {"random": rng.random(shape) < 0.3, "all candidates": np.ones(shape, bool), "runs": runs}
         return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dev), like[1]) for k, v in cases.items()}
+    if name == "salience_envelope":
+        x = rng.random(shape).astype(np.float32)
+        loud = x * np.float32(0.02)
+        loud[..., : shape[-1] // 4] += 1.0
+        cases = {"random": x, "constant block maxima": np.full(shape, 0.25, np.float32), "loud then silent": loud,
+                 "negative": -x - np.float32(0.5)}  # negative: the padding's zeros are the last block's maximum
+        return {k: (torch.from_numpy(v).to(dev), *like[1:]) for k, v in cases.items()}
+    if name == "constant_switch_viterbi":
+        em = rng.random(shape).astype(np.float32) ** 4 + np.float32(1e-3)
+        tied = em.copy()
+        tied[..., ::3] = 1.0  # every third frame all states equal
+        # probabilities 1, 1/2 and 1/4 with the penalty -log(1/2) as torch takes it on the card:
+        # costs land exactly on the minimum plus the penalty
+        levels = rng.choice(np.array([1.0, 0.5, 0.25], np.float32), size=shape)
+        at_penalty = float(-torch.log(torch.tensor(0.5, device=dev)))
+        return {"random": (torch.from_numpy(em / em.sum(1, keepdims=True)).to(dev), like[1]),
+                "equal columns": (torch.from_numpy(tied / tied.sum(1, keepdims=True)).to(dev), like[1]),
+                "at min + penalty": (torch.from_numpy(levels).to(dev), at_penalty)}
     if name == "banded_viterbi":
         n_bins = shape[-1]
         obs = rng.random(shape).astype(np.float32)
@@ -1673,6 +1768,19 @@ def decoder_work(name: str, args: tuple, mods: dict) -> tuple[int, int, int]:
         compares = rows * T * (2 * cands + 2 * n_bins) + rows * 2 * n_bins  # their argmaxes, stay or switch; the last frame
         u_bytes = (log_u.numel() if log_u.stride(-1) else log_u.numel() // n_bins) * 4
         return adds, compares, log_v.numel() * 4 + u_bytes + rows * T * 9 + (2 * band + 1) * 4
+    if name == "salience_envelope":
+        sal, stride = args[:2]
+        R, F, T = sal.shape
+        nblk = max(1, -(-T // stride))
+        # a maximum per element for the block maxima; per block the row's maximum, the two
+        # scans' maxima, their maximum and the floor; the scans' multiplies at the add rate
+        return R * (2 * nblk + 1), R * (F * T + 5 * nblk), sal.numel() * 4 + R * nblk * 4
+    if name == "constant_switch_viterbi":
+        em = args[0]
+        B, S, T = em.shape
+        # each frame: the minimum (S compares), the stay test (S), S + 1 adds; the last frame's minimum
+        adds, compares = B * (T - 1) * (S + 1), B * ((T - 1) * 2 * S + S)
+        return adds, compares, em.numel() * 4 + 2 * B * T * 4  # emissions in; path and confidences out
     em = args[0]
     B, T, S = em.shape
     adds, compares = B * ((T - 1) * (S * S + S) + S), B * ((T - 1) * S * S + S)
@@ -1705,24 +1813,26 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
         kept = shapes[name].setdefault(shape, [])
         if args is not None:
             kept.append(args)
-    bucket = (1, beat_frames(Settings().PAD_SECONDS_BUCKET))
-    if bucket not in shapes["dbn_viterbi"]:
-        raise AssertionError(f"no DBN launch at the 30 s bucket's {bucket}: the frame count of beat_frames is off")
-    long_t = beat_frames(LONG_SONG_S)
-    long_shapes = {(b, long_t): kinds for b, kinds in LONG_SONG_CASES.items()}
-    print(f"the {LONG_SONG_S} s song: {long_t} beat frames (the 30 s bucket: {bucket[1]})")
+    bucket = decoder_shapes_at(Settings().PAD_SECONDS_BUCKET)
+    for name, at in bucket.items():
+        one_song = next(iter(at))
+        if one_song not in shapes[name]:
+            raise AssertionError(f"no {name} launch at the 30 s bucket's {one_song}: its frame count here is off")
+    long_shapes = decoder_shapes_at(LONG_SONG_S)
+    print(f"the {LONG_SONG_S} s song: shapes {[list(at) for at in long_shapes.values()]} "
+          f"(the 30 s bucket: {[next(iter(at)) for at in bucket.values()]})")
     out = {}
     for name, by_shape in shapes.items():
         kernel, plain = calls[name]
-        mod = mods[name]
+        _, launch_args, launch, _ = decoder_api(mods, name)
         rows, err = {}, 0.0
-        extra = {shape: None for shape in long_shapes} if name == "dbn_viterbi" else {}
+        extra = dict.fromkeys(long_shapes.get(name, {}))
         for shape, launched in sorted(by_shape.items()) + sorted(extra.items()):
             long_song = launched is None
-            like = shapes[name][bucket][0] if long_song else launched[0]
+            like = shapes[name][next(iter(bucket[name]))][0] if long_song else launched[0]
             made = decoder_inputs(name, shape, like, rng)
             if long_song:
-                cases = {k: made[k] for k in long_shapes[shape]}
+                cases = {k: made[k] for k in long_shapes[name][shape]}
             else:
                 cases = {f"launched {i}": a for i, a in enumerate(launched)} | made
             for case, args in cases.items():
@@ -1737,12 +1847,12 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                 print(f"{name} {'x'.join(map(str, shape))}: bit-equal to the plain version on {', '.join(cases)} (the {LONG_SONG_S} s song, not timed)")
                 continue
             args = next(iter(cases.values())) if long_song else like
-            prepared = mod._launch_args(*args)
+            prepared = launch_args(*args)
             adds, compares, nbytes = decoder_work(name, args, mods)
             row = dict(
-                ms=cuda_ms(lambda: mod._launch(*prepared), reps=20),
-                single_ms=cuda_ms(lambda: mod._launch(*prepared), reps=10, spin=False),
-                device_ms=device_ms(lambda: mod._launch(*prepared), reps=10, key=f"{name}_kernel"),
+                ms=cuda_ms(lambda: launch(*prepared), reps=20),
+                single_ms=cuda_ms(lambda: launch(*prepared), reps=10, spin=False),
+                device_ms=device_ms(lambda: launch(*prepared), reps=10, key=f"{name}_kernel"),
                 wrapper_ms=cuda_ms(lambda: kernel(*args), reps=10),
                 # seconds a run at the long song's length: once, after the checks' runs
                 plain_ms=cuda_ms(lambda: plain(*args), reps=1, warmup=0) if long_song else cuda_ms(lambda: plain(*args), reps=3, warmup=1),
@@ -1771,12 +1881,14 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
     return out
 
 
-def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_path: dict) -> dict:
+def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_path: dict, path: str) -> dict:
     """The kernels-line entry of a decoder kernel: its launches in one warm
-    CLI song (and ``by_path``, each path's count), and its time (the kernel
-    on prepared inputs, by events and in the profiler), the wrapper's, the
-    plain time and the bound summed over that song's launch shapes (the bound
-    from the song's total operations and bytes)."""
+    song of its path (``main_path``: the CLI under the shipped settings, or
+    the template backend's for the constant-switch Viterbi; ``by_path``, each
+    path's count), and its time (the kernel on prepared inputs, by events and
+    in the profiler), the wrapper's, the plain time and the bound summed over
+    that song's launch shapes (the bound from the song's total operations and
+    bytes)."""
     rows = [measured["rows"]["x".join(map(str, shape))] for shape in main_path["decoder_shapes"][name]]
     ops_ms, byte_ms = sum(r["ops_bound_ms"] for r in rows), sum(r["byte_bound_ms"] for r in rows)
     return {
@@ -1784,6 +1896,7 @@ def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_pa
         "route": "cuda",
         "source": f"audiotabs_tpu_torch/csrc/{name}.cu",
         "replaces": DECODERS[name][2],
+        "path": path,
         "launches": main_path["decoder_launches"][name],
         "launches_per_batch_chunk": [c[name] for c in batch["decoder_launches_per_chunk"]],
         "launches_by_path": by_path,
@@ -1796,7 +1909,9 @@ def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_pa
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": max(ops_ms, byte_ms),
         "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
-        "library_ms": None,  # no one PyTorch call computes this decoder
+        # no one PyTorch call computes this decoder bit-equal (for the envelope, a cummax over
+        # powers of 0.6 rounds otherwise than the scan's multiply-then-max)
+        "library_ms": None,
         "shapes_per_song": ["x".join(map(str, shape)) for shape in main_path["decoder_shapes"][name]],
         "ms_per_frame_per_song": sum(r["ms_per_frame"] for r in rows),
         "by_shape": measured["rows"],
@@ -1817,14 +1932,18 @@ TRAIN_LAUNCHES = {"htdemucs": 8, "beat_rnn": 20, "key_cnn": 124, "deepchroma": 3
 # baseline) the beats of 8 validation clips each (24); DeepChroma's gates
 # CRF-decode 10 clips twice (the net's chroma, the salience chroma: 20); the
 # CRF trainer decodes 30 selection clips for each of 24 (tau, alpha), 30
-# validation clips twice and the 6 held-out clips twice (792)
+# validation clips twice and the 6 held-out clips twice (792). Salience
+# envelopes: the key CNN's Krumhansl baseline on its 24 validation clips
+# (chords/extract.py::chroma_features), DeepChroma's salience chroma of its 10
+# validation clips, Basic Pitch's salience baseline on its 12 validation and
+# the 6 held-out clips (18)
 TRAIN_DECODER_LAUNCHES = {
     "htdemucs": {"dbn_viterbi": 4},
     "beat_rnn": {"dbn_viterbi": 24},
-    "key_cnn": {},
-    "deepchroma": {"dense_viterbi": 20},
+    "key_cnn": {"salience_envelope": 24},
+    "deepchroma": {"dense_viterbi": 20, "salience_envelope": 10},
     "crf_chords": {"dense_viterbi": 792},
-    "basicpitch": {},
+    "basicpitch": {"salience_envelope": 18},
 }
 
 
@@ -2086,8 +2205,8 @@ def main() -> int:
         for b in builds:
             b.result()
     median.build()
-    for m in mods.values():
-        m.build()
+    for name in DECODERS:
+        decoder_api(mods, name)[3]()
     print(f"build: median_filter.cu, {', '.join(f'{n}.cu' for n in DECODERS)} in {time.perf_counter() - t0:.2f} s (in parallel)")
 
     t_run = time.perf_counter()
@@ -2197,6 +2316,13 @@ def main() -> int:
     decoders = run_phase("decoders", lambda: decoders_phase(mods, dec_recorder, kernel["sm_clock_mhz"]))
     print(f"all phases: {time.perf_counter() - t_run:.2f} s")
 
+    # each decoder kernel's own path: the CLI under the shipped settings, the
+    # template backend (majmin7) for the constant-switch Viterbi (its counted song; the traced one came after)
+    template = dict(cases["template"], decoder_shapes={
+        name: [shape for n, tag, shape, _ in dec_recorder.launches if (n, tag) == (name, "template")][: cases["template"]["decoder_launches"][name]]
+        for name in DECODERS})
+    own_path = {name: (main_path, "cli, shipped settings") for name in DECODERS}
+    own_path["constant_switch_viterbi"] = (template, "cli, CHORD_DETECTION_BACKEND=template, CHORD_VOCAB=majmin7")
     print(json.dumps({"kernels": [{
         "name": "median_filter",
         "route": "cuda",
@@ -2235,14 +2361,14 @@ def main() -> int:
         "sm_clock_mhz": kernel["sm_clock_mhz"],
         "fmnmx_per_output": kernel["fmnmx_per_output"],
         "ptxas": kernel["ptxas"],
-    }] + [decoder_entry(name, decoders[name], main_path, batch, {
+    }] + [decoder_entry(name, decoders[name], own_path[name][0], batch, {
         "run_analysis": DECODER_LAUNCHES_PER_SONG[name],
         "inline_and_queued_job": DECODER_LAUNCHES_PER_SONG[name],
-        "mesh_shard_of_b_rows": "b" if name == "dense_viterbi" else DECODER_LAUNCHES_PER_SONG[name],
+        "mesh_shard_of_b_rows": "b" if name in ROW_KERNELS else DECODER_LAUNCHES_PER_SONG[name],
         **{case: cases[case]["decoder_launches"][name] for case in SETTINGS_CASES},
         "degraded": degraded["runs"][-1]["decoder_launches"][name],
         "train_by_trainer": {t: n[name] for t, n in train["decoder_launches"].items()},
-    }) for name in DECODERS]}))
+    }, own_path[name][1]) for name in DECODERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,13 +1,15 @@
-"""The four decoder kernels against their plain loops, on the card.
+"""The six decoder kernels against their plain loops, on the card.
 
-``_dbn_forward``, the onset wait rule, ``_banded_viterbi`` and
-``viterbi_log_dense`` launch csrc/dbn_viterbi.cu, onset_wait.cu,
-banded_viterbi.cu and dense_viterbi.cu for a CUDA tensor; each launch must
-add one to its module's count and give exactly the plain loop's output, on
-random and tie-heavy inputs made from numpy seeds (the same inputs
-tests/test_torch_decoders.py holds the plain loops against the JAX package
-with). Every test here is ``cuda``-marked and skips without a card. The file
-imports no JAX, so it also runs where only PyTorch is installed:
+``_dbn_forward``, the onset wait rule, ``_banded_viterbi``,
+``viterbi_log_dense``, ``viterbi_constant_switch`` and ``salience_envelope``
+launch csrc/dbn_viterbi.cu, onset_wait.cu, banded_viterbi.cu,
+dense_viterbi.cu, constant_switch_viterbi.cu and salience_envelope.cu for a
+CUDA tensor; each launch must add one to its count and give exactly the
+plain loop's output, on random and tie-heavy inputs made from numpy seeds
+(the same inputs tests/test_torch_decoders.py and
+tests/test_torch_scan_kernels.py hold the plain loops against the JAX
+package with). Every test here is ``cuda``-marked and skips without a card.
+The file imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_decoder_kernels.py -m cuda
 """
@@ -22,6 +24,7 @@ import torch
 
 from audiotabs_tpu_torch.decode import dbn_beats as tdbn
 from audiotabs_tpu_torch.decode import viterbi as tvit
+from audiotabs_tpu_torch.models import basicpitch as tbp
 from audiotabs_tpu_torch.ops import onset as tonset
 
 # the ops package re-exports the pyin function under the module's name
@@ -82,6 +85,36 @@ def _emissions(kind: str, B: int = 3, T: int = 60, S: int = 7) -> tuple[np.ndarr
     return np.log(em).astype(np.float32), np.log(trans).astype(np.float32)
 
 
+def _switch_emissions(kind: str, B: int = 3, S: int = 49, T: int = 301) -> np.ndarray:
+    """[B, S, T] chord-state probabilities. "equal columns": every third frame
+    all states are equal; "at min + penalty": probabilities 1, 1/2 and 1/4,
+    costs 0, c and 2c, so with a penalty of c = -log(1/2) costs land exactly
+    on the minimum plus the penalty."""
+    rng = np.random.default_rng(29)
+    if kind == "at min + penalty":
+        return rng.choice(np.array([1.0, 0.5, 0.25], np.float32), size=(B, S, T))
+    em = rng.random((B, S, T)).astype(np.float32) ** 4 + np.float32(1e-3)
+    if kind == "equal columns":
+        em[:, :, ::3] = 1.0
+    return em / em.sum(1, keepdims=True)
+
+
+def _salience(kind: str, R: int = 2, T: int = 2584) -> np.ndarray:
+    """[R, 88, T] salience. "loud then silent": the decay decides the
+    envelope; "constant": every block maximum ties; "negative": the last
+    block's padding zeros are its maximum, above the row's maximum."""
+    rng = np.random.default_rng(31)
+    x = rng.random((R, 88, T)).astype(np.float32)
+    if kind == "constant":
+        return np.full((R, 88, T), 0.25, np.float32)
+    if kind == "negative":
+        return -x - 0.5
+    if kind == "loud then silent":
+        x *= 0.02
+        x[:, :, : T // 4] += 1.0
+    return x
+
+
 # ---- on the card ---------------------------------------------------------
 
 
@@ -92,11 +125,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _launched(module, fn):
-    before = module.LAUNCHES
+def _launched(module, fn, counter: str = "LAUNCHES"):
+    before = getattr(module, counter)
     out = fn()
     torch.cuda.synchronize()
-    assert module.LAUNCHES == before + 1
+    assert getattr(module, counter) == before + 1
     return out
 
 
@@ -187,3 +220,39 @@ def test_cuda_dbn_score_too_large_for_shared_memory_raises(cuda):
     # 25 BPM at 100 fps: 214 tempi x 240 phases, two scores of 411 KB
     with pytest.raises(ValueError, match="shared memory"):
         tdbn._dbn_forward(torch.rand(1, 50, device=cuda), min_bpm=25.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "equal columns", "at min + penalty"])
+@pytest.mark.parametrize("B,S,T", [(1, 49, 301), (1, 61, 301), (3, 25, 120), (2, 64, 40), (1, 49, 1801), (2, 7, 1)])
+def test_cuda_constant_switch_kernel_equals_plain_version(cuda, kind, B, S, T):
+    em = torch.from_numpy(_switch_emissions(kind, B, S, T)).to(cuda)
+    penalty = float(-np.log(np.float32(0.5))) if kind == "at min + penalty" else 2.5
+    got = _launched(tvit, lambda: tvit.viterbi_constant_switch(em, penalty), "SWITCH_LAUNCHES")
+    ref = tvit.viterbi_constant_switch_plain(em, penalty)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    one = _launched(tvit, lambda: tvit.viterbi_constant_switch(em[0], penalty), "SWITCH_LAUNCHES")
+    assert torch.equal(one[0], ref[0][0]) and torch.equal(one[1], ref[1][0])
+
+
+@pytest.mark.cuda
+def test_cuda_constant_switch_kernel_refuses_too_many_states(cuda):
+    with pytest.raises(ValueError, match="at most 64"):
+        tvit.viterbi_constant_switch(torch.rand(1, 65, 10, device=cuda), 2.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "constant", "negative", "loud then silent"])
+@pytest.mark.parametrize("R,T", [(1, 2584), (4, 2584), (1, 15504), (2, 700), (1, 37)])
+def test_cuda_salience_envelope_kernel_equals_plain_version(cuda, kind, R, T):
+    sal = torch.from_numpy(_salience(kind, R, T)).to(cuda)
+    got = _launched(tbp, lambda: tbp.salience_envelope(sal))
+    assert torch.equal(got, tbp.salience_envelope_plain(sal))
+    one = _launched(tbp, lambda: tbp.salience_envelope(sal[0]))
+    assert torch.equal(one, got[0])
+
+
+@pytest.mark.cuda
+def test_cuda_salience_envelope_kernel_refuses_a_stride_off_the_warp(cuda):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tbp.salience_envelope(torch.rand(1, 88, 100, device=cuda), stride=48)

@@ -41,7 +41,7 @@ jpyin = importlib.import_module("audiotabs_tpu.ops.pyin")
 tpyin = importlib.import_module("audiotabs_tpu_torch.ops.pyin")
 
 SCORE_RTOL = 1e-6
-SOURCES = ("dbn_viterbi", "onset_wait", "banded_viterbi", "dense_viterbi")
+SOURCES = ("dbn_viterbi", "onset_wait", "banded_viterbi", "dense_viterbi", "salience_envelope", "constant_switch_viterbi")
 
 
 # ---- DBN -----------------------------------------------------------------
