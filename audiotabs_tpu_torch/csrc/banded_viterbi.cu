@@ -21,7 +21,9 @@
 // propagation's maximum (a max is the same in any order) and keeps, per bin
 // and frame, both maxima and the bin's previous scores; the backtrack
 // recomputes the sums around its bin and takes the first one equal to the
-// maximum: the lowest offset, as the first maximum.
+// maximum: the lowest offset, as the first maximum. A NaN is the maximum, as
+// torch.max, torch.maximum and torch.argmax take it: the maxima propagate it
+// (max.NaN.f32) and every argmax takes the first NaN.
 //
 // Bound. The content windows of one song are 20 rows of 130 frames of 241
 // bins: 51 candidate adds and maxima per bin and layer per frame, about
@@ -71,9 +73,28 @@ constexpr int kBins = 4;   // adjacent bins per group; lane q finishes bin q
 static_assert(kLanes == kBins, "each lane finishes one bin of its group");
 constexpr int kStageBytes = 128 * 1024;  // frame records staged for the backtrack at a time
 
-// (value, index) pairs: the larger value wins, the lower index a tie
+// max.NaN.f32: a NaN when either input is one, as torch.max, torch.maximum and jnp.max
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// Whether (ov, oi) is the first maximum over (bv, bi) as torch.argmax takes
+// it: a NaN above every number, the lower index on a tie (two NaNs tie)
+__device__ __forceinline__ bool before(float ov, int oi, float bv, int bi) {
+  const bool o_nan = ov != ov, b_nan = bv != bv;
+  if (o_nan || b_nan) return o_nan && (!b_nan || oi < bi);
+  return ov > bv || (ov == bv && oi < bi);
+}
+
+// Whether v is the argmax's pick among sums whose NaN-propagating maximum is
+// m: equal to it or, when m is a NaN, a NaN itself (no sum is a NaN unless m is)
+__device__ __forceinline__ bool hits_max(float v, float m) { return v == m || v != v; }
+
+// (value, index) pairs: the first maximum wins
 __device__ __forceinline__ void take_first_max(float& bv, int& bi, float ov, int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
+  if (before(ov, oi, bv, bi)) {
     bv = ov;
     bi = oi;
   }
@@ -199,8 +220,8 @@ banded_viterbi_kernel(const float* __restrict__ obs_v,    // [R, T, n_bins]
       wu[kBins - 1] = cu[b0 + k + kBins - 1];
 #pragma unroll
       for (int i = 0; i < kBins; ++i) {
-        pv[i] = fmaxf(pv[i], wv[i] + tk);
-        pu[i] = fmaxf(pu[i], wu[i] + tk);
+        pv[i] = max_nan(pv[i], wv[i] + tk);
+        pu[i] = max_nan(pu[i], wu[i] + tk);
       }
 #pragma unroll
       for (int i = 0; i + 1 < kBins; ++i) {
@@ -212,8 +233,8 @@ banded_viterbi_kernel(const float* __restrict__ obs_v,    // [R, T, n_bins]
     for (int off = kLanes / 2; off > 0; off >>= 1) {
 #pragma unroll
       for (int i = 0; i < kBins; ++i) {
-        pv[i] = fmaxf(pv[i], __shfl_xor_sync(0xffffffffu, pv[i], off));
-        pu[i] = fmaxf(pu[i], __shfl_xor_sync(0xffffffffu, pu[i], off));
+        pv[i] = max_nan(pv[i], __shfl_xor_sync(0xffffffffu, pv[i], off));
+        pu[i] = max_nan(pu[i], __shfl_xor_sync(0xffffffffu, pu[i], off));
       }
     }
     SPLIT(0);  // the candidates and the group's shuffles
@@ -224,8 +245,8 @@ banded_viterbi_kernel(const float* __restrict__ obs_v,    // [R, T, n_bins]
     const float nu_stay = mu + log_stay, nu_sw = mv + log_switch;
     if (stores) {
       rec_b[static_cast<size_t>(t) * n_bins] = make_float4(mv, mu, cv[mine + band], cu[mine + band]);
-      sv[((t + 1) & 1) * W + mine + band] = (nv_sw > nv_stay ? nv_sw : nv_stay) + ov;
-      su[((t + 1) & 1) * W + mine + band] = (nu_sw > nu_stay ? nu_sw : nu_stay) + ou;
+      sv[((t + 1) & 1) * W + mine + band] = max_nan(nv_stay, nv_sw) + ov;
+      su[((t + 1) & 1) * W + mine + band] = max_nan(nu_stay, nu_sw) + ou;
     }
     ov = ov_next;
     ou = ou_next;
@@ -298,13 +319,13 @@ banded_viterbi_kernel(const float* __restrict__ obs_v,    // [R, T, n_bins]
       const float4 near0 = near(lane), near1 = near(32 + lane);
       const bool prev_is_v = is_v ? !(here.y + log_switch > here.x + log_stay) : here.x + log_switch > here.y + log_stay;
       const float target = prev_is_v ? here.x : here.y;
-      const unsigned hit0 = __ballot_sync(0xffffffffu, (prev_is_v ? near0.z : near0.w) + tri0 == target);
-      const unsigned hit1 = __ballot_sync(0xffffffffu, (prev_is_v ? near1.z : near1.w) + tri1 == target);
+      const unsigned hit0 = __ballot_sync(0xffffffffu, hits_max((prev_is_v ? near0.z : near0.w) + tri0, target));
+      const unsigned hit1 = __ballot_sync(0xffffffffu, hits_max((prev_is_v ? near1.z : near1.w) + tri1, target));
       int k = hit0 ? __ffs(hit0) - 1 : hit1 ? 32 + __ffs(hit1) - 1 : -1;
       for (int c = 2; k < 0 && c * 32 <= 2 * band; ++c) {  // a band wider than 31
         const float4 w = near(c * 32 + lane);
         const float tk = c * 32 + lane <= 2 * band ? tri[c * 32 + lane] : 0.0f;
-        const unsigned hit = __ballot_sync(0xffffffffu, (prev_is_v ? w.z : w.w) + tk == target);
+        const unsigned hit = __ballot_sync(0xffffffffu, hits_max((prev_is_v ? w.z : w.w) + tk, target));
         if (hit) k = c * 32 + __ffs(hit) - 1;
       }
       at = min(max(at + k - band, 0), n_bins - 1);

@@ -22,8 +22,11 @@
 // each phase 0 (a max is the same in any order) and keeps each frame's
 // last-phase scores; the backtrack recomputes, at each beat, the same sums
 // and takes their first maximum: each lane scans its ascending candidates
-// with a strict >, and (value, index) pairs then reduce with the lower index
-// winning a tie, which gives the first maximum whatever the order.
+// with a strict > (a NaN above a number), and the warp then takes the
+// largest order-preserving integer key and the lowest index holding it (two
+// redux.sync), which gives the first maximum whatever the order. A NaN is
+// the maximum, as torch.max and torch.argmax take it: the maxima propagate
+// it (max.NaN.f32) and every argmax takes the first NaN.
 //
 // Bound. One 3,000-frame song needs about 60 M adds and compares (2,999
 // frames of 84 x 84 transition candidates, each an add and a compare, and
@@ -73,12 +76,35 @@ constexpr int kLanes = 8;     // lanes per target tempo: a power of two, within 
 constexpr int kChunk = 2048;  // frames of observations staged in shared memory at a time
 constexpr float kNegInf = -1e30f;
 
-// (value, index) pairs: the larger value wins, the lower index a tie
-__device__ __forceinline__ void take_first_max(float& bv, int& bi, float ov, int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
+// max.NaN.f32: a NaN when either input is one, as torch.max, torch.maximum and jnp.max
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// an ascending scan's step: a later index wins only a larger value, or a
+// NaN over a number (torch.argmax takes a NaN for the maximum)
+__device__ __forceinline__ void take_if_above(float& bv, int& bi, float v, int i) {
+  if (v > bv || (v != v && bv == bv)) {
+    bv = v;
+    bi = i;
   }
+}
+
+// An integer key whose signed order is the float order, every NaN above
+// every number; -0 and +0 share the key of +0.
+__device__ __forceinline__ int max_key(float v) {
+  if (v != v) return INT_MAX;
+  const int i = __float_as_int(__fadd_rn(v, 0.0f));
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+// The warp's first maximum of the lanes' (key, index) pairs: the largest
+// key, then the lowest index holding it (two integer warp reductions)
+__device__ __forceinline__ int first_max_index(int key, int i, int& max_key_out) {
+  max_key_out = __reduce_max_sync(0xffffffffu, key);
+  return __reduce_min_sync(0xffffffffu, key == max_key_out ? i : INT_MAX);
 }
 
 // r[k] for 0 <= k < R by a tree of selects over the bits of k (another k gives any r)
@@ -94,15 +120,6 @@ __device__ __forceinline__ float pick(const float (&r)[R], int k) {
     for (int i = 0; i + (1 << lvl) < R; i += 2 << lvl) a[i] = hi ? a[i + (1 << lvl)] : a[i];
   }
   return a[0];
-}
-
-__device__ __forceinline__ void reduce_first_max(float& bv, int& bi, int width) {
-#pragma unroll
-  for (int off = width / 2; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    take_first_max(bv, bi, ov, oi);
-  }
 }
 
 // The shared-memory layout, in floats: the last-phase scores [2][S kLanes],
@@ -135,8 +152,8 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
   float* oo = ob + kChunk;      // [kChunk]: their off-beat term
   float* ltT = oo + kChunk;     // [n][LT] (kLtShared): ltT[j][i] = log_trans[i][j]
   int* L = reinterpret_cast<int*>(ltT + (kLtShared ? n * LT : 0));
-  float* red_v = reinterpret_cast<float*>(L + n);  // [32]
-  int* red_i = reinterpret_cast<int*>(red_v + 32);  // [32]
+  int* red_k = L + n;        // [32]: each warp's largest key
+  int* red_i = red_k + 32;   // [32]: its first index
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -148,7 +165,9 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
   const int j = active ? g : n - 1;  // an idle group mirrors the last tempo and stores nothing
   const int Lj = intervals[j];
   const int blj = beat_len[j];
-  const int base = l * R;  // this lane's first phase
+  const int base = l * R;  // this lane's first phase; its slots k are phases base + k
+  const int in_row = P - base;     // slots k < in_row lie in the [n, P] score
+  const int in_beat = blj - base;  // slots k < in_beat lie in the beat window
   const bool owns_last = active && base <= Lj - 1 && Lj - 1 < base + R;
   SPLIT_START;
 
@@ -174,7 +193,7 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
   const float* init_j = init + (static_cast<size_t>(b) * n + j) * P;
   float r[R];
 #pragma unroll
-  for (int k = 0; k < R; ++k) r[k] = base + k < P ? init_j[base + k] : kNegInf;
+  for (int k = 0; k < R; ++k) r[k] = k < in_row ? init_j[base + k] : kNegInf;
   float* hist_b = hist + static_cast<size_t>(b) * (T - 1) * n;
   float* hist_j = hist_b + j;  // tempo j's entry of the next frame to keep
   if (owns_last) {
@@ -203,17 +222,27 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
 
     // the score entering phase 0 of tempo j: the maximum over this lane's
     // sources l S .. l S + S - 1, then over the group
-    float part[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // four chains, for latency
+    // independent chains, for latency: four, or two where the transitions
+    // come from shared memory and a 1,024-thread block leaves 64 registers
+    constexpr int kChains = kLtShared ? 2 : 4;
+    float part[kChains];
+#pragma unroll
+    for (int q = 0; q < kChains; ++q) part[q] = -INFINITY;
 #pragma unroll
     for (int s4 = 0; s4 < S; s4 += 4) {
       const float4 x = *reinterpret_cast<const float4*>(cur + l * S + s4);
       const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) part[q] = fmaxf(part[q], xs[q] + (kLtShared ? ltc[s4 + q] : lt[kLtShared ? 0 : s4 + q]));
+      for (int q = 0; q < 4; ++q) part[q % kChains] = max_nan(part[q % kChains], xs[q] + (kLtShared ? ltc[s4 + q] : lt[kLtShared ? 0 : s4 + q]));
     }
-    float best = fmaxf(fmaxf(part[0], part[1]), fmaxf(part[2], part[3]));
+    float best;
+    if constexpr (kChains == 4) {
+      best = max_nan(max_nan(part[0], part[1]), max_nan(part[2], part[3]));
+    } else {
+      best = max_nan(part[0], part[1]);
+    }
 #pragma unroll
-    for (int off = kLanes / 2; off > 0; off >>= 1) best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
+    for (int off = kLanes / 2; off > 0; off >>= 1) best = max_nan(best, __shfl_xor_sync(0xffffffffu, best, off));
     SPLIT(0);  // the transition max: the lane's run and the group's shuffles
 
     // the roll: phase p takes phase p - 1 (across a lane boundary by a
@@ -222,8 +251,8 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
     const float lo = oo[c];
     const float carry = __shfl_up_sync(0xffffffffu, r[R - 1], 1, kLanes);
 #pragma unroll
-    for (int k = R - 1; k > 0; --k) r[k] = r[k - 1] + (base + k < blj ? lb : lo);
-    r[0] = (l == 0 ? best : carry) + (base < blj ? lb : lo);
+    for (int k = R - 1; k > 0; --k) r[k] = r[k - 1] + (k < in_beat ? lb : lo);
+    r[0] = (l == 0 ? best : carry) + (0 < in_beat ? lb : lo);
     const float last = pick(r, Lj - 1 - base);
     hist_j += n;
     if (owns_last) {
@@ -238,29 +267,24 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
   // flat argmax over [n, P] in row-major order, first maximum: the valid
   // phases and -1e30 at the others, each lane ascending, then the block
   float bv = -INFINITY;
-  int bi = INT_MAX;
+  int bk = INT_MAX;  // the lane's first best slot
   if (active) {
+    const int valid = Lj - base;  // slots k < valid are phases of tempo j
 #pragma unroll
     for (int k = 0; k < R; ++k) {
-      const int p = base + k;
-      const float v = p < Lj ? r[k] : kNegInf;
-      if (p < P && v > bv) {
-        bv = v;
-        bi = j * P + p;
-      }
+      if (k < in_row) take_if_above(bv, bk, k < valid ? r[k] : kNegInf, k);
     }
   }
-  reduce_first_max(bv, bi, 32);
+  int mk;
+  int bi = first_max_index(max_key(bv), bk == INT_MAX ? INT_MAX : j * P + base + bk, mk);
   if (lane == 0) {
-    red_v[warp] = bv;
+    red_k[warp] = mk;
     red_i[warp] = bi;
   }
   __syncthreads();
   if (warp != 0) return;
   const int n_warps = (blockDim.x + 31) / 32;
-  bv = lane < n_warps ? red_v[lane] : -INFINITY;
-  bi = lane < n_warps ? red_i[lane] : INT_MAX;
-  reduce_first_max(bv, bi, 32);
+  bi = first_max_index(lane < n_warps ? red_k[lane] : INT_MIN, lane < n_warps ? red_i[lane] : INT_MAX, mk);
   SPLIT(4);  // the final argmax
 
   // backtrack by warp 0: the frames lo .. k of a beat hold one tempo, the
@@ -284,14 +308,9 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
     bv = -INFINITY;
     bi = INT_MAX;
     for (int i = lane; i < n; i += 32) {
-      const float v = h[i] + log_trans[i * n + tempo];
-      if (v > bv) {
-        bv = v;
-        bi = i;
-      }
+      take_if_above(bv, bi, h[i] + log_trans[i * n + tempo], i);
     }
-    reduce_first_max(bv, bi, 32);
-    tempo = bi;
+    tempo = first_max_index(max_key(bv), bi, mk);
     phase = L[tempo] - 1;
     k = lo - 1;
   }

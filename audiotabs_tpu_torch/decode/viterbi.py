@@ -113,7 +113,9 @@ def viterbi_constant_switch(emissions: torch.Tensor, switch_penalty: float):
 
 
 def viterbi_log_dense_plain(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor):
-    """The plain version on [B, T, S]: a loop over frames, then over them backwards."""
+    """The plain version on [B, T, S]: a loop over frames, then over them
+    backwards. A NaN sum is the maximum, as jnp's: torch.argmax takes the
+    first NaN and the gathered score is that NaN."""
     T = log_emissions.shape[1]
     score = log_initial + log_emissions[:, 0]
     bps = []
@@ -138,23 +140,37 @@ def build():
     return _build.function("dense_viterbi", "dense_viterbi_f32", _ARGTYPES)
 
 
+# the most states the kernel takes; up to 32 run in its warp layout (one warp per sequence)
+MAX_STATES = 1024
+WARP_STATES = 32
+INT32_MAX = 2**31 - 1
+
+
 def _launch_args(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor) -> tuple:
     """The kernel's arguments for [B, T, S] on the card: the float32 inputs,
-    the backpointer scratch and the outputs (path [B, T], best [B])."""
+    the scratch of its frame records ([B, T - 1, 2, max(S, 32)] float32:
+    each frame's score and the maximum entering the next frame) and the
+    outputs (path [B, T], best [B]). Raises ValueError, before anything is
+    allocated, for a shape the kernel does not take."""
     B, T, S = log_emissions.shape
+    if S > MAX_STATES:
+        raise ValueError(f"the dense Viterbi kernel takes at most {MAX_STATES} states, got {S}")
+    if B > INT32_MAX or T * S > INT32_MAX:
+        raise ValueError(f"the dense Viterbi kernel takes fewer than 2**31 sequences and emissions per sequence, got [{B}, {T}, {S}]")
     dev = log_emissions.device
     return (
         log_emissions.to(torch.float32).contiguous(),
         log_transition.to(device=dev, dtype=torch.float32).contiguous(),
         log_initial.to(device=dev, dtype=torch.float32).contiguous(),
-        torch.empty((B, max(T - 1, 1), S), dtype=torch.int32, device=dev),
+        torch.empty((B, max(T - 1, 1), 2, max(S, WARP_STATES)), dtype=torch.float32, device=dev),
         torch.empty((B, T), dtype=torch.int32, device=dev),
         torch.empty((B,), dtype=torch.float32, device=dev),
     )
 
 
 def _launch(*args: torch.Tensor) -> None:
-    """One launch of csrc/dense_viterbi.cu on ``_launch_args``' tensors, one block per sequence."""
+    """One launch of csrc/dense_viterbi.cu on ``_launch_args``' tensors: a warp
+    per sequence up to 32 states, else a block per sequence."""
     global LAUNCHES
     B, T, S = args[0].shape
     dev = args[0].device
@@ -165,10 +181,7 @@ def _launch(*args: torch.Tensor) -> None:
 
 
 def _viterbi_log_dense_cuda(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor):
-    """[B, T, S] on the card: one launch, one thread per state."""
-    S = log_emissions.shape[-1]
-    if S > 1024:
-        raise ValueError(f"the dense Viterbi kernel takes at most 1024 states, got {S}")
+    """[B, T, S] on the card: one launch."""
     args = _launch_args(log_emissions, log_transition, log_initial)
     _launch(*args)
     return args[-2], args[-1]

@@ -1,7 +1,8 @@
 """CRF chord recognition (counterpart of audiotabs_tpu/models/crf_chords.py).
 
 A linear-chain CRF over 25 states (N, 12 maj, 12 min): a linear emission
-layer over [T, D] features, then the dense Viterbi of decode/viterbi.py.
+layer over [T, D] features, then the dense Viterbi of decode/viterbi.py;
+``decode`` takes a batch of songs [B, T, D] too.
 """
 
 from __future__ import annotations
@@ -79,17 +80,28 @@ def context_stack(feats: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def decode(params: dict, feats: torch.Tensor):
-    """feats [T, D] → (state path [T] int32, confidence [T]).
+    """feats [T, D] or [B, T, D] → (state path [T] or [B, T] int32,
+    confidence [T] or [B, T]).
 
     ``params`` is the numpy pytree of load_params/template_emission_params.
-    Gated (all-zero) frames decode as N whatever the emission weights."""
+    Gated (all-zero) frames decode as N whatever the emission weights. The
+    emission layer runs song by song, so a song's emissions, and its path,
+    do not depend on the batch it comes in; the Viterbi decodes the whole
+    batch in one call (one kernel launch on the card)."""
+    if feats.ndim not in (2, 3):
+        raise ValueError(f"decode takes [T, D] or [B, T, D] features, got shape {tuple(feats.shape)}")
+    songs = feats if feats.ndim == 3 else feats[None]
     p = convert.crf_tensors(params, feats.device)
-    silent = feats.abs().max(dim=-1).values < 1e-8
     d_in = p["emit_w"].shape[0]
-    if d_in != feats.shape[-1] and d_in % feats.shape[-1] == 0:
-        feats = context_stack(feats, d_in // feats.shape[-1])
-    log_em = torch.log_softmax(feats @ p["emit_w"] + p["emit_b"], dim=-1)
+
+    def log_emissions(f):
+        if d_in != f.shape[-1] and d_in % f.shape[-1] == 0:
+            f = context_stack(f, d_in // f.shape[-1])
+        return torch.log_softmax(f @ p["emit_w"] + p["emit_b"], dim=-1)
+
+    log_em = torch.stack([log_emissions(f) for f in songs])
     path, _score = viterbi_log_dense(log_em, p["transitions"], p["initial"])
+    silent = songs.abs().max(dim=-1).values < 1e-8
     path = torch.where(silent, torch.zeros_like(path), path)
-    conf = torch.exp(log_em[torch.arange(log_em.shape[0], device=feats.device), path.long()])
-    return path, conf
+    conf = torch.exp(log_em.gather(-1, path.long()[..., None])[..., 0])
+    return (path, conf) if feats.ndim == 3 else (path[0], conf[0])

@@ -10,6 +10,7 @@ and mean plus delta) are torch operations on either device.
 from __future__ import annotations
 
 import ctypes
+import operator
 
 import torch
 import torch.nn.functional as F
@@ -84,14 +85,32 @@ def build():
     return _build.function("onset_wait", "onset_wait_u8", _ARGTYPES)
 
 
+INT32_MAX = 2**31 - 1
+
+
+def _kernel_wait(wait: int, T: int) -> int:
+    """The kernel's wait for ``wait`` over rows of T frames: the same rule,
+    within a C int. A wait of -1 or less fires every candidate, as does -1;
+    one of T or more fires only a row's first candidate, as does T."""
+    return max(-1, min(operator.index(wait), T))
+
+
 def _launch_args(cand: torch.Tensor, wait: int) -> tuple:
-    """The kernel's arguments for bool candidates [..., T] on the card: the contiguous input and the output."""
+    """The kernel's arguments for bool candidates [..., T] on the card: the
+    contiguous input, the output and the kernel's wait. Raises, before
+    anything is allocated, for a wait that is not an integer (TypeError) and
+    a shape the kernel does not take (ValueError)."""
+    T = cand.shape[-1]
+    rows = cand.numel() // T
+    wait = _kernel_wait(wait, T)
+    if T > INT32_MAX or rows > INT32_MAX:
+        raise ValueError(f"the onset wait kernel takes fewer than 2**31 rows and frames, got {rows} rows of {T}")
     c = cand.contiguous()
     return c, torch.empty_like(c), wait
 
 
 def _launch(cand: torch.Tensor, fired: torch.Tensor, wait: int) -> None:
-    """One launch of csrc/onset_wait.cu on ``_launch_args``' tensors, one thread per row."""
+    """One launch of csrc/onset_wait.cu on ``_launch_args``' tensors, one warp per row."""
     global LAUNCHES
     rows, T = cand.numel() // cand.shape[-1], cand.shape[-1]
     with torch.cuda.device(cand.device):

@@ -7,7 +7,8 @@ kernel), BLSTM beat activation and DBN decode (csrc/dbn_viterbi.cu, every
 song of the batch in one launch), Basic Pitch posteriors, salience (its
 envelope in csrc/salience_envelope.cu) and DeepChroma chroma, template
 emissions, the template backend's decode (csrc/constant_switch_viterbi.cu)
-and the CRF decode (csrc/dense_viterbi.cu), the key CNN, the strum envelope,
+and the CRF decode (csrc/dense_viterbi.cu, every song of the batch in one
+launch), the key CNN, the strum envelope,
 content-window metrics (pYIN's Viterbi in csrc/banded_viterbi.cu, the onset
 wait rule in csrc/onset_wait.cu) and calibration statistics (the onset wait
 rule again). On the card these decoders are the kernels; on the CPU they are
@@ -116,14 +117,15 @@ def fused_analysis_batch(
     with a leading B axis; ``true_lens`` [B], ``y_beat`` and ``y_mix`` [B, T]
     are per song.
 
-    The HPSS splits, the DBN decode, the content-window metrics (all songs'
-    windows in one call), the strum envelope and the calibration statistics
-    run once on the whole batch: 8 median launches per batch with
-    ``y_beat``, and one launch each of the DBN kernel, of the banded Viterbi
-    (pYIN) and of the onset kernel twice (content windows and calibration),
-    whatever B is. The nets, the chord decodes (one dense Viterbi launch per
-    song) and the key CNN run song by song. Every reduction (energy and
-    envelope maxima, quantiles, masks) stays within its row."""
+    The HPSS splits, the DBN and CRF decodes, the content-window metrics (all
+    songs' windows in one call), the strum envelope and the calibration
+    statistics run once on the whole batch: 8 median launches per batch with
+    ``y_beat``, and one launch each of the DBN kernel, of the dense Viterbi
+    (the CRF), of the banded Viterbi (pYIN) and of the onset kernel twice
+    (content windows and calibration), whatever B is. The nets, the CRF's
+    emission layer, the template backend's decode (one constant-switch
+    launch per song) and the key CNN run song by song. Every reduction
+    (energy and envelope maxima, quantiles, masks) stays within its row."""
     models = models or load_models(y.device)
     n_songs, n = y.shape
     lens = [None] * n_songs if true_lens is None else [int(t) for t in true_lens]
@@ -144,12 +146,17 @@ def fused_analysis_batch(
     else:
         beat_src = y_perc if separate else y
 
-    # 3-4b. the nets and the chord decodes, song by song
+    # 3-4b. the nets and the template chord decode, song by song
     rows = [
         _song_stages(y[b], y_harm[b], beat_src[b], sr, switch_penalty, chord_backend, lens[b], models)
         for b in range(n_songs)
     ]
     out.update({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+
+    # 4b. CRF chord decode of every song's gated features in one call (one
+    # dense Viterbi launch)
+    if "crf_features" in out:
+        out["crf_path"], out["crf_conf"] = crf_chords.decode(models.crf, out.pop("crf_features"))
 
     # 4c. DBN beat decode of every song in one launch (on the f32
     # activations, before the f16 cast)
@@ -203,8 +210,10 @@ def _song_stages(
     true_len: int | None,
     models: AnalysisModels,
 ) -> dict[str, torch.Tensor]:
-    """One song's nets and sequential decodes: the beat activation, the AMT
-    posteriors, chroma and the chord decodes, the key CNN."""
+    """One song's nets and its template chord decode: the beat activation,
+    the AMT posteriors, chroma, the chord emissions and decode, the CRF's
+    gated features (``crf_features``, decoded for the whole batch by the
+    caller), the key CNN."""
     out: dict[str, torch.Tensor] = {}
 
     # 2. beat activation at 100 fps
@@ -249,7 +258,7 @@ def _song_stages(
         if true_len is not None:
             valid = torch.arange(feats_t.shape[0], device=y.device) * hop < true_len
             feats_t = torch.where(valid[:, None], feats_t, zeros)
-        out["crf_path"], out["crf_conf"] = crf_chords.decode(models.crf, feats_t)
+        out["crf_features"] = feats_t
 
     # 5b. key CNN: 24-class key probabilities
     if models.key is not None:

@@ -58,8 +58,8 @@
    equals the CLI's (``job_id`` aside).
 9. The batch runner (after 8): ``transcribe_batch`` over the six held-out
    clips (all in the 30 s bucket) in chunks of 4 and 2 songs, cold and warm:
-   8 median launches per chunk, one launch each of the DBN and banded
-   Viterbi kernels, two of the onset kernel and one CRF decode and salience
+   8 median launches per chunk, one launch each of the DBN, dense (CRF)
+   and banded Viterbi kernels, two of the onset kernel and one salience
    envelope per song per chunk, and in the profiler 8 median launches and 1
    device-to-host copy per chunk; each row's stems within STEM_TOL of a 1-D
    ``separate_program`` of the row, and its fused outputs against
@@ -72,8 +72,8 @@
    for B = 4 and 2, both axes) and times each against its byte bound.
 9a. The mesh (after 9, ``mesh_phase``): ``transcribe_batch`` over the six
     clips with ``mesh=default_mesh()`` (every card on one "data" axis): 8
-    median launches per chunk and, per device shard, one DBN, two onset, one
-    banded Viterbi launch and a CRF decode and a salience envelope per row;
+    median launches per chunk and, per device shard, one DBN, one CRF, two
+    onset, one banded Viterbi launch and a salience envelope per row;
     every row's discrete outputs and beat times
     equal to step 9's and its floats within FLOAT_TOL, the same artifact set;
     ``batched_fused_analysis`` over a 2-way "data" mesh of [cuda:0, cuda:0]
@@ -144,7 +144,10 @@
     majmin7plus' [1, 61, T]): on the launched inputs, random ones and
     tie-heavy ones (a constant and a two-level activation; every frame a
     candidate, runs of candidates; equal pYIN columns; equal emission
-    columns with uniform transitions; constant block maxima, a loud then
+    columns with uniform transitions, and a NaN emission and an all-NaN row
+    for the DBN (activations), pYIN and the CRF: a NaN is the maximum, as
+    torch.argmax takes it, and a NaN output equals a NaN; a wait of 0 and of
+    -1 for the onset rule; constant block maxima, a loud then
     silent row and a negative one whose padding holds the last block's
     maximum; equal emission columns, and costs exactly at the minimum plus
     the penalty). Each shape is timed: the kernel alone on inputs
@@ -152,14 +155,18 @@
     duration in the profiler), the wrapper with torch's preparation, and the
     plain loop on the card; beside the bound (adds at 128 and compares at 64
     per SM per clock at the clock of step 3, or bytes at 3.35 TB/s,
-    whichever is larger) and the time per frame. The DBN, the salience
-    envelope and the constant-switch Viterbi are also held at the length of
-    the JAX package's 180 s song (``LONG_SONG_S``): the DBN at [1, 18041] on
-    the random, constant and two-level inputs and at [4, 18041] once on
-    random inputs, the envelope at [1, 88, 15504] and the constant-switch
-    Viterbi at [1, 49, 1801] on their random and tie-heavy inputs; each
-    [1, ...] shape timed (its plain loop once). No decoder kernel may spill
-    registers (ptxas).
+    whichever is larger) and the time per frame. The DBN, the onset rule,
+    the CRF's dense Viterbi, the salience envelope and the constant-switch
+    Viterbi are also held at the length of the JAX package's 180 s song
+    (``LONG_SONG_S``): the DBN at [1, 18041] on the random, constant and
+    two-level inputs and at [4, 18041] once on random inputs, the onset rule
+    at [1, 7752], the dense Viterbi at [1, 1801, 25] (with its NaN cases),
+    the envelope at [1, 88, 15504] and the constant-switch Viterbi at
+    [1, 49, 1801] on their random and tie-heavy inputs; the dense Viterbi
+    also in its block layout at [2, 301, 61] (``OTHER_LAYOUT_SHAPES``, more
+    states than a warp's lanes); each [1, ...] shape and the block layout's
+    timed (its plain loop once). No decoder kernel may spill registers
+    (ptxas).
 15. Prints the kernel table as one JSON line (the median kernel and the six
     decoder kernels, each decoder with its launches on its own path: the
     CLI under the shipped settings, the template backend for the
@@ -276,17 +283,23 @@ DECODERS = {
 # wait rule of the content windows and of the calibration, pYIN's Viterbi of
 # the content windows, the CRF decode, the salience envelope; no
 # constant-switch decode (the template backend's); in a batch chunk or a
-# mesh shard of b songs the same, but a CRF decode and a salience envelope
-# per song (ROW_KERNELS)
+# mesh shard of b songs the same, but a salience envelope per song
+# (ROW_KERNELS)
 DECODER_LAUNCHES_PER_SONG = {"dbn_viterbi": 1, "onset_wait": 2, "banded_viterbi": 1, "dense_viterbi": 1,
                              "salience_envelope": 1, "constant_switch_viterbi": 0}
-ROW_KERNELS = ("dense_viterbi", "salience_envelope")
+ROW_KERNELS = ("salience_envelope",)
 # the JAX package's north-star song (bench.py's long_song_wall_s): the DBN,
-# the salience envelope and the constant-switch Viterbi (majmin7's 49
-# states) are also held and timed at its length, [1, ...] on the tie-heavy
-# inputs too and the DBN at [4, T] once; the plain loops take up to seconds
-# there, so each is timed once
+# the onset rule, the CRF's dense Viterbi, the salience envelope and the
+# constant-switch Viterbi (majmin7's 49 states) are also held and timed at
+# its length, [1, ...] on the tie-heavy inputs too and the DBN at [4, T]
+# once; the plain loops take up to seconds there, so each is timed once
 LONG_SONG_S = 180
+# shapes no path launches that take another layout of a kernel: the dense
+# Viterbi's block layout (more states than a warp's 32 lanes), held on the
+# inputs named and timed once
+OTHER_LAYOUT_SHAPES = {
+    "dense_viterbi": {(2, 301, 61): ("random", "equal columns, uniform transitions", "one NaN", "NaN row")},
+}
 
 
 def beat_frames(seconds: float, sr: int = 22050, fps: int = 100) -> int:
@@ -300,6 +313,11 @@ def hcqt_frames(seconds: float, sr: int = 22050, hop: int = 256) -> int:
     return int(seconds * sr) // hop + 1
 
 
+def onset_frames(seconds: float, sr: int = 22050, hop: int = 512) -> int:
+    """Frames of the calibration's onset envelope of ``seconds`` of audio (``runtime/fused.py``: hop 512, centred)."""
+    return int(seconds * sr) // hop + 1
+
+
 def chroma_frames(seconds: float, sr: int = 22050, fps: int = 10) -> int:
     """Frames of the chord chroma and emissions of ``seconds`` of audio (``runtime/fused.py``: hop sr / 10)."""
     return int(seconds * sr) // round(sr / fps) + 1
@@ -310,6 +328,8 @@ def decoder_shapes_at(seconds: float) -> dict[str, dict[tuple, tuple[str, ...]]]
     long song's length, each with the inputs to hold it on."""
     return {
         "dbn_viterbi": {(1, beat_frames(seconds)): ("random", "constant", "two levels"), (4, beat_frames(seconds)): ("random",)},
+        "onset_wait": {(1, onset_frames(seconds)): ("random", "all candidates", "runs", "wait 0", "wait -1")},
+        "dense_viterbi": {(1, chroma_frames(seconds), 25): ("random", "equal columns, uniform transitions", "one NaN", "NaN row")},
         "salience_envelope": {(1, 88, hcqt_frames(seconds)): ("random", "constant block maxima", "loud then silent", "negative")},
         "constant_switch_viterbi": {(1, 49, chroma_frames(seconds)): ("random", "equal columns", "at min + penalty")},
     }
@@ -942,7 +962,7 @@ def batch_phase(median, mods: dict, card: str) -> dict:
             raise AssertionError(f"median launches per chunk {per_chunk_launches}, expected {SEPARATED_LAUNCHES} in each of {len(CHUNK_SONGS)}")
         if [args[1].shape[0] for args, _, _ in sep.calls] != list(CHUNK_SONGS):
             raise AssertionError(f"chunks of {[args[1].shape[0] for args, _, _ in sep.calls]} songs, expected {list(CHUNK_SONGS)}")
-        # one DBN, two onset and one banded Viterbi launch per chunk, one CRF decode and salience envelope per song
+        # one DBN, one CRF, two onset and one banded Viterbi launch per chunk, one salience envelope per song
         expect = [per_rows(b) for b in CHUNK_SONGS]
         if per_chunk_decoders != expect:
             raise AssertionError(f"decoder launches per chunk {per_chunk_decoders}, expected {expect}")
@@ -1059,7 +1079,7 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
                 zero_counts(median, mods)
                 out = keep(*args, **kwargs)
                 per_shard.append((args[0].shape[0], median.LAUNCHES))
-                # one DBN, two onset and one banded Viterbi launch per shard, a CRF decode and salience envelope per row
+                # one DBN, one CRF, two onset and one banded Viterbi launch per shard, a salience envelope per row
                 expect_decoders(mods, per_rows(args[0].shape[0]), f"a device shard of {args[0].shape[0]} rows")
                 return out
 
@@ -1090,7 +1110,7 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
                 raise AssertionError(f"mesh song {clip.name}: {key} differ from the batch phase's")
     launches_default = [n for _, n in per_shard]
     print(f"mesh a (default mesh {mesh.shape}): {len(HELDOUT)} songs in {wall:.3f} s, (songs, median launches) per device shard {per_shard}, "
-          f"decoder launches per shard {DECODER_LAUNCHES_PER_SONG} but a CRF decode and a salience envelope per row; "
+          f"decoder launches per shard {DECODER_LAUNCHES_PER_SONG} but a salience envelope per row; "
           f"every row's discrete outputs and beat times equal the batch phase's, floats within {FLOAT_TOL}; the same artifact set [{card}]")
 
     # b. a 2-way data mesh on the one card: rows split 2 ways, one zero pad row at B = 5
@@ -1688,6 +1708,35 @@ def decoder_calls(mods: dict) -> dict:
     }
 
 
+def with_nans(x: np.ndarray) -> dict:
+    """"one NaN": a NaN a third of the way into the first row, in its middle
+    state or bin (not the first, which a scan starts from); "NaN row": the
+    last row all NaN."""
+    one, row = x.copy(), x.copy()
+    one[(0, x.shape[1] // 3) + tuple(n // 2 for n in x.shape[2:])] = np.nan
+    row[-1] = np.nan
+    return {"one NaN": one, "NaN row": row}
+
+
+def same(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """Equal in shape, type and every value, a NaN equal to a NaN."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, ref)
+    return bool(((got == ref) | (got.isnan() & ref.isnan())).all())
+
+
+def abs_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest absolute difference, 0 where both are NaN."""
+    if not got.numel():
+        return 0.0
+    diff = (got.double() - ref.double()).abs()
+    if got.is_floating_point():
+        diff = torch.where(got.isnan() & ref.isnan(), torch.zeros_like(diff), diff)
+    return float(diff.max())
+
+
 def decoder_inputs(name: str, shape: tuple, like: tuple, rng) -> dict:
     """Random and tie-heavy inputs at ``shape`` on ``like``'s device, with its other arguments."""
     dev = like[0].device
@@ -1695,12 +1744,15 @@ def decoder_inputs(name: str, shape: tuple, like: tuple, rng) -> dict:
         B, T = shape
         beats = np.where(np.arange(T) % 50 < 3, 0.9, 0.05).astype(np.float32)
         ties = {"constant": np.full(shape, 0.5, np.float32), "two levels": np.broadcast_to(beats, shape).copy()}
-        cases = {"random": rng.random(shape).astype(np.float32), **ties}
+        x = rng.random(shape).astype(np.float32)
+        cases = {"random": x, **ties, **with_nans(x)}
         return {k: (torch.from_numpy(v).to(dev), *like[1:]) for k, v in cases.items()}
     if name == "onset_wait":
         runs = np.repeat(rng.random((*shape[:-1], shape[-1] // 6 + 1)) < 0.5, 6, axis=-1)[..., : shape[-1]]
-        cases = {"random": rng.random(shape) < 0.3, "all candidates": np.ones(shape, bool), "runs": runs}
-        return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dev), like[1]) for k, v in cases.items()}
+        x = rng.random(shape) < 0.3
+        cases = {"random": (x, like[1]), "all candidates": (np.ones(shape, bool), like[1]), "runs": (runs, like[1]),
+                 "wait 0": (x, 0), "wait -1": (x, -1)}  # every candidate fires
+        return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dev), w) for k, (v, w) in cases.items()}
     if name == "salience_envelope":
         x = rng.random(shape).astype(np.float32)
         loud = x * np.float32(0.02)
@@ -1725,20 +1777,26 @@ def decoder_inputs(name: str, shape: tuple, like: tuple, rng) -> dict:
         obs /= obs.sum(-1, keepdims=True) * rng.uniform(1.0, 3.0, (*shape[:-1], 1))
         tied = (rng.integers(0, 3, (*shape[:-1], 1)) * np.ones(n_bins) / (3 * n_bins)).astype(np.float32)
         cases = {}
-        for k, o in (("random", obs), ("equal columns", tied)):
+        for k, o in (("random", obs), ("equal columns", tied), *with_nans(obs).items()):
             v = np.clip(o.sum(-1), 0.0, 1.0)
             log_u = np.log(np.maximum(1.0 - v, np.float32(1e-10)) / n_bins).astype(np.float32)[..., None]
             cases[k] = (torch.from_numpy(np.log(o + np.float32(1e-10))).to(dev),
                         torch.from_numpy(log_u).to(dev).expand(*shape), *like[2:])
         return cases
     B, T, S = shape
+    trans, init = like[1], like[2]
+    if trans.shape[0] != S:  # another state count: the CRF's prior, staying at 0.98, a uniform start
+        trans = torch.full((S, S), float(np.log(0.02 / (S - 1))), device=dev).fill_diagonal_(float(np.log(0.98)))
+        init = torch.full((S,), -float(np.log(S)), device=dev)
     em = rng.random(shape).astype(np.float32) + 0.01
     tied = em.copy()
     tied[:, ::3] = 1.0  # equal emission columns every third frame
-    out = {}
-    for k, e, tr in (("random", em, like[1]), ("equal columns, uniform transitions", tied, torch.full_like(like[1], -float(np.log(S))))):
-        e = np.log(e / e.sum(-1, keepdims=True)).astype(np.float32)
-        out[k] = (torch.from_numpy(e).to(dev), tr, like[2])
+    log_em = np.log(em / em.sum(-1, keepdims=True)).astype(np.float32)
+    out = {"random": (torch.from_numpy(log_em).to(dev), trans, init),
+           "equal columns, uniform transitions": (torch.from_numpy(np.log(tied / tied.sum(-1, keepdims=True)).astype(np.float32)).to(dev),
+                                                  torch.full_like(trans, -float(np.log(S))), init)}
+    for k, e in with_nans(log_em).items():
+        out[k] = (torch.from_numpy(e).to(dev), trans, init)
     return out
 
 
@@ -1821,32 +1879,35 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
     long_shapes = decoder_shapes_at(LONG_SONG_S)
     print(f"the {LONG_SONG_S} s song: shapes {[list(at) for at in long_shapes.values()]} "
           f"(the 30 s bucket: {[next(iter(at)) for at in bucket.values()]})")
-    out = {}
+    out, spills = {}, []
     for name, by_shape in shapes.items():
         kernel, plain = calls[name]
         _, launch_args, launch, _ = decoder_api(mods, name)
         rows, err = {}, 0.0
-        extra = dict.fromkeys(long_shapes.get(name, {}))
-        for shape, launched in sorted(by_shape.items()) + sorted(extra.items()):
-            long_song = launched is None
-            like = shapes[name][next(iter(bucket[name]))][0] if long_song else launched[0]
+        # shapes no path launched: the 180 s song's, and another layout's
+        extra = long_shapes.get(name, {}) | OTHER_LAYOUT_SHAPES.get(name, {})
+        for shape, launched in sorted(by_shape.items()) + sorted(dict.fromkeys(extra).items()):
+            held = launched is None
+            long_song = held and shape in long_shapes.get(name, {})
+            like = shapes[name][next(iter(bucket[name]))][0] if held else launched[0]
             made = decoder_inputs(name, shape, like, rng)
-            if long_song:
-                cases = {k: made[k] for k in long_shapes[name][shape]}
+            if held:
+                cases = {k: made[k] for k in extra[shape]}
             else:
                 cases = {f"launched {i}": a for i, a in enumerate(launched)} | made
             for case, args in cases.items():
                 got, ref = kernel(*args), plain(*args)
                 torch.cuda.synchronize()
                 for g, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)):
-                    err = max(err, float((g.double() - r.double()).abs().max()) if g.numel() else 0.0)
-                    if not torch.equal(g, r):
+                    err = max(err, abs_err(g, r))
+                    if not same(g, r):
+                        differ = g != r if not g.is_floating_point() else ~((g == r) | (g.isnan() & r.isnan()))
                         raise AssertionError(f"{name} kernel differs from its plain version at {shape} ({case}) in "
-                                             f"{int((g != r).sum())} of {g.numel()} elements")
+                                             f"{int(differ.sum())} of {g.numel()} elements")
             if long_song and shape[0] > 1:
                 print(f"{name} {'x'.join(map(str, shape))}: bit-equal to the plain version on {', '.join(cases)} (the {LONG_SONG_S} s song, not timed)")
                 continue
-            args = next(iter(cases.values())) if long_song else like
+            args = next(iter(cases.values())) if held else like
             prepared = launch_args(*args)
             adds, compares, nbytes = decoder_work(name, args, mods)
             row = dict(
@@ -1855,12 +1916,12 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                 device_ms=device_ms(lambda: launch(*prepared), reps=10, key=f"{name}_kernel"),
                 wrapper_ms=cuda_ms(lambda: kernel(*args), reps=10),
                 # seconds a run at the long song's length: once, after the checks' runs
-                plain_ms=cuda_ms(lambda: plain(*args), reps=1, warmup=0) if long_song else cuda_ms(lambda: plain(*args), reps=3, warmup=1),
+                plain_ms=cuda_ms(lambda: plain(*args), reps=1, warmup=0) if held else cuda_ms(lambda: plain(*args), reps=3, warmup=1),
                 adds=adds, compares=compares, bytes=nbytes,
                 ops_bound_ms=max(adds / add_rate, compares / compare_rate) * 1e3, byte_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 frames=shape[-2] if name in ("banded_viterbi", "dense_viterbi") else shape[-1],
                 cases=sorted(cases), launched=sum(1 for n, _, s, _ in recorder.launches if (n, s) == (name, shape)),
-                long_song=long_song,
+                long_song=long_song, other_layout=held and not long_song,
             )
             row["bound_ms"] = max(row["ops_bound_ms"], row["byte_bound_ms"])
             row["bound_by"] = "operations" if row["ops_bound_ms"] >= row["byte_bound_ms"] else "bytes"
@@ -1874,10 +1935,10 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                   f"{row['bound_by']} ({adds} adds, {compares} compares, {nbytes} bytes); launched {row['launched']} times by the paths")
         usage = _build.ptxas_usage(name)
         print(f"ptxas {name}: {usage}")
-        for fn, u in usage.items():
-            if u.get("spill_stores", 0) or u.get("spill_loads", 0):
-                raise AssertionError(f"{fn} spills registers: {u}")
+        spills += [f"{fn} spills registers: {u}" for fn, u in usage.items() if u.get("spill_stores", 0) or u.get("spill_loads", 0)]
         out[name] = {"rows": rows, "ptxas": usage, "max_abs_err": err}
+    if spills:  # after every kernel was held and timed
+        raise AssertionError("; ".join(spills))
     return out
 
 
@@ -1917,6 +1978,8 @@ def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_pa
         "by_shape": measured["rows"],
         "long_song": {label: {k: r[k] for k in ("ms", "plain_ms", "ms_per_frame", "bound_ms")}
                       for label, r in measured["rows"].items() if r["long_song"]},
+        "other_layout": {label: {k: r[k] for k in ("ms", "plain_ms", "ms_per_frame", "bound_ms")}
+                         for label, r in measured["rows"].items() if r["other_layout"]},
         "ptxas": measured["ptxas"],
     }
 

@@ -1,21 +1,26 @@
-"""Clocks per part of a frame of the DBN and banded Viterbi kernels, on the card.
+"""Clocks per part of a frame of the decoder kernels with ``SPLIT`` marks, on the card.
 
-    python3 scripts/decoder_clock_split.py
+    python3 scripts/decoder_clock_split.py [KERNEL ...]
 
-Builds csrc/dbn_viterbi.cu and csrc/banded_viterbi.cu again, into
+Builds the marked kernels again (csrc/dbn_viterbi.cu, banded_viterbi.cu,
+dense_viterbi.cu and onset_wait.cu, or the ones named), into
 build/clock_split/, with their ``SPLIT`` marks defined: at each mark every
 thread reads ``clock64()``, and thread 0 of block 0 adds the clocks since the
 previous mark to the counter of that mark's part. The modules' own
 ``_launch_args`` and ``_launch`` then run these builds (their cached
 launchers are swapped for the marked ones), once to warm up and once
-counted: the DBN at [1, 3007] (the 30 s bucket) and the banded Viterbi at
-[20, 130, 241] (the content windows of one song, band 25), on random inputs.
-Prints, for each part, the clocks per frame (parts inside the frame loop) or
-in all (parts after it), the launch's time by CUDA events and the card's
-name, power limit and SM clock. What each part holds is written beside its
-mark in the source. The marks cost a few clocks each, so the marked build is
-a little slower than the one the port runs; its parts are for comparing
-shares, and the port's times come from chip_smoke.py.
+counted, on random inputs at each kernel's shapes (``CASES``): the DBN at
+[1, 3007] (the 30 s bucket), the banded Viterbi at [20, 130, 241] (the
+content windows of one song, band 25), the dense Viterbi at [1, 301, 25]
+(the CRF of the 30 s bucket) and [1, 1801, 25] (a 180 s song), the onset
+rule at [20, 130] (the content windows), [1, 1292] (the calibration) and
+[1, 7752] (a 180 s song's calibration). Prints, for each part, the clocks
+per frame (parts inside the frame loop) or in all (parts after it), the
+launch's time by CUDA events and the card's name, power limit and SM clock.
+What each part holds is written beside its mark in the source. The marks
+cost a few clocks each, so the marked build is a little slower than the one
+the port runs; its parts are for comparing shares, and the port's times
+come from chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -58,6 +63,15 @@ extern "C" int split_reset() {{
 KERNELS = {
     "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "dbn_viterbi_f32"),
     "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "banded_viterbi_f32"),
+    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "dense_viterbi_f32"),
+    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "onset_wait_u8"),
+}
+# the shapes each kernel is split at
+CASES = {
+    "dbn_viterbi": [(1, 3007)],
+    "banded_viterbi": [(20, 130, 241)],
+    "dense_viterbi": [(1, 301, 25), (1, 1801, 25)],
+    "onset_wait": [(20, 130), (1, 1292), (1, 7752)],
 }
 
 
@@ -73,27 +87,38 @@ def build_marked(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def inputs(name: str) -> tuple:
+def inputs(name: str, shape: tuple) -> tuple:
+    """The wrapper's arguments at ``shape`` on the card, and the frames of its frame loop."""
     rng = np.random.default_rng(0)
     if name == "dbn_viterbi":
-        act = torch.from_numpy(rng.random((1, 3007)).astype(np.float32)).cuda()
-        return (act, 100, 55.0, 215.0, 100.0, 16), 3006  # frames in the loop: T - 1
-    obs = rng.random((20, 130, 241)).astype(np.float32)
-    obs /= obs.sum(-1, keepdims=True) * rng.uniform(1.0, 3.0, (20, 130, 1))
+        act = torch.from_numpy(rng.random(shape).astype(np.float32)).cuda()
+        return (act, 100, 55.0, 215.0, 100.0, 16), shape[-1] - 1
+    if name == "onset_wait":
+        # the calibration's rule: candidates at about a tenth of the frames, wait 4
+        return (torch.from_numpy(rng.random(shape) < 0.1).cuda(), 4), shape[-1]
+    if name == "dense_viterbi":
+        em = rng.random(shape).astype(np.float32) + np.float32(0.01)
+        trans = np.full(shape[-1:] * 2, np.log(0.02 / (shape[-1] - 1)), np.float32)
+        np.fill_diagonal(trans, np.log(0.98))  # the CRF's self-transition prior
+        log_em = torch.log_softmax(torch.from_numpy(np.log(em)).cuda(), dim=-1)
+        init = torch.full(shape[-1:], -float(np.log(shape[-1])), device="cuda")
+        return (log_em, torch.from_numpy(trans).cuda(), init), shape[-2] - 1
+    R, T, n_bins = shape
+    obs = rng.random(shape).astype(np.float32)
+    obs /= obs.sum(-1, keepdims=True) * rng.uniform(1.0, 3.0, (R, T, 1))
     voiced = np.clip(obs.sum(-1), 0.0, 1.0)
-    log_u = np.log(np.maximum(1.0 - voiced, np.float32(1e-10)) / 241).astype(np.float32)[..., None]
+    log_u = np.log(np.maximum(1.0 - voiced, np.float32(1e-10)) / n_bins).astype(np.float32)[..., None]
     log_v = torch.from_numpy(np.log(obs + np.float32(1e-10))).cuda()
-    return (log_v, torch.from_numpy(log_u).cuda().expand(20, 130, 241), 25, 0.01), 130
+    return (log_v, torch.from_numpy(log_u).cuda().expand(*shape), 25, 0.01), T
 
 
-def split(name: str) -> dict:
+def split(name: str, lib: ctypes.CDLL, shape: tuple) -> dict:
     module, symbol = KERNELS[name]
     mod = importlib.import_module(module)
-    lib = build_marked(name)
     fn = getattr(lib, symbol)
     fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
     _build._FUNCS[(name, symbol)] = fn  # the module's _launch now runs the marked build
-    args, frames = inputs(name)
+    args, frames = inputs(name, shape)
     prepared = mod._launch_args(*args)
     mod._launch(*prepared)
     torch.cuda.synchronize()
@@ -112,7 +137,7 @@ def split(name: str) -> dict:
     ms = start.elapsed_time(end)
     total = sum(parts.values())
     return {
-        "shape": list(args[0].shape), "frames": frames, "ms": ms, "us_per_frame": ms * 1e3 / frames,
+        "shape": list(shape), "frames": frames, "ms": ms, "us_per_frame": ms * 1e3 / frames,
         "clocks": parts, "clocks_per_frame": {i: c / frames for i, c in parts.items()},
         "clocks_total": total, "mhz_implied": total / (ms * 1e3),
     }
@@ -125,10 +150,19 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
-    out = {name: split(name) for name in KERNELS}
-    for name, row in out.items():
+    names = sys.argv[1:] or list(KERNELS)
+    unknown = set(names) - set(KERNELS)
+    if unknown:
+        print(f"decoder_clock_split: no marked kernel named {sorted(unknown)}; there are {list(KERNELS)}", file=sys.stderr)
+        return 2
+    out = {}
+    for name in names:
+        lib = build_marked(name)
+        for shape in CASES[name]:
+            out[f"{name} {list(shape)}"] = split(name, lib, shape)
+    for label, row in out.items():
         per = ", ".join(f"part {i}: {c:.1f}" for i, c in row["clocks_per_frame"].items())
-        print(f"{name} {row['shape']}: {row['ms']:.4f} ms by events ({row['us_per_frame']:.3f} us per frame over {row['frames']} frames); "
+        print(f"{label}: {row['ms']:.4f} ms by events ({row['us_per_frame']:.3f} us per frame over {row['frames']} frames); "
               f"thread 0's clocks per frame by part: {per}; {row['clocks_total']} clocks in all ({row['mhz_implied']:.0f} MHz implied)")
     print(json.dumps({"clock_split": out}))
     return 0

@@ -8,7 +8,9 @@ CUDA tensor; each launch must add one to its count and give exactly the
 plain loop's output, on random and tie-heavy inputs made from numpy seeds
 (the same inputs tests/test_torch_decoders.py and
 tests/test_torch_scan_kernels.py hold the plain loops against the JAX
-package with). Every test here is ``cuda``-marked and skips without a card.
+package with), with a NaN where the loops take one ("one NaN", "NaN row":
+a NaN is the maximum, as torch.argmax and jnp.argmax take it; a NaN output
+equals a NaN). Every test here is ``cuda``-marked and skips without a card.
 The file imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_decoder_kernels.py -m cuda
@@ -34,11 +36,25 @@ tpyin = importlib.import_module("audiotabs_tpu_torch.ops.pyin")
 # ---- inputs --------------------------------------------------------------
 
 
+def _with_nans(x: np.ndarray, kind: str) -> np.ndarray:
+    """"one NaN": a NaN a third of the way into row 0 (in the middle state or
+    bin, not the first, which a scan starts from); "NaN row": row 1 all NaN
+    (row 0 when there is one row)."""
+    x = x.copy()
+    if kind == "one NaN":
+        x[(0, x.shape[1] // 3) + tuple(n // 2 for n in x.shape[2:])] = np.nan
+    else:
+        x[min(1, len(x) - 1)] = np.nan
+    return x
+
+
 def _activations(kind: str, B: int = 3, T: int = 400) -> np.ndarray:
     rng = np.random.default_rng(7)
     t = np.arange(T)
     if kind == "random":
         return rng.random((B, T)).astype(np.float32)
+    if kind in ("one NaN", "NaN row"):
+        return _with_nans(rng.random((B, T)).astype(np.float32), kind)
     if kind == "constant":  # every frame ties with every other
         return np.full((B, T), 0.5, np.float32)
     # beats at three tempi, on two activation levels, with a gap
@@ -61,9 +77,11 @@ def _envelopes(kind: str, B: int = 4, T: int = 130) -> np.ndarray:
 
 def _pyin_obs(kind: str, R: int = 3, T: int = 30, n_bins: int = 40) -> tuple[np.ndarray, np.ndarray]:
     rng = np.random.default_rng(13)
-    if kind == "random":
+    if kind in ("random", "one NaN", "NaN row"):
         obs = rng.random((R, T, n_bins)).astype(np.float32)
         obs /= obs.sum(-1, keepdims=True) * rng.uniform(1.0, 3.0, (R, T, 1))
+        if kind != "random":
+            obs = _with_nans(obs, kind)
     else:  # equal columns and a few levels: candidates tie within the band
         obs = (rng.integers(0, 3, (R, T, 1)) * np.ones((1, 1, n_bins)) / (3 * n_bins)).astype(np.float32)
         obs[:, ::4, n_bins // 2] = 0.5
@@ -82,7 +100,10 @@ def _emissions(kind: str, B: int = 3, T: int = 60, S: int = 7) -> tuple[np.ndarr
         trans[:] = 1.0  # uniform transitions: every source state ties
     em /= em.sum(-1, keepdims=True)
     trans /= trans.sum(-1, keepdims=True)
-    return np.log(em).astype(np.float32), np.log(trans).astype(np.float32)
+    log_em = np.log(em).astype(np.float32)
+    if kind in ("one NaN", "NaN row"):
+        log_em = _with_nans(log_em, kind)
+    return log_em, np.log(trans).astype(np.float32)
 
 
 def _switch_emissions(kind: str, B: int = 3, S: int = 49, T: int = 301) -> np.ndarray:
@@ -125,6 +146,13 @@ def cuda():
     return torch.device("cuda")
 
 
+def _same(got, ref) -> bool:
+    """Every output equal in shape, type and value, a NaN equal to a NaN."""
+    pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+    return all(g.shape == r.shape and g.dtype == r.dtype and bool(((g == r) | (g.isnan() & r.isnan())).all())
+               if g.is_floating_point() else torch.equal(g, r) for g, r in pairs)
+
+
 def _launched(module, fn, counter: str = "LAUNCHES"):
     before = getattr(module, counter)
     out = fn()
@@ -134,7 +162,7 @@ def _launched(module, fn, counter: str = "LAUNCHES"):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "constant", "beats"])
+@pytest.mark.parametrize("kind", ["random", "constant", "beats", "one NaN", "NaN row"])
 def test_cuda_dbn_kernel_equals_plain_version(cuda, kind):
     act = torch.from_numpy(_activations(kind)).to(cuda)
     got = _launched(tdbn, lambda: tdbn._dbn_forward(act))
@@ -152,7 +180,20 @@ def test_cuda_onset_kernel_equals_plain_version(cuda, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("R,T", [(20, 130), (80, 130), (10, 173), (1, 1292), (4, 1292), (1, 7752), (3, 1024), (5, 1)])
+@pytest.mark.parametrize("wait", [4, 0, -3, 31, 40, 10**12])
+def test_cuda_onset_kernel_equals_plain_version_at_path_shapes_and_waits(cuda, R, T, wait):
+    # the content windows (3 s, 4 s), the calibration (one song, a chunk of 4, the 180 s song), a
+    # row of whole rounds and one frame; a wait of 0 or less fires every candidate, one past T the first
+    rng = np.random.default_rng(R * T)
+    for density in (0.1, 0.5, 1.0):
+        cand = torch.from_numpy(rng.random((R, T)) < density).to(cuda)
+        got = _launched(tonset, lambda: tonset._wait(cand, wait))
+        assert torch.equal(got, tonset._wait_plain(cand, wait)), density
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties", "one NaN", "NaN row"])
 def test_cuda_banded_viterbi_kernel_equals_plain_version(cuda, kind):
     log_v, log_u = (torch.from_numpy(a).to(cuda) for a in _pyin_obs(kind))
     got = _launched(tpyin, lambda: tpyin._banded_viterbi(log_v, log_u, 5, 0.01))
@@ -161,13 +202,20 @@ def test_cuda_banded_viterbi_kernel_equals_plain_version(cuda, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "ties"])
-def test_cuda_dense_viterbi_kernel_equals_plain_version(cuda, kind):
-    log_em, trans = (torch.from_numpy(a).to(cuda) for a in _emissions(kind))
-    init = torch.full((log_em.shape[-1],), -float(np.log(log_em.shape[-1])), device=cuda)
+@pytest.mark.parametrize("kind", ["random", "ties", "one NaN", "NaN row"])
+@pytest.mark.parametrize("B,T,S", [(3, 60, 7), (1, 301, 25), (4, 301, 25), (1, 1801, 25), (2, 300, 32), (2, 40, 1),
+                                   (1, 1, 25), (2, 301, 33), (2, 301, 61), (1, 40, 1024)])
+def test_cuda_dense_viterbi_kernel_equals_plain_version(cuda, kind, B, T, S):
+    # up to 32 states the warp layout (the CRF's 25 at the 30 s bucket, a chunk of 4 and the 180 s song), then the block layout
+    log_em, trans = (torch.from_numpy(a).to(cuda) for a in _emissions(kind, B, T, S))
+    init = torch.full((S,), -float(np.log(S)), device=cuda)
     got = _launched(tvit, lambda: tvit.viterbi_log_dense(log_em, trans, init))
     ref = tvit.viterbi_log_dense_plain(log_em, trans, init)
-    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert _same(got, ref)
+    if kind == "NaN row" and B > 1:
+        assert bool(got[1][1].isnan()) and not bool(got[1][0].isnan())
+    one = _launched(tvit, lambda: tvit.viterbi_log_dense(log_em[0], trans, init))
+    assert _same(one, (ref[0][0], ref[1][0]))
 
 
 @pytest.mark.cuda

@@ -2,9 +2,11 @@
 
 csrc/dbn_viterbi.cu and csrc/banded_viterbi.cu split each argmax over a
 group of lanes: every lane scans its own ascending candidates with a strict
->, starting from (-inf, its first index), and the group then combines
-(value, index) pairs by xor shuffles, the larger value winning and the lower
-index a tie. The DBN's forward pass takes only the maximum entering each
+> (a NaN above a number), starting from (-inf, its first index); the
+banded kernel's group then combines (value, index) pairs by xor shuffles,
+the larger value winning (a NaN above every number) and the lower index a
+tie, and the DBN's warp takes the largest order-preserving integer key and
+the lowest index holding it (two redux.sync). The DBN's forward pass takes only the maximum entering each
 phase 0 (each of kLanes lanes over a run of S of the 84 source tempi, padded
 to S kLanes with -inf, then the group); its backtrack recomputes the first
 maximum at each beat with the 32 lanes of a warp, lane i taking the sources
@@ -14,8 +16,11 @@ candidates, bins outside the range -inf), and its backtrack the lowest
 offset whose sum equals it, 32 offsets to a ballot; the DBN's final argmax over [n, P] gives each lane R phases of one
 tempo (-1e30 past the tempo's interval), then reduces over the warp and
 over the warps. Here the same partitions and the same shuffle trees run on
-tie-heavy inputs (all-equal rows, two-level rows, -1e30 padding) and must
-give torch.argmax's and jnp.argmax's first maximum and its value. The
+tie-heavy inputs (all-equal rows, two-level rows, -1e30 padding, NaNs) and must
+give torch.argmax's and jnp.argmax's first maximum and its value, NaNs
+included. The dense Viterbi's warp layout (a NaN-propagating max over 32
+padded sources, the backtrack's first source whose sum hits the kept
+maximum) and the onset rule's word walk run against the plain loops. The
 partition constants are read from the CUDA sources, so the emulation
 follows the kernels. The kernels themselves are held against the plain
 loops on the card (chip_smoke.py, tests/test_torch_decoder_kernels.py).
@@ -36,7 +41,7 @@ from audiotabs_tpu_torch.decode import dbn_beats as tdbn
 
 NEG = -1e30
 BIG = 2**31 - 1  # INT_MAX: the index a lane with no candidate starts from
-KINDS = ["random", "all equal", "two levels", "-1e30 padding"]
+KINDS = ["random", "all equal", "two levels", "-1e30 padding", "NaNs"]
 
 
 def _source(name: str) -> str:
@@ -66,16 +71,29 @@ def _xor_tree(v: torch.Tensor, i: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     while off:
         partner = torch.arange(lanes) ^ off
         pv, pi = v[..., partner], i[..., partner]
-        take = (pv > v) | ((pv == v) & (pi < i))
+        # the kernels' before(): a NaN above every number, the lower index on a tie (two NaNs tie)
+        p_nan, v_nan = pv.isnan(), v.isnan()
+        take = torch.where(p_nan | v_nan, p_nan & (~v_nan | (pi < i)), (pv > v) | ((pv == v) & (pi < i)))
         v, i = torch.where(take, pv, v), torch.where(take, pi, i)
         off //= 2
-    assert (v == v[..., :1]).all() and (i == i[..., :1]).all()
+    assert ((v == v[..., :1]) | (v.isnan() & v[..., :1].isnan())).all() and (i == i[..., :1]).all()
     return v[..., 0], i[..., 0]
+
+
+def _redux_first(v: torch.Tensor, i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The DBN's warp step over the last axis: the largest integer key
+    (``_max_key``: NaN above every number), then the lowest index holding it
+    (two redux.sync); the value is that index's."""
+    key = _max_key(v)
+    hit = key == key.max(dim=-1, keepdim=True).values
+    first = torch.where(hit, i, torch.full_like(i, BIG)).min(dim=-1).values
+    return v.gather(-1, torch.argmax((i == first[..., None]).to(torch.uint8), dim=-1, keepdim=True))[..., 0], first
 
 
 def _lane_scans(cand: torch.Tensor, runs: list[list[int]], start: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
     """Each lane's ascending scan with a strict > over cand[..., run] (an
-    index past the last candidate is -inf), from (-inf, start): [..., lanes]."""
+    index past the last candidate is -inf), a NaN above a number, from
+    (-inf, start): [..., lanes]."""
     n = cand.shape[-1]
     vals, idxs = [], []
     for run, first in zip(runs, start):
@@ -83,7 +101,7 @@ def _lane_scans(cand: torch.Tensor, runs: list[list[int]], start: list[int]) -> 
         bi = torch.full(cand.shape[:-1], first, dtype=torch.int64)
         for k in run:
             v = cand[..., k] if k < n else torch.full_like(bv, -float("inf"))
-            take = v > bv
+            take = (v > bv) | (v.isnan() & ~bv.isnan())
             bv, bi = torch.where(take, v, bv), torch.where(take, torch.full_like(bi, k), bi)
         vals.append(bv)
         idxs.append(bi)
@@ -97,6 +115,11 @@ def _values(kind: str, shape: tuple, rng) -> np.ndarray:
         return np.full(shape, -7.25, np.float32)
     if kind == "two levels":
         return np.where(rng.random(shape) < 0.5, -3.0, -4.5).astype(np.float32)
+    if kind == "NaNs":  # a few NaNs, and a row of them: each the maximum, the first one the argmax
+        x = (-50.0 * rng.random(shape)).astype(np.float32)
+        x[rng.random(shape) < 0.02] = np.nan
+        x[..., ::7, :] = np.nan
+        return x
     x = np.where(rng.random(shape) < 0.7, NEG, -2.0).astype(np.float32)  # mostly -1e30, and rows of it only
     x[..., ::5, :] = NEG
     return x
@@ -106,7 +129,7 @@ def _check(v: torch.Tensor, i: torch.Tensor, cand: np.ndarray) -> None:
     ref = torch.argmax(torch.from_numpy(cand), dim=-1)
     assert torch.equal(i, ref)
     np.testing.assert_array_equal(i.numpy(), np.asarray(jnp.argmax(jnp.asarray(cand), axis=-1)))
-    assert torch.equal(v, torch.from_numpy(cand).max(dim=-1).values)
+    torch.testing.assert_close(v, torch.from_numpy(cand).max(dim=-1).values, rtol=0.0, atol=0.0, equal_nan=True)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -126,9 +149,9 @@ def test_dbn_transition_max_by_lanes_is_the_first_maximum(kind):
     runs = [list(range(lane * s, lane * s + s)) for lane in range(lanes)]
     forward, _ = _xor_tree(*_lane_scans(torch.from_numpy(cand), runs, [run[0] for run in runs]))
     strided = [list(range(lane, n, 32)) for lane in range(32)]
-    v, i = _xor_tree(*_lane_scans(torch.from_numpy(cand), strided, [BIG] * 32))
+    v, i = _redux_first(*_lane_scans(torch.from_numpy(cand), strided, [BIG] * 32))
     _check(v, i, cand)
-    assert torch.equal(forward, v)
+    torch.testing.assert_close(forward, v, rtol=0.0, atol=0.0, equal_nan=True)
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -147,8 +170,9 @@ def test_banded_propagation_by_lanes_is_the_first_maximum(band, n_bins, kind):
     per_lane = -(-(2 * band + 1) // lanes)
     runs = [list(range(q * per_lane, min((q + 1) * per_lane, 2 * band + 1))) for q in range(lanes)]
     v, _ = _xor_tree(*_lane_scans(torch.from_numpy(cand), runs, [q * per_lane for q in range(lanes)]))
-    # the backtrack: ballots over 32 offsets at a time, the first chunk with a hit, its lowest set lane
-    hits = torch.from_numpy(cand) == v[:, None]
+    # the backtrack: ballots over 32 offsets at a time, the first chunk with a hit (a sum equal to
+    # the maximum, or a NaN), its lowest set lane
+    hits = (torch.from_numpy(cand) == v[:, None]) | torch.from_numpy(cand).isnan()
     i = torch.full_like(v, -1, dtype=torch.int64)
     for chunk in range(0, 2 * band + 1, 32):
         ballot = hits[:, chunk : chunk + 32]
@@ -176,10 +200,10 @@ def test_dbn_final_argmax_by_lanes_and_warps_is_the_first_maximum(kind):
         runs.append([j * P + p for p in range(base, base + r) if j < n and p < P])
         start.append(BIG)
     lane_v, lane_i = _lane_scans(torch.from_numpy(flat), runs, start)
-    warp_v, warp_i = _xor_tree(lane_v.reshape(1, -1, 32), lane_i.reshape(1, -1, 32))
+    warp_v, warp_i = _redux_first(lane_v.reshape(1, -1, 32), lane_i.reshape(1, -1, 32))
     pad = 32 - warp_v.shape[-1]
-    v, i = _xor_tree(torch.cat([warp_v, torch.full((1, pad), -float("inf"))], -1),
-                     torch.cat([warp_i, torch.full((1, pad), BIG, dtype=torch.int64)], -1))
+    v, i = _redux_first(torch.cat([warp_v, torch.full((1, pad), -float("inf"))], -1),
+                        torch.cat([warp_i, torch.full((1, pad), BIG, dtype=torch.int64)], -1))
     _check(v, i, flat)
 
 
@@ -191,3 +215,134 @@ def test_the_emulated_partitions_cover_the_kernels_limits():
     lanes, bins, max_bins = _banded_layout()
     assert lanes == bins and lanes & (lanes - 1) == 0 and 32 % lanes == 0  # lane q finishes bin q of its group
     assert -(-max_bins // bins) * lanes <= 1024  # every group in one block
+
+
+# ---- the dense Viterbi's warp layout and the onset rule's word walk ------
+
+
+def _max_key(v: torch.Tensor) -> torch.Tensor:
+    """csrc/dense_viterbi.cu's max_key: the float order as signed integers, -0 as +0, every NaN INT_MAX."""
+    i = (v + 0.0).view(torch.int32)
+    key = torch.where(i >= 0, i, i ^ 0x7FFFFFFF)
+    return torch.where(v.isnan(), torch.full_like(key, BIG), key)
+
+
+def _dense_warp_layout(log_em: torch.Tensor, trans: torch.Tensor, init: torch.Tensor):
+    """The warp layout's schedule: the forward pass keeps each frame's score
+    and each target's NaN-propagating maximum over 32 padded sources (-inf
+    scores plus 0); the final state is the first maximum of integer keys (a
+    warp reduction, then a ballot); the backtrack takes, for the path's
+    state, the first source whose sum equals the kept maximum or is a NaN."""
+    B, T, S = log_em.shape
+    pad = 32 - S
+    col = torch.cat([trans, torch.zeros(pad, S)], 0)  # [32 from, S to]
+    score = init + log_em[:, 0]
+    hist, maxima = [], []
+    for t in range(1, T):
+        padded = torch.cat([score, torch.full((B, pad), -float("inf"))], 1)
+        m = (padded[:, :, None] + col).max(dim=1).values  # propagates a NaN, as the max.NaN tree
+        hist.append(score)
+        maxima.append(m)
+        score = m + log_em[:, t]
+    key = _max_key(score)
+    s = torch.argmax((key == key.max(dim=1, keepdim=True).values).to(torch.uint8), dim=1)  # the ballot's lowest lane
+    best = score.gather(1, s[:, None])[:, 0]
+    path = [s]
+    for h, m in zip(reversed(hist), reversed(maxima)):
+        sums = h + trans[:, s].T  # [B, from]
+        target = m.gather(1, s[:, None])
+        hits = (sums == target) | sums.isnan()
+        assert hits.any(dim=1).all()
+        s = torch.argmax(hits.to(torch.uint8), dim=1)  # the ballot's lowest lane
+        path.append(s)
+    return torch.stack(path[::-1], 1).to(torch.int32), best
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "one NaN", "NaN row", "forbidden moves", "signed zeros"])
+def test_dense_warp_layout_recomputes_the_first_argmax(kind):
+    from audiotabs_tpu_torch.decode import viterbi as tvit
+
+    rng = np.random.default_rng(43)
+    B, T, S = 3, 50, 25
+    em = rng.random((B, T, S)).astype(np.float32) + 0.01
+    trans = rng.random((S, S)).astype(np.float32) + 0.1
+    if kind == "ties":
+        em[:, 10:30] = 0.5
+        trans[:] = 1.0
+    log_em = np.log(em / em.sum(-1, keepdims=True)).astype(np.float32)
+    log_trans = np.log(trans / trans.sum(-1, keepdims=True)).astype(np.float32)
+    if kind == "one NaN":
+        log_em[0, T // 3, 4] = np.nan
+    elif kind == "NaN row":
+        log_em[1] = np.nan
+    elif kind == "forbidden moves":  # log 0: -inf sums, and whole -inf columns
+        log_trans[rng.random((S, S)) < 0.5] = -np.inf
+        log_trans[:, 3] = -np.inf
+        np.fill_diagonal(log_trans, 0.0)
+    elif kind == "signed zeros":  # sums of -0 and +0 tie
+        log_em[:] = -0.0
+        log_em[:, ::2, ::3] = 0.0
+        log_trans[:] = 0.0
+    init = np.full(S, -np.log(S), np.float32)
+    args = [torch.from_numpy(a) for a in (log_em, log_trans, init)]
+    path, best = _dense_warp_layout(*args)
+    ref_path, ref_best = tvit.viterbi_log_dense_plain(*args)
+    assert torch.equal(path, ref_path)
+    assert torch.equal(best.isnan(), ref_best.isnan()) and torch.equal(best[~best.isnan()], ref_best[~ref_best.isnan()])
+
+
+def _onset_word_walk(cand: np.ndarray, wait: int) -> np.ndarray:
+    """csrc/onset_wait.cu's schedule on one row: rounds of 32 words of 32
+    frames (bit i of word k: frame base + 32 k + i); a wait above 0 walks from
+    at = next - base (within the round): each lane's first candidate at or
+    after it, their minimum fires, and at moves past it by min(wait, 1024) + 1;
+    next carries the round's last onset plus wait + 1. A wait of 0 or less
+    fires every candidate."""
+    T = cand.shape[0]
+    fired = np.zeros(T, bool)
+    nxt = 0
+    for base in range(0, T, 1024):
+        words = [sum(1 << i for i in range(32) if base + 32 * k + i < T and cand[base + 32 * k + i]) for k in range(32)]
+        if wait <= 0:
+            out = words
+        else:
+            out = [0] * 32
+            step = min(wait, 1024) + 1
+            at, last = min(max(nxt - base, 0), 1024), -1
+            while True:
+                firsts = []
+                for k in range(32):
+                    rel = at - 32 * k
+                    left = words[k] if rel <= 0 else 0 if rel >= 32 else words[k] & ((0xFFFFFFFF << rel) & 0xFFFFFFFF)
+                    firsts.append(32 * k + (left & -left).bit_length() - 1 if left else BIG)
+                first = min(firsts)
+                if first == BIG:
+                    break
+                out[first >> 5] |= 1 << (first & 31)
+                last, at = first, first + step
+            if last >= 0:
+                nxt = base + last + wait + 1
+        for k in range(32):
+            for i in range(32):
+                if base + 32 * k + i < T:
+                    fired[base + 32 * k + i] = bool(out[k] >> i & 1)
+    return fired
+
+
+@pytest.mark.parametrize("T", [1, 130, 1024, 1292, 2100])
+@pytest.mark.parametrize("wait", [-2, 0, 1, 4, 31, 33, 1023, 1024, 1025, 2000])
+def test_onset_word_walk_is_the_wait_rule(T, wait):
+    from audiotabs_tpu_torch.ops import onset as tonset
+
+    rng = np.random.default_rng(T + abs(wait))
+    for density in (0.05, 0.3, 1.0):
+        cand = rng.random((2, T)) < density
+        ref = tonset._wait_plain(torch.from_numpy(cand), wait).numpy()
+        for r in range(2):
+            np.testing.assert_array_equal(_onset_word_walk(cand[r], wait), ref[r], err_msg=f"density {density} row {r}")
+
+
+def test_the_warp_layout_and_the_word_walk_read_the_kernels_constants():
+    dense, onset = _source("dense_viterbi"), _source("onset_wait")
+    assert re.search(r"constexpr int kWarpStates = 32;", dense) and "S <= kWarpStates" in dense
+    assert re.search(r"constexpr int kRoundFrames = 1024;", onset)

@@ -10,8 +10,11 @@ emission columns), and each row must equal the JAX function's output on that
 row: every integer and boolean exactly, the dense Viterbi's final score
 within rtol 1e-6 (the same float32 additions in the same order; the bound
 only allows for XLA's fusion). The 1-D / 2-D forms must equal the batched
-form. The kernels are held bit-equal to the plain versions on the card by
-chip_smoke.py and by tests/test_torch_decoder_kernels.py.
+form. The dense Viterbi's loop follows jnp on a NaN too: the first NaN is
+the maximum, and the score is NaN. The kernels are held bit-equal to the
+plain versions on the card by chip_smoke.py and by
+tests/test_torch_decoder_kernels.py; their wrappers' limits raise here,
+before a launch, on tensors of the ``meta`` device (shapes without memory).
 """
 
 from __future__ import annotations
@@ -28,10 +31,12 @@ import jax.numpy as jnp
 
 from audiotabs_tpu.decode import dbn_beats as jdbn
 from audiotabs_tpu.decode import viterbi as jvit
+from audiotabs_tpu.models import crf_chords as jcrf
 from audiotabs_tpu.ops import onset as jonset
 from audiotabs_tpu_torch import _build
 from audiotabs_tpu_torch.decode import dbn_beats as tdbn
 from audiotabs_tpu_torch.decode import viterbi as tvit
+from audiotabs_tpu_torch.models import crf_chords as tcrf
 from audiotabs_tpu_torch.ops import onset as tonset
 from test_torch_decoder_kernels import _activations, _emissions, _envelopes, _pyin_obs
 from test_torch_fused import torch_threads  # noqa: F401 (an autouse fixture)
@@ -115,6 +120,37 @@ def test_wait_rule_takes_bool_candidates():
         tonset._wait(torch.zeros(3, 5, dtype=torch.uint8), 3)
 
 
+@pytest.mark.parametrize("wait", [0, 4])
+def test_onset_plain_matches_jax_at_the_long_songs_length(wait):
+    # the calibration envelope of a 180 s song: [1, 7752] frames at hop 512
+    env = np.random.default_rng(23).random((1, 7752)).astype(np.float32)
+    got = tonset.onset_detect_frames(torch.from_numpy(env), delta=0.5, wait=wait)
+    ref = np.asarray(jonset.onset_detect_frames(jnp.asarray(env[0]), delta=0.5, wait=wait))
+    np.testing.assert_array_equal(got[0].numpy(), ref)
+    assert 0 < ref.sum() < ref.size
+
+
+@pytest.mark.parametrize("wait", [-10**12, -5, -1, 0, 1, 7, 129, 130, 131, 10**12])
+def test_onset_kernel_wait_is_the_same_rule(wait):
+    # the wait the kernel is given, clamped into a C int, fires the same frames as the wait asked for
+    cand = torch.from_numpy(np.random.default_rng(29).random((4, 130)) < 0.4)
+    kernel_wait = tonset._kernel_wait(wait, 130)
+    assert -1 <= kernel_wait <= 130
+    assert torch.equal(tonset._wait_plain(cand, kernel_wait), tonset._wait_plain(cand, wait))
+
+
+def test_onset_kernel_limits_raise_before_a_launch():
+    # meta tensors: shapes without memory, so nothing is allocated or launched
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        tonset._launch_args(torch.empty((1, 2**31), dtype=torch.bool, device="meta"), 4)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        tonset._launch_args(torch.empty((2**31, 1), dtype=torch.bool, device="meta"), 4)
+    with pytest.raises(TypeError):
+        tonset._launch_args(torch.empty((2, 130), dtype=torch.bool, device="meta"), 2.5)
+    cand, fired, wait = tonset._launch_args(torch.empty((2, 130), dtype=torch.bool, device="meta"), 10**12)
+    assert cand.shape == fired.shape == (2, 130) and wait == 130
+
+
 # ---- pYIN banded Viterbi -------------------------------------------------
 
 
@@ -160,6 +196,74 @@ def test_batched_dense_viterbi_plain_matches_jax_row_by_row(kind, with_initial):
         np.testing.assert_allclose(score[b].item(), float(s_j), rtol=SCORE_RTOL)
         p1, s1 = tvit.viterbi_log_dense(torch.from_numpy(log_em[b]), torch.from_numpy(trans), init_t)
         assert torch.equal(p1, path[b]) and torch.equal(s1, score[b])
+
+
+@pytest.mark.parametrize("kind", ["one NaN", "NaN row"])
+def test_dense_viterbi_plain_follows_jax_on_nan(kind):
+    # jnp.max and jnp.argmax take the first NaN for the maximum, as torch's do: the path runs
+    # into the NaN's state, then state 0; the score is NaN
+    log_em, trans = _emissions(kind, B=3, T=40, S=25)
+    path, score = tvit.viterbi_log_dense(torch.from_numpy(log_em), torch.from_numpy(trans))
+    nan_rows = {0} if kind == "one NaN" else {1}
+    for b in range(len(log_em)):
+        p_j, s_j = jvit.viterbi_log_dense(jnp.asarray(log_em[b]), jnp.asarray(trans))
+        np.testing.assert_array_equal(path[b].numpy(), np.asarray(p_j), err_msg=f"{kind} row {b}")
+        assert bool(np.isnan(float(s_j))) == bool(score[b].isnan()) == (b in nan_rows)
+        if b not in nan_rows:
+            np.testing.assert_allclose(score[b].item(), float(s_j), rtol=SCORE_RTOL)
+    if kind == "one NaN":
+        # the NaN at frame T // 3 in state S // 2: the path runs into it, and every later frame,
+        # all NaN, decodes as state 0 (the first NaN)
+        assert path[0, 40 // 3] == 25 // 2 and (path[0, 40 // 3 + 1 :] == 0).all()
+
+
+def test_dense_viterbi_kernel_limits_raise_before_a_launch():
+    trans, init = torch.empty((1025, 1025), device="meta"), torch.empty((1025,), device="meta")
+    with pytest.raises(ValueError, match="at most 1024 states"):
+        tvit._launch_args(torch.empty((1, 10, 1025), device="meta"), trans, init)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        tvit._launch_args(torch.empty((1, 2**22, 1024), device="meta"), trans[:1024, :1024], init[:1024])
+    # up to 32 states the records are padded to a warp's 32 lanes
+    args = tvit._launch_args(torch.empty((4, 301, 25), device="meta"), trans[:25, :25], init[:25])
+    assert args[3].shape == (4, 300, 2, 32) and args[4].shape == (4, 301) and args[5].shape == (4,)
+    assert tvit._launch_args(torch.empty((2, 1, 61), device="meta"), trans[:61, :61], init[:61])[3].shape == (2, 1, 2, 61)
+
+
+# ---- the CRF decode of a batch -------------------------------------------
+
+
+def _crf_feats(B: int = 3, T: int = 50, D: int = 12) -> np.ndarray:
+    """Chroma-like features with silent (all-zero) frames, as the fused analysis gates them."""
+    rng = np.random.default_rng(37)
+    f = rng.random((B, T, D)).astype(np.float32)
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    f[:, ::7] = 0.0
+    f[1, 30:] = 0.0
+    return f
+
+
+@pytest.mark.parametrize("params", ["templates", "context"])
+def test_crf_decode_of_a_batch_is_its_rows(params):
+    # each row's path exactly; its confidences within rtol 1e-6 of the row's own (torch's CPU exp
+    # takes a vector or a scalar path by an element's place in the tensor, an ulp apart) and of JAX's
+    if params == "templates":
+        p = tcrf.template_emission_params()
+    else:  # a trained-style head over 3 stacked context frames, scaled so that the emissions decide
+        p = tcrf.init_params(torch.Generator().manual_seed(3), feature_dim=36)
+        p["emit_w"] = p["emit_w"] * np.float32(30.0)
+    feats = _crf_feats()
+    path, conf = tcrf.decode(p, torch.from_numpy(feats))
+    assert path.shape == conf.shape == feats.shape[:2] and path.dtype == torch.int32
+    for b in range(len(feats)):
+        p1, c1 = tcrf.decode(p, torch.from_numpy(feats[b]))
+        assert torch.equal(p1, path[b])
+        torch.testing.assert_close(c1, conf[b], rtol=1e-6, atol=0.0)
+        p_j, c_j = jcrf.decode({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(feats[b]))
+        np.testing.assert_array_equal(path[b].numpy(), np.asarray(p_j), err_msg=f"row {b}")
+        np.testing.assert_allclose(conf[b].numpy(), np.asarray(c_j), rtol=1e-5, atol=1e-7)
+    assert (path[1, 30:] == 0).all()
+    with pytest.raises(ValueError, match="\\[B, T, D\\]"):
+        tcrf.decode(p, torch.from_numpy(feats[0, 0]))
 
 
 # ---- wrappers and the build ----------------------------------------------
@@ -233,6 +337,33 @@ def test_fused_batch_decodes_every_song_in_one_dbn_call(monkeypatch):
             one = fused.fused_analysis(y[b], 22050, separate=True, chord_backend="deep")
             for k in ("dbn_phases", "dbn_intervals", "crf_path"):
                 assert torch.equal(one[k], out[k][b]), k
+
+
+def test_fused_batch_decodes_every_song_in_one_crf_call(monkeypatch):
+    from audiotabs_tpu_torch.runtime import fused
+
+    calls = []
+    decode = tvit.viterbi_log_dense
+
+    def counted(log_em, *args, **kwargs):
+        calls.append(tuple(log_em.shape))
+        return decode(log_em, *args, **kwargs)
+
+    monkeypatch.setattr(tcrf, "viterbi_log_dense", counted)
+    rng = np.random.default_rng(41)
+    y = torch.from_numpy((0.1 * rng.standard_normal((3, 22050))).astype(np.float32))
+    with torch.inference_mode():
+        out = fused.fused_analysis_batch(y, 22050, chord_backend="deep", true_lens=[22050, 15000, 9000])
+    assert calls == [(3, out["crf_path"].shape[-1], tcrf.N_STATES)]
+    assert "crf_features" not in out and out["crf_path"].dtype == torch.int32
+    calls.clear()
+    with torch.inference_mode():
+        for b, n in enumerate((22050, 15000, 9000)):
+            one = fused.fused_analysis(y[b], 22050, chord_backend="deep", true_len=n)
+            assert torch.equal(one["crf_path"], out["crf_path"][b])
+            # an ulp apart at most: torch's CPU exp takes a vector or a scalar path by an element's place
+            torch.testing.assert_close(one["crf_conf"], out["crf_conf"][b], rtol=1e-6, atol=0.0)
+    assert calls == [(1, out["crf_path"].shape[-1], tcrf.N_STATES)] * 3
 
 
 def test_cached_nets_built_in_inference_mode_stay_usable_with_autograd():
