@@ -49,7 +49,7 @@ def viterbi_constant_switch_plain(emissions: torch.Tensor, switch_penalty: float
     return path.to(torch.int32), emissions.gather(1, path[:, None, :])[:, 0]
 
 
-_SWITCH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+_SWITCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def build_switch():
@@ -59,39 +59,42 @@ def build_switch():
 
 def _switch_launch_args(emissions: torch.Tensor, switch_penalty: float) -> tuple:
     """The kernel's arguments for [B, S, T] float32 emissions on the card:
-    the costs -log(clamp(emissions, 1e-9, 1)) from torch, the backpointer
-    records (per frame, a ballot word of the states that stay for each 32
-    states, then the first minimum), the path [B, T] and the penalty."""
+    the costs -log(clamp(emissions, 1e-9, 1)) from torch, the emissions (the
+    kernel gathers the confidences), the scratch of the backtrack (each
+    frame's scores [B, T, 32 K], K = ceil(S / 32), then its minimum [B, T]),
+    the path [B, T], the confidences [B, T] and the penalty."""
     if emissions.dtype != torch.float32:
         raise TypeError(f"the constant-switch Viterbi kernel takes float32 emissions, got {emissions.dtype}")
     B, S, T = emissions.shape
     dev = emissions.device
     return (
         (-torch.log(torch.clamp(emissions, 1e-9, 1.0))).contiguous(),
-        torch.empty((B, max(T - 1, 1), -(-S // 32) + 1), dtype=torch.int32, device=dev),
+        emissions.contiguous(),
+        torch.empty(B * T * (32 * -(-S // 32) + 1), dtype=torch.float32, device=dev),
         torch.empty((B, T), dtype=torch.int32, device=dev),
+        torch.empty((B, T), dtype=torch.float32, device=dev),
         float(switch_penalty),
     )
 
 
-def _switch_launch(logp: torch.Tensor, records: torch.Tensor, path: torch.Tensor, switch_penalty: float) -> None:
+def _switch_launch(logp: torch.Tensor, emissions: torch.Tensor, scratch: torch.Tensor, path: torch.Tensor, conf: torch.Tensor,
+                   switch_penalty: float) -> None:
     """One launch of csrc/constant_switch_viterbi.cu on ``_switch_launch_args``' tensors, one warp per sequence."""
     global SWITCH_LAUNCHES
     B, S, T = logp.shape
     dev = logp.device
     with torch.cuda.device(dev):
-        rc = build_switch()(logp.data_ptr(), records.data_ptr(), path.data_ptr(), B, T, S, switch_penalty,
-                            torch.cuda.current_stream(dev).cuda_stream)
+        rc = build_switch()(logp.data_ptr(), emissions.data_ptr(), scratch.data_ptr(), path.data_ptr(), conf.data_ptr(),
+                            B, T, S, switch_penalty, torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "constant_switch_viterbi", {-1: f"{B} sequences of {T} frames and {S} states (at most 64)"})
     SWITCH_LAUNCHES += 1
 
 
 def _viterbi_constant_switch_cuda(emissions: torch.Tensor, switch_penalty: float):
-    """[B, S, T] on the card: one launch; the confidences gathered by torch."""
+    """[B, S, T] on the card: one launch, which gathers the confidences too."""
     args = _switch_launch_args(emissions, switch_penalty)
     _switch_launch(*args)
-    path = args[2]
-    return path, emissions.gather(1, path[:, None, :].long())[:, 0]
+    return args[3], args[4]
 
 
 def viterbi_constant_switch(emissions: torch.Tensor, switch_penalty: float):

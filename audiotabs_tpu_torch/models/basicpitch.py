@@ -9,7 +9,9 @@ nn.Module of Conv2d layers in NCHW with the JAX "SAME" padding written out.
 The salience's block-max envelope (``salience_envelope``, two lax.scans in
 JAX) is one launch of the CUDA kernel csrc/salience_envelope.cu for a batch
 of rows on the card, and a plain loop over blocks on the CPU
-(``salience_envelope_plain``).
+(``salience_envelope_plain``). ``salience_posteriors`` is
+``salience_from_hcqt`` (per song) then ``posteriors_from_salience`` (per
+song or for a batch of songs of one length, one envelope launch).
 """
 
 from __future__ import annotations
@@ -164,7 +166,12 @@ def salience_envelope_plain(sal: torch.Tensor, stride: int = ENVELOPE_STRIDE, de
     return torch.maximum(env, ENVELOPE_FLOOR * sal.amax(dim=(-2, -1))[..., None])
 
 
-_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+
+# The kernel's per-row block counters, one zeroed int32 row for each (device,
+# stream): each launch leaves its counters at 0 again, so launches in order on
+# one stream share a row, and launches on two streams never do.
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def build():
@@ -173,21 +180,36 @@ def build():
 
 
 def _launch_args(sal: torch.Tensor, stride: int, decay: float) -> tuple:
-    """The kernel's arguments for float32 salience [R, 88, T] on the card: the contiguous input, the output [R, nblk]."""
+    """The kernel's arguments for float32 salience [R, 88, T] on the card: the
+    contiguous input, the scratch of its 32-frame segment maxima [R, ceil(T /
+    32)], the output [R, nblk]."""
     if sal.dtype != torch.float32:
         raise TypeError(f"the salience envelope kernel takes float32 salience, got {sal.dtype}")
     R, T = sal.shape[0], sal.shape[-1]
-    return sal.contiguous(), torch.empty((R, max(1, -(-T // stride))), dtype=torch.float32, device=sal.device), stride, decay
+    return (sal.contiguous(), torch.empty((R, -(-T // 32)), dtype=torch.float32, device=sal.device),
+            torch.empty((R, max(1, -(-T // stride))), dtype=torch.float32, device=sal.device), stride, decay)
 
 
-def _launch(sal: torch.Tensor, norm: torch.Tensor, stride: int, decay: float) -> None:
-    """One launch of csrc/salience_envelope.cu on ``_launch_args``' tensors, one cluster of blocks per row."""
+def _tickets(device: torch.device, stream: int, R: int) -> torch.Tensor:
+    """The block counters for ``R`` rows on ``stream``, zeros (made once for each stream)."""
+    key = (device.index, stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None or ticket.numel() < R:
+        ticket = _TICKETS[key] = torch.zeros(max(R, 64), dtype=torch.int32, device=device)
+    return ticket
+
+
+def _launch(sal: torch.Tensor, seg: torch.Tensor, norm: torch.Tensor, stride: int, decay: float) -> None:
+    """One launch of csrc/salience_envelope.cu on ``_launch_args``' tensors: a warp per 32-frame segment of every row."""
     global LAUNCHES
     R, rows, T = sal.shape
     with torch.cuda.device(sal.device):
-        rc = build()(sal.data_ptr(), norm.data_ptr(), R, rows, T, stride, decay, ENVELOPE_FLOOR,
-                     torch.cuda.current_stream(sal.device).cuda_stream)
-    _build.check_launch(rc, "salience_envelope", {-1: f"{R} rows of {rows} x {T}", -2: f"a stride of {stride} frames (a multiple of 32)"})
+        stream = torch.cuda.current_stream(sal.device).cuda_stream
+        ticket = _tickets(sal.device, stream, R)
+        rc = build()(sal.data_ptr(), seg.data_ptr(), ticket.data_ptr(), norm.data_ptr(), R, rows, T, stride, decay,
+                     ENVELOPE_FLOOR, stream)
+    _build.check_launch(rc, "salience_envelope", {-1: f"{R} rows of {rows} x {T} (at most 65,535 rows)",
+                                                  -2: f"a stride of {stride} frames (the kernel takes {ENVELOPE_STRIDE})"})
     LAUNCHES += 1
 
 
@@ -195,7 +217,7 @@ def _salience_envelope_cuda(sal: torch.Tensor, stride: int, decay: float) -> tor
     """[R, 88, T] on the card: one launch."""
     args = _launch_args(sal, stride, decay)
     _launch(*args)
-    return args[1]
+    return args[2]
 
 
 def salience_envelope(sal: torch.Tensor, stride: int = ENVELOPE_STRIDE, decay: float = ENVELOPE_DECAY) -> torch.Tensor:
@@ -213,12 +235,9 @@ def salience_envelope(sal: torch.Tensor, stride: int = ENVELOPE_STRIDE, decay: f
     return norm[0] if sal.ndim == 2 else norm
 
 
-def salience_posteriors(y: torch.Tensor, sr: int):
-    """Fundamental-gated harmonic salience → (onset [T, 88], frame [T, 88]).
-
-    The frame posteriors are normalised by ``salience_envelope``, a
-    bidirectional block-max envelope over ~0.75 s blocks."""
-    hc = hcqt(y, sr)  # [H, 264, T]; rows follow HARMONICS (0.5, 1, 2, ..7)
+def salience_from_hcqt(hc: torch.Tensor) -> torch.Tensor:
+    """The fundamental-gated harmonic salience [88, T] of an hCQT [H, 264, T]
+    (rows follow HARMONICS: 0.5, 1, 2, ..7), before its envelope."""
     peak = hc[1].max()
     A = hc / (peak + 1e-8)
     fundamental = A[1]
@@ -226,16 +245,30 @@ def salience_posteriors(y: torch.Tensor, sr: int):
     sub_penalty = 1.0 - 0.5 * torch.clamp(A[0] - fundamental, 0.0, 1.0)
     sal = fundamental * boost * sub_penalty  # [264, T]
     sal = torch.where(peak > 1e-4, sal, torch.zeros_like(sal))
-    sal = sal.reshape(N_SEMITONES, BINS_PER_SEMITONE, -1).max(dim=1).values  # [88, T]
+    return sal.reshape(N_SEMITONES, BINS_PER_SEMITONE, -1).max(dim=1).values  # [88, T]
 
+
+def posteriors_from_salience(sal: torch.Tensor):
+    """Salience [88, T], or a batch [R, 88, T] of rows of one length →
+    (onset, frame) posteriors [T, 88] or [R, T, 88]: the salience over its
+    ``salience_envelope`` (one launch for the whole batch on the card), every
+    operation within its row."""
     T = sal.shape[-1]
     norm = salience_envelope(sal)
-    norm_t = norm.repeat_interleave(ENVELOPE_STRIDE)[:T]
-    frame_post = torch.clamp(sal / (norm_t[None, :] + 1e-2), 0.0, 1.0)
+    norm_t = norm.repeat_interleave(ENVELOPE_STRIDE, dim=-1)[..., :T]
+    frame_post = torch.clamp(sal / (norm_t[..., None, :] + 1e-2), 0.0, 1.0)
 
-    diff = frame_post[:, 1:] - frame_post[:, :-1]
-    onset_post = torch.clamp(torch.cat([frame_post[:, :1], torch.clamp(diff, min=0.0)], dim=1) * 2.0, 0.0, 1.0)
-    return onset_post.T, frame_post.T
+    diff = frame_post[..., 1:] - frame_post[..., :-1]
+    onset_post = torch.clamp(torch.cat([frame_post[..., :1], torch.clamp(diff, min=0.0)], dim=-1) * 2.0, 0.0, 1.0)
+    return onset_post.transpose(-1, -2), frame_post.transpose(-1, -2)
+
+
+def salience_posteriors(y: torch.Tensor, sr: int):
+    """Fundamental-gated harmonic salience → (onset [T, 88], frame [T, 88]).
+
+    The frame posteriors are normalised by ``salience_envelope``, a
+    bidirectional block-max envelope over ~0.75 s blocks."""
+    return posteriors_from_salience(salience_from_hcqt(hcqt(y, sr)))
 
 
 def notes_from_posteriors(

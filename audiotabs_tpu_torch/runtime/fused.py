@@ -5,10 +5,11 @@ arguments, output keys and dtypes, and of the JAX batch runner's vmap of it
 (``fused_analysis_batch``: a batch of songs in one call): HPSS (median
 kernel), BLSTM beat activation and DBN decode (csrc/dbn_viterbi.cu, every
 song of the batch in one launch), Basic Pitch posteriors, salience (its
-envelope in csrc/salience_envelope.cu) and DeepChroma chroma, template
-emissions, the template backend's decode (csrc/constant_switch_viterbi.cu)
-and the CRF decode (csrc/dense_viterbi.cu, every song of the batch in one
-launch), the key CNN, the strum envelope,
+envelope in csrc/salience_envelope.cu, every song of the batch in one
+launch) and DeepChroma chroma, template emissions, the template backend's
+decode (csrc/constant_switch_viterbi.cu) and the CRF decode
+(csrc/dense_viterbi.cu), each of every song of the batch in one launch, the
+key CNN, the strum envelope,
 content-window metrics (pYIN's Viterbi in csrc/banded_viterbi.cu, the onset
 wait rule in csrc/onset_wait.cu) and calibration statistics (the onset wait
 rule again). On the card these decoders are the kernels; on the CPU they are
@@ -117,15 +118,19 @@ def fused_analysis_batch(
     with a leading B axis; ``true_lens`` [B], ``y_beat`` and ``y_mix`` [B, T]
     are per song.
 
-    The HPSS splits, the DBN and CRF decodes, the content-window metrics (all
+    The HPSS splits, the salience's envelope and posteriors, the template
+    and CRF chord decodes, the DBN decode, the content-window metrics (all
     songs' windows in one call), the strum envelope and the calibration
     statistics run once on the whole batch: 8 median launches per batch with
-    ``y_beat``, and one launch each of the DBN kernel, of the dense Viterbi
-    (the CRF), of the banded Viterbi (pYIN) and of the onset kernel twice
-    (content windows and calibration), whatever B is. The nets, the CRF's
-    emission layer, the template backend's decode (one constant-switch
-    launch per song) and the key CNN run song by song. Every reduction
-    (energy and envelope maxima, quantiles, masks) stays within its row."""
+    ``y_beat``, and one launch each of the salience envelope, of the
+    constant-switch Viterbi (the template backend, with ``chord_backend``
+    "template" or "both"), of the dense Viterbi (the CRF), of the DBN
+    kernel, of the banded Viterbi (pYIN) and of the onset kernel twice
+    (content windows and calibration), whatever B is. The nets (one hCQT a
+    song, shared by the salience and the CNN), the chroma and emissions,
+    the CRF's emission layer and the key CNN run song by song. Every
+    reduction (energy and envelope maxima, quantiles, masks) stays within
+    its row."""
     models = models or load_models(y.device)
     n_songs, n = y.shape
     lens = [None] * n_songs if true_lens is None else [int(t) for t in true_lens]
@@ -146,12 +151,24 @@ def fused_analysis_batch(
     else:
         beat_src = y_perc if separate else y
 
-    # 3-4b. the nets and the template chord decode, song by song
-    rows = [
-        _song_stages(y[b], y_harm[b], beat_src[b], sr, switch_penalty, chord_backend, lens[b], models)
-        for b in range(n_songs)
-    ]
+    # 3. the nets up to the salience, song by song (one hCQT each, shared by
+    # the salience and the Basic Pitch CNN)
+    rows = [_song_nets(y_harm[b], beat_src[b], sr, models) for b in range(n_songs)]
+    sal = torch.stack([r.pop("salience") for r in rows])  # [B, 88, T]: the songs share the bucket's length
+    # 3b. the posteriors of every song's salience: one envelope launch
+    sal_onset, sal_frame = basicpitch.posteriors_from_salience(sal)
+    if models.basicpitch is None:
+        out["amt_onset"], out["amt_frame"] = sal_onset.contiguous(), sal_frame.contiguous()
+
+    # 4. chroma, chord emissions, DeepChroma and the key, song by song
+    for b, r in enumerate(rows):
+        r.update(_song_chords(y[b], y_harm[b], sal_frame[b], sr, chord_backend, lens[b], models))
     out.update({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+
+    # 4a. the template backend's decode of every song's emissions in one call
+    # (one constant-switch launch)
+    if chord_backend in ("template", "both"):
+        out["chord_path"], out["chord_conf"] = viterbi_constant_switch(out["chord_emissions"], switch_penalty)
 
     # 4b. CRF chord decode of every song's gated features in one call (one
     # dense Viterbi launch)
@@ -200,31 +217,38 @@ def fused_analysis_batch(
     return out
 
 
-def _song_stages(
-    y: torch.Tensor,
-    y_harm: torch.Tensor,
-    beat_src: torch.Tensor,
-    sr: int,
-    switch_penalty: float,
-    chord_backend: str,
-    true_len: int | None,
-    models: AnalysisModels,
-) -> dict[str, torch.Tensor]:
-    """One song's nets and its template chord decode: the beat activation,
-    the AMT posteriors, chroma, the chord emissions and decode, the CRF's
-    gated features (``crf_features``, decoded for the whole batch by the
-    caller), the key CNN."""
+def _song_nets(y_harm: torch.Tensor, beat_src: torch.Tensor, sr: int, models: AnalysisModels) -> dict[str, torch.Tensor]:
+    """One song's nets up to the salience: the beat activation, the hCQT of
+    the harmonic component, its salience [88, T] (``salience``, normalised
+    for the whole batch by the caller) and the Basic Pitch CNN's posteriors
+    on the same hCQT."""
     out: dict[str, torch.Tensor] = {}
 
     # 2. beat activation at 100 fps
     out["beat_activation"] = beat_rnn.beat_activation(beat_src, sr, models.beat, 100)
 
     # 3. AMT posteriors on the harmonic component
-    sal_onset, sal_frame = basicpitch.salience_posteriors(y_harm, sr)
+    hc = basicpitch.hcqt(y_harm, sr)
+    out["salience"] = basicpitch.salience_from_hcqt(hc)
     if models.basicpitch is not None:
-        out["amt_onset"], out["amt_frame"], _contour = basicpitch.cnn_apply(models.basicpitch, basicpitch.hcqt(y_harm, sr))
-    else:
-        out["amt_onset"], out["amt_frame"] = sal_onset, sal_frame
+        out["amt_onset"], out["amt_frame"], _contour = basicpitch.cnn_apply(models.basicpitch, hc)
+    return out
+
+
+def _song_chords(
+    y: torch.Tensor,
+    y_harm: torch.Tensor,
+    sal_frame: torch.Tensor,
+    sr: int,
+    chord_backend: str,
+    true_len: int | None,
+    models: AnalysisModels,
+) -> dict[str, torch.Tensor]:
+    """One song's chord features from its salience frame posteriors
+    [T, 88]: chroma, the template emissions (decoded for the whole batch by
+    the caller), the CRF's gated features (``crf_features``, decoded for the
+    whole batch by the caller), DeepChroma, the key CNN."""
+    out: dict[str, torch.Tensor] = {}
 
     # 4. chord chroma + template emissions at 10 fps
     hop = int(round(sr / CHROMA_FPS))
@@ -241,9 +265,6 @@ def _song_stages(
         valid = torch.arange(t_ch, device=y.device) * hop < true_len
         emissions = torch.where(valid[None, :], emissions, torch.full_like(emissions, 1.0 / emissions.shape[0]))
     out["chord_emissions"] = emissions
-
-    if chord_backend in ("template", "both"):
-        out["chord_path"], out["chord_conf"] = viterbi_constant_switch(emissions, switch_penalty)
 
     if chord_backend in ("deep", "both"):
         if models.deepchroma is not None:

@@ -59,21 +59,25 @@
 9. The batch runner (after 8): ``transcribe_batch`` over the six held-out
    clips (all in the 30 s bucket) in chunks of 4 and 2 songs, cold and warm:
    8 median launches per chunk, one launch each of the DBN, dense (CRF)
-   and banded Viterbi kernels, two of the onset kernel and one salience
-   envelope per song per chunk, and in the profiler 8 median launches and 1
+   and banded Viterbi kernels and of the salience envelope, two of the
+   onset kernel per chunk, and in the profiler 8 median launches and 1
    device-to-host copy per chunk; each row's stems within STEM_TOL of a 1-D
    ``separate_program`` of the row, and its fused outputs against
    ``fused_analysis`` on the row and the batch's stems; the artifact set of
    every song. Prints the batch's wall, audio seconds per wall second, busy
    share, each chunk alone in the profiler, and the six songs one at a time
    through ``run_pipeline`` with their chords, key, beats and notes against
-   the batch's (printed, not checked). Step 3 also holds the kernel exactly
+   the batch's (printed, not checked). Then the first chunk again with
+   ``CHORD_DETECTION_BACKEND=template``: a template song's decoder launches
+   for the whole chunk (one constant-switch launch), each row's chord path
+   equal to ``fused_analysis`` of the row on the chunk's stems. Step 3
+   also holds the kernel exactly
    at every batched shape ([B, 1025, 1292], [B·20, 513, 130], [B, 513, 1292]
    for B = 4 and 2, both axes) and times each against its byte bound.
 9a. The mesh (after 9, ``mesh_phase``): ``transcribe_batch`` over the six
     clips with ``mesh=default_mesh()`` (every card on one "data" axis): 8
     median launches per chunk and, per device shard, one DBN, one CRF, two
-    onset, one banded Viterbi launch and a salience envelope per row;
+    onset, one banded Viterbi and one salience envelope launch;
     every row's discrete outputs and beat times
     equal to step 9's and its floats within FLOAT_TOL, the same artifact set;
     ``batched_fused_analysis`` over a 2-way "data" mesh of [cuda:0, cuda:0]
@@ -150,7 +154,11 @@
     -1 for the onset rule; constant block maxima, a loud then
     silent row and a negative one whose padding holds the last block's
     maximum; equal emission columns, and costs exactly at the minimum plus
-    the penalty). Each shape is timed: the kernel alone on inputs
+    the penalty; for the envelope and the constant-switch Viterbi a NaN a
+    third of the way into a row and an all-NaN row, where a NaN is the
+    maximum, and the minimum, as torch's take it). A batch chunk's envelope
+    [4, 88, 2584] and the template chunk's [4, 49, 301] must be among the
+    launched shapes. Each shape is timed: the kernel alone on inputs
     prepared once (CUDA events with and without the spin kernel, and its
     duration in the profiler), the wrapper with torch's preparation, and the
     plain loop on the card; beside the bound (adds at 128 and compares at 64
@@ -283,11 +291,9 @@ DECODERS = {
 # wait rule of the content windows and of the calibration, pYIN's Viterbi of
 # the content windows, the CRF decode, the salience envelope; no
 # constant-switch decode (the template backend's); in a batch chunk or a
-# mesh shard of b songs the same, but a salience envelope per song
-# (ROW_KERNELS)
+# mesh shard of b songs the same, whatever b is
 DECODER_LAUNCHES_PER_SONG = {"dbn_viterbi": 1, "onset_wait": 2, "banded_viterbi": 1, "dense_viterbi": 1,
                              "salience_envelope": 1, "constant_switch_viterbi": 0}
-ROW_KERNELS = ("salience_envelope",)
 # the JAX package's north-star song (bench.py's long_song_wall_s): the DBN,
 # the onset rule, the CRF's dense Viterbi, the salience envelope and the
 # constant-switch Viterbi (majmin7's 49 states) are also held and timed at
@@ -330,14 +336,11 @@ def decoder_shapes_at(seconds: float) -> dict[str, dict[tuple, tuple[str, ...]]]
         "dbn_viterbi": {(1, beat_frames(seconds)): ("random", "constant", "two levels"), (4, beat_frames(seconds)): ("random",)},
         "onset_wait": {(1, onset_frames(seconds)): ("random", "all candidates", "runs", "wait 0", "wait -1")},
         "dense_viterbi": {(1, chroma_frames(seconds), 25): ("random", "equal columns, uniform transitions", "one NaN", "NaN row")},
-        "salience_envelope": {(1, 88, hcqt_frames(seconds)): ("random", "constant block maxima", "loud then silent", "negative")},
-        "constant_switch_viterbi": {(1, 49, chroma_frames(seconds)): ("random", "equal columns", "at min + penalty")},
+        "salience_envelope": {(1, 88, hcqt_frames(seconds)): ("random", "constant block maxima", "loud then silent", "negative",
+                                                               "one NaN", "NaN row")},
+        "constant_switch_viterbi": {(1, 49, chroma_frames(seconds)): ("random", "equal columns", "at min + penalty", "one NaN",
+                                                                     "NaN row")},
     }
-
-
-def per_rows(b: int) -> dict:
-    """Decoder launches of a batch chunk or a mesh shard of ``b`` songs."""
-    return DECODER_LAUNCHES_PER_SONG | dict.fromkeys(ROW_KERNELS, b)
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3, spin: bool = True) -> float:
@@ -962,8 +965,8 @@ def batch_phase(median, mods: dict, card: str) -> dict:
             raise AssertionError(f"median launches per chunk {per_chunk_launches}, expected {SEPARATED_LAUNCHES} in each of {len(CHUNK_SONGS)}")
         if [args[1].shape[0] for args, _, _ in sep.calls] != list(CHUNK_SONGS):
             raise AssertionError(f"chunks of {[args[1].shape[0] for args, _, _ in sep.calls]} songs, expected {list(CHUNK_SONGS)}")
-        # one DBN, one CRF, two onset and one banded Viterbi launch per chunk, one salience envelope per song
-        expect = [per_rows(b) for b in CHUNK_SONGS]
+        # one DBN, one CRF, one salience envelope, two onset and one banded Viterbi launch per chunk
+        expect = [DECODER_LAUNCHES_PER_SONG] * len(CHUNK_SONGS)
         if per_chunk_decoders != expect:
             raise AssertionError(f"decoder launches per chunk {per_chunk_decoders}, expected {expect}")
         print(f"batch run {run} ({'cold' if run == 0 else 'warm'}): {len(HELDOUT)} songs in {walls[-1]:.3f} s, "
@@ -971,6 +974,7 @@ def batch_phase(median, mods: dict, card: str) -> dict:
     batch, true_lens, sr = batch_runner._load_and_bucket(HELDOUT, s.PAD_SECONDS_BUCKET)
     audio_s = sum(true_lens) / sr
     print(f"batch: {audio_s:.2f} s of audio in {walls[1]:.3f} s warm = {audio_s / walls[1]:.3f} audio-s per wall s (cold {walls[0]:.3f} s) [{card}]")
+    template_chunk = template_chunk_check(median, mods, s, batch, true_lens, sr, card)
 
     # every song's artifacts, no stage error
     for r, clip in zip(results, HELDOUT):
@@ -1037,7 +1041,40 @@ def batch_phase(median, mods: dict, card: str) -> dict:
               f"notes {sum(b_notes.values())} / {sum(s_notes.values())}, {same_notes} in both (start, end, pitch); single run_pipeline {single[-1]:.3f} s")
     print(f"one at a time: {sum(single):.3f} s for the six songs ({audio_s / sum(single):.3f} audio-s per wall s), batch {walls[1]:.3f} s [{card}]")
     return {"walls": walls, "launches_per_chunk": per_chunk_launches, "decoder_launches_per_chunk": per_chunk_decoders,
-            "profile": prof, "chunks": chunks, "single_s": single, "rows": warm_rows}
+            "profile": prof, "chunks": chunks, "single_s": single, "rows": warm_rows, "template_chunk_decoders": template_chunk}
+
+
+def template_chunk_check(median, mods: dict, s, batch: np.ndarray, true_lens, sr: int, card: str) -> dict:
+    """The template chord backend on the batch's first chunk (the first 4
+    held-out clips): the decoder launches of a template song for the whole
+    chunk (one constant-switch launch), and each row's outputs against
+    ``fused_analysis`` of the row alone on the stems the chunk separated
+    (the chord path equal, the rest as ``compare_with_cpu``)."""
+    from audiotabs_tpu_torch.models import htdemucs
+    from audiotabs_tpu_torch.runtime import batch_runner, pipeline
+    from audiotabs_tpu_torch.runtime.fused import fused_analysis
+
+    b = CHUNK_SONGS[0]
+    template = dataclasses.replace(s, CHORD_DETECTION_BACKEND="template")
+    with Capture(htdemucs, "separate_program") as sep:
+        zero_counts(median, mods)
+        got = batch_runner.batched_fused_analysis(batch[:b], sr, true_lens[:b], device="cuda", settings=template)
+        launches = expect_decoders(mods, TEMPLATE, f"a template chunk of {b} songs")
+    if got["chord_path"].shape[0] != b or not np.isfinite(got["chord_conf"]).all():
+        raise AssertionError(f"template chunk: chord path {got['chord_path'].shape}, confidences finite {np.isfinite(got['chord_conf']).all()}")
+    cfg = htdemucs.program_config(htdemucs.load_params(), s.DEMUCS_MODEL, s.stem_priority())
+    (args, _, stems), = sep.calls
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for j in range(b):
+            row = pipeline.features_to_host(fused_analysis(
+                stems[j, cfg["stem_idx"]].contiguous(), sr, chord_backend="template", true_len=true_lens[j],
+                y_beat=stems[j, cfg["drums_idx"]].contiguous(), y_mix=args[1][j]))
+            if not np.array_equal(row["chord_path"], got["chord_path"][j]):
+                raise AssertionError(f"template chunk row {j}: chord path differs from fused_analysis of the row")
+            compare_with_cpu(f"template chunk row {j} vs fused_analysis", row, {k: v[j] for k, v in got.items()}, quiet=True)
+    print(f"template chunk ({b} clips, CHORD_DETECTION_BACKEND=template): decoder launches {launches}; every row's chord path "
+          f"equal to fused_analysis of the row, the rest discrete equal and floats within {FLOAT_TOL} [{card}]")
+    return launches
 
 
 MESH_JOBS = REPO / "build" / "chip_smoke_mesh"  # git-ignored
@@ -1079,8 +1116,8 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
                 zero_counts(median, mods)
                 out = keep(*args, **kwargs)
                 per_shard.append((args[0].shape[0], median.LAUNCHES))
-                # one DBN, one CRF, two onset and one banded Viterbi launch per shard, a salience envelope per row
-                expect_decoders(mods, per_rows(args[0].shape[0]), f"a device shard of {args[0].shape[0]} rows")
+                # one DBN, one CRF, one salience envelope, two onset and one banded Viterbi launch per shard
+                expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, f"a device shard of {args[0].shape[0]} rows")
                 return out
 
             setattr(self.module, self.name, counted)
@@ -1110,7 +1147,7 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
                 raise AssertionError(f"mesh song {clip.name}: {key} differ from the batch phase's")
     launches_default = [n for _, n in per_shard]
     print(f"mesh a (default mesh {mesh.shape}): {len(HELDOUT)} songs in {wall:.3f} s, (songs, median launches) per device shard {per_shard}, "
-          f"decoder launches per shard {DECODER_LAUNCHES_PER_SONG} but a salience envelope per row; "
+          f"decoder launches per shard {DECODER_LAUNCHES_PER_SONG}; "
           f"every row's discrete outputs and beat times equal the batch phase's, floats within {FLOAT_TOL}; the same artifact set [{card}]")
 
     # b. a 2-way data mesh on the one card: rows split 2 ways, one zero pad row at B = 5
@@ -1718,6 +1755,13 @@ def with_nans(x: np.ndarray) -> dict:
     return {"one NaN": one, "NaN row": row}
 
 
+def nans_along_frames(x: np.ndarray) -> dict:
+    """``with_nans`` on [B, rows, T] (the salience's pitches, the chord
+    states): "one NaN" a third of the way into the frames of row 0, in its
+    middle pitch or state; "NaN row" the last row all NaN."""
+    return {k: np.ascontiguousarray(v.swapaxes(1, -1)) for k, v in with_nans(np.ascontiguousarray(x.swapaxes(1, -1))).items()}
+
+
 def same(got: torch.Tensor, ref: torch.Tensor) -> bool:
     """Equal in shape, type and every value, a NaN equal to a NaN."""
     if got.shape != ref.shape or got.dtype != ref.dtype:
@@ -1758,7 +1802,8 @@ def decoder_inputs(name: str, shape: tuple, like: tuple, rng) -> dict:
         loud = x * np.float32(0.02)
         loud[..., : shape[-1] // 4] += 1.0
         cases = {"random": x, "constant block maxima": np.full(shape, 0.25, np.float32), "loud then silent": loud,
-                 "negative": -x - np.float32(0.5)}  # negative: the padding's zeros are the last block's maximum
+                 "negative": -x - np.float32(0.5),  # negative: the padding's zeros are the last block's maximum
+                 **nans_along_frames(x)}
         return {k: (torch.from_numpy(v).to(dev), *like[1:]) for k, v in cases.items()}
     if name == "constant_switch_viterbi":
         em = rng.random(shape).astype(np.float32) ** 4 + np.float32(1e-3)
@@ -1768,9 +1813,11 @@ def decoder_inputs(name: str, shape: tuple, like: tuple, rng) -> dict:
         # costs land exactly on the minimum plus the penalty
         levels = rng.choice(np.array([1.0, 0.5, 0.25], np.float32), size=shape)
         at_penalty = float(-torch.log(torch.tensor(0.5, device=dev)))
-        return {"random": (torch.from_numpy(em / em.sum(1, keepdims=True)).to(dev), like[1]),
+        em /= em.sum(1, keepdims=True)
+        return {"random": (torch.from_numpy(em).to(dev), like[1]),
                 "equal columns": (torch.from_numpy(tied / tied.sum(1, keepdims=True)).to(dev), like[1]),
-                "at min + penalty": (torch.from_numpy(levels).to(dev), at_penalty)}
+                "at min + penalty": (torch.from_numpy(levels).to(dev), at_penalty),
+                **{k: (torch.from_numpy(v).to(dev), like[1]) for k, v in nans_along_frames(em).items()}}
     if name == "banded_viterbi":
         n_bins = shape[-1]
         obs = rng.random(shape).astype(np.float32)
@@ -1876,6 +1923,11 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
         one_song = next(iter(at))
         if one_song not in shapes[name]:
             raise AssertionError(f"no {name} launch at the 30 s bucket's {one_song}: its frame count here is off")
+    # a batch chunk's one launch of the salience envelope and (the template chunk) of the constant-switch Viterbi
+    for name in ("salience_envelope", "constant_switch_viterbi"):
+        chunk = (CHUNK_SONGS[0], *next(iter(bucket[name]))[1:])
+        if chunk not in shapes[name]:
+            raise AssertionError(f"no {name} launch at a chunk's {chunk}: the batch launched {sorted(shapes[name])}")
     long_shapes = decoder_shapes_at(LONG_SONG_S)
     print(f"the {LONG_SONG_S} s song: shapes {[list(at) for at in long_shapes.values()]} "
           f"(the 30 s bucket: {[next(iter(at)) for at in bucket.values()]})")
@@ -2427,7 +2479,8 @@ def main() -> int:
     }] + [decoder_entry(name, decoders[name], own_path[name][0], batch, {
         "run_analysis": DECODER_LAUNCHES_PER_SONG[name],
         "inline_and_queued_job": DECODER_LAUNCHES_PER_SONG[name],
-        "mesh_shard_of_b_rows": "b" if name in ROW_KERNELS else DECODER_LAUNCHES_PER_SONG[name],
+        "mesh_shard_of_b_rows": DECODER_LAUNCHES_PER_SONG[name],
+        "template_batch_chunk_of_4": batch["template_chunk_decoders"][name],
         **{case: cases[case]["decoder_launches"][name] for case in SETTINGS_CASES},
         "degraded": degraded["runs"][-1]["decoder_launches"][name],
         "train_by_trainer": {t: n[name] for t, n in train["decoder_launches"].items()},

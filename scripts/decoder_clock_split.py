@@ -3,24 +3,35 @@
     python3 scripts/decoder_clock_split.py [KERNEL ...]
 
 Builds the marked kernels again (csrc/dbn_viterbi.cu, banded_viterbi.cu,
-dense_viterbi.cu and onset_wait.cu, or the ones named), into
-build/clock_split/, with their ``SPLIT`` marks defined: at each mark every
-thread reads ``clock64()``, and thread 0 of block 0 adds the clocks since the
-previous mark to the counter of that mark's part. The modules' own
-``_launch_args`` and ``_launch`` then run these builds (their cached
-launchers are swapped for the marked ones), once to warm up and once
-counted, on random inputs at each kernel's shapes (``CASES``): the DBN at
-[1, 3007] (the 30 s bucket), the banded Viterbi at [20, 130, 241] (the
-content windows of one song, band 25), the dense Viterbi at [1, 301, 25]
-(the CRF of the 30 s bucket) and [1, 1801, 25] (a 180 s song), the onset
-rule at [20, 130] (the content windows), [1, 1292] (the calibration) and
-[1, 7752] (a 180 s song's calibration). Prints, for each part, the clocks
-per frame (parts inside the frame loop) or in all (parts after it), the
-launch's time by CUDA events and the card's name, power limit and SM clock.
-What each part holds is written beside its mark in the source. The marks
-cost a few clocks each, so the marked build is a little slower than the one
-the port runs; its parts are for comparing shares, and the port's times
-come from chip_smoke.py.
+dense_viterbi.cu, onset_wait.cu, salience_envelope.cu and
+constant_switch_viterbi.cu, or the ones named), into build/clock_split/,
+with their ``SPLIT`` marks defined: at each mark every thread reads
+``clock64()``, and one thread adds the clocks since the previous mark to the
+counter of that mark's part: thread 0 of block 0 (``SPLIT_START``), or the
+thread a kernel names (``SPLIT_START_IF``, and ``SPLIT_FOLLOW`` from a point
+on, as the envelope's tail block does); ``SPLIT_SKIP`` restarts the count
+without adding (time that a called function's own marks counted). The modules' own launch functions
+(``_launch_args`` and ``_launch``, or the prefixed ones of a module with two
+kernels) then run these builds (their cached launchers are swapped for the
+marked ones), once to warm up and once counted, on random inputs at each
+kernel's shapes (``CASES``): the DBN at [1, 3007] (the 30 s bucket), the
+banded Viterbi at [20, 130, 241] (the content windows of one song, band 25),
+the dense Viterbi at [1, 301, 25] (the CRF of the 30 s bucket) and
+[1, 1801, 25] (a 180 s song), the onset rule at [20, 130] (the content
+windows), [1, 1292] (the calibration) and [1, 7752] (a 180 s song's
+calibration), the salience envelope at [1, 88, 2584] (the 30 s bucket),
+[1, 88, 15504] (a 180 s song) and [4, 88, 2584] (a batch chunk), the
+constant-switch Viterbi at [1, 49, 301] (majmin7 at the 30 s bucket),
+[1, 49, 1801] (a 180 s song) and [4, 49, 301] (a batch chunk). Prints, for
+each part, the clocks per frame (parts inside the frame loop) or in all
+(parts after it), the marked launch's time by CUDA events, the time of the
+port's own (unmarked) build on the same inputs (events, a spin kernel
+ahead, the median of 20) and the card's name, power limit and SM clock.
+What each part holds is written beside its mark in the source. Each mark
+costs tens of clocks (a clock read and an add to device memory) and
+serialises the instructions around it, so the marked build is slower than
+the one the port runs; its parts are for comparing shares, and the port's
+times come from chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -44,11 +55,14 @@ OUT = REPO / "build" / "clock_split"
 N_PARTS = 8
 WRAPPER = """#include <cuda_runtime.h>
 __device__ unsigned long long g_split[{n}];
-#define SPLIT_START long long split_t0 = clock64()
+#define SPLIT_START_IF(cond) long long split_t0 = clock64(); bool split_me = (cond)
+#define SPLIT_START SPLIT_START_IF(blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)
+#define SPLIT_FOLLOW(cond) split_me = (cond)
+#define SPLIT_SKIP split_t0 = clock64()
 #define SPLIT(part)                                                   \\
   do {{                                                               \\
     const long long split_t1 = clock64();                             \\
-    if (blockIdx.x == 0 && threadIdx.x == 0) g_split[part] += split_t1 - split_t0; \\
+    if (split_me) g_split[part] += split_t1 - split_t0;               \\
     split_t0 = split_t1;                                              \\
   }} while (0)
 #include "{source}"
@@ -60,11 +74,16 @@ extern "C" int split_reset() {{
   return static_cast<int>(cudaMemcpyToSymbol(g_split, zero, sizeof(zero)));
 }}
 """
+# name → (module, C symbol, the prefix of the module's launch functions: ""
+# for _ARGTYPES, _launch_args and _launch, else _<PREFIX>_ARGTYPES,
+# _<prefix>_launch_args and _<prefix>_launch)
 KERNELS = {
-    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "dbn_viterbi_f32"),
-    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "banded_viterbi_f32"),
-    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "dense_viterbi_f32"),
-    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "onset_wait_u8"),
+    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "dbn_viterbi_f32", ""),
+    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "banded_viterbi_f32", ""),
+    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "dense_viterbi_f32", ""),
+    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "onset_wait_u8", ""),
+    "salience_envelope": ("audiotabs_tpu_torch.models.basicpitch", "salience_envelope_f32", ""),
+    "constant_switch_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "constant_switch_viterbi_f32", "switch"),
 }
 # the shapes each kernel is split at
 CASES = {
@@ -72,7 +91,10 @@ CASES = {
     "banded_viterbi": [(20, 130, 241)],
     "dense_viterbi": [(1, 301, 25), (1, 1801, 25)],
     "onset_wait": [(20, 130), (1, 1292), (1, 7752)],
+    "salience_envelope": [(1, 88, 2584), (1, 88, 15504), (4, 88, 2584)],
+    "constant_switch_viterbi": [(1, 49, 301), (1, 49, 1801), (4, 49, 301)],
 }
+SPIN_CYCLES = 2_000_000  # about 1 ms of a spin kernel ahead of each timed launch, as chip_smoke.py's
 
 
 def build_marked(name: str) -> ctypes.CDLL:
@@ -96,6 +118,13 @@ def inputs(name: str, shape: tuple) -> tuple:
     if name == "onset_wait":
         # the calibration's rule: candidates at about a tenth of the frames, wait 4
         return (torch.from_numpy(rng.random(shape) < 0.1).cuda(), 4), shape[-1]
+    if name == "salience_envelope":
+        from audiotabs_tpu_torch.models.basicpitch import ENVELOPE_DECAY, ENVELOPE_STRIDE
+
+        return (torch.from_numpy(rng.random(shape).astype(np.float32)).cuda(), ENVELOPE_STRIDE, ENVELOPE_DECAY), shape[-1]
+    if name == "constant_switch_viterbi":
+        em = rng.random(shape).astype(np.float32) ** 4 + np.float32(1e-3)  # chord-state probabilities, as chip_smoke.py's
+        return (torch.from_numpy(em / em.sum(1, keepdims=True)).cuda(), 2.5), shape[-1] - 1
     if name == "dense_viterbi":
         em = rng.random(shape).astype(np.float32) + np.float32(0.01)
         trans = np.full(shape[-1:] * 2, np.log(0.02 / (shape[-1] - 1)), np.float32)
@@ -113,20 +142,22 @@ def inputs(name: str, shape: tuple) -> tuple:
 
 
 def split(name: str, lib: ctypes.CDLL, shape: tuple) -> dict:
-    module, symbol = KERNELS[name]
+    module, symbol, prefix = KERNELS[name]
     mod = importlib.import_module(module)
+    pre = f"_{prefix}" if prefix else ""
+    launch_args, launch = getattr(mod, f"{pre}_launch_args"), getattr(mod, f"{pre}_launch")
     fn = getattr(lib, symbol)
-    fn.argtypes, fn.restype = mod._ARGTYPES, ctypes.c_int
-    _build._FUNCS[(name, symbol)] = fn  # the module's _launch now runs the marked build
+    fn.argtypes, fn.restype = getattr(mod, f"{pre.upper()}_ARGTYPES"), ctypes.c_int
+    _build._FUNCS[(name, symbol)] = fn  # the module's launch function now runs the marked build
     args, frames = inputs(name, shape)
-    prepared = mod._launch_args(*args)
-    mod._launch(*prepared)
+    prepared = launch_args(*args)
+    launch(*prepared)
     torch.cuda.synchronize()
     if lib.split_reset() != 0:
         raise RuntimeError("cudaMemcpyToSymbol failed")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    mod._launch(*prepared)
+    launch(*prepared)
     end.record()
     end.synchronize()
     counts = (ctypes.c_ulonglong * N_PARTS)()
@@ -136,8 +167,19 @@ def split(name: str, lib: ctypes.CDLL, shape: tuple) -> dict:
     parts = {i: int(c) for i, c in enumerate(counts) if c}
     ms = start.elapsed_time(end)
     total = sum(parts.values())
+    # the port's own build (no marks): the median of 20 launches by events, a spin kernel ahead of each
+    launch(*prepared)
+    times = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        launch(*prepared)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return {
-        "shape": list(shape), "frames": frames, "ms": ms, "us_per_frame": ms * 1e3 / frames,
+        "shape": list(shape), "frames": frames, "ms": ms, "port_ms": float(np.median(times)), "us_per_frame": ms * 1e3 / frames,
         "clocks": parts, "clocks_per_frame": {i: c / frames for i, c in parts.items()},
         "clocks_total": total, "mhz_implied": total / (ms * 1e3),
     }
@@ -162,7 +204,8 @@ def main() -> int:
             out[f"{name} {list(shape)}"] = split(name, lib, shape)
     for label, row in out.items():
         per = ", ".join(f"part {i}: {c:.1f}" for i, c in row["clocks_per_frame"].items())
-        print(f"{label}: {row['ms']:.4f} ms by events ({row['us_per_frame']:.3f} us per frame over {row['frames']} frames); "
+        print(f"{label}: {row['ms']:.4f} ms by events ({row['us_per_frame']:.3f} us per frame over {row['frames']} frames; "
+              f"the port's unmarked build {row['port_ms']:.4f} ms, a spin kernel ahead); "
               f"thread 0's clocks per frame by part: {per}; {row['clocks_total']} clocks in all ({row['mhz_implied']:.0f} MHz implied)")
     print(json.dumps({"clock_split": out}))
     return 0

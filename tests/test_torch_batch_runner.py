@@ -7,7 +7,9 @@
   2 f16 ulps.
 - Each row of that batch against the port's ``fused_analysis`` on the row
   (the batched stages must not change a row's answer), and chunks of one
-  song against one chunk of all.
+  song against one chunk of all; a chunk of 3 with both chord backends
+  makes one salience envelope and one constant-switch call, and its rows
+  equal the songs' own analyses.
 - ``separate_program`` on two 6 s rows with the checkpoint and two shifts
   (three windows per song at each of both shift offsets) against the 1-D call per
   row, within 1e-5 of each stem's peak.
@@ -121,6 +123,35 @@ def test_batch_rows_match_single_songs(port_batch):
     for b, n in enumerate(LENS):
         tail = got["chord_emissions"][b][:, int(n) // (SR // 10) + 1 :]
         np.testing.assert_allclose(tail, 1.0 / tail.shape[0])
+
+
+def test_chunk_of_both_backends_matches_single_songs_with_one_launch_of_each(monkeypatch):
+    """A chunk of 3 songs with ``chord_backend="both"``: one salience
+    envelope call on [3, 88, T] and one constant-switch decode on
+    [3, 49, t_ch] for the chunk (spies on the wrappers), and every row equal
+    to ``fused_analysis`` of the song alone: the template and CRF paths
+    exactly, the rest at the tolerances of test_batch_rows_match_single_songs."""
+    from audiotabs_tpu_torch.models import basicpitch
+    from audiotabs_tpu_torch.runtime import fused
+    from audiotabs_tpu_torch.runtime.pipeline import features_to_host
+
+    calls = []
+    for module, name in ((basicpitch, "salience_envelope"), (fused, "viterbi_constant_switch")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda x, *a, fn=fn, name=name: calls.append((name, tuple(x.shape))) or fn(x, *a))
+    batch = torch.from_numpy(_songs())
+    with torch.inference_mode():
+        got = features_to_host(fused.fused_analysis_batch(batch, SR, separate=True, chord_backend="both", true_lens=LENS))
+    n_frames = got["amt_frame"].shape[1]
+    t_ch = got["chord_emissions"].shape[-1]
+    assert calls == [("salience_envelope", (3, 88, n_frames)), ("viterbi_constant_switch", (3, 49, t_ch))]
+    assert {"chord_path", "chord_conf", "crf_path", "crf_conf"} <= set(got)
+    calls.clear()
+    for b in range(len(batch)):
+        with torch.inference_mode():
+            single = features_to_host(fused.fused_analysis(batch[b], SR, separate=True, chord_backend="both", true_len=int(LENS[b])))
+        _compare(single, {k: v[b] for k, v in got.items()}, dict(rtol=1e-4, atol=1e-6), f"row {b}")
+    assert calls == [("salience_envelope", (1, 88, n_frames)), ("viterbi_constant_switch", (1, 49, t_ch))] * len(batch)
 
 
 def test_chunked_batch_matches_one_chunk(port_batch):

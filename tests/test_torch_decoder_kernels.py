@@ -106,24 +106,33 @@ def _emissions(kind: str, B: int = 3, T: int = 60, S: int = 7) -> tuple[np.ndarr
     return log_em, np.log(trans).astype(np.float32)
 
 
+def _nans_along_frames(x: np.ndarray, kind: str) -> np.ndarray:
+    """``_with_nans`` on [B, rows, T]: "one NaN" a third of the way into the
+    frames of row 0, in its middle state or pitch; "NaN row" row 1 (or 0)."""
+    return np.ascontiguousarray(_with_nans(x.swapaxes(1, -1), kind).swapaxes(1, -1))
+
+
 def _switch_emissions(kind: str, B: int = 3, S: int = 49, T: int = 301) -> np.ndarray:
     """[B, S, T] chord-state probabilities. "equal columns": every third frame
     all states are equal; "at min + penalty": probabilities 1, 1/2 and 1/4,
     costs 0, c and 2c, so with a penalty of c = -log(1/2) costs land exactly
-    on the minimum plus the penalty."""
+    on the minimum plus the penalty; "one NaN", "NaN row": the random
+    probabilities with NaNs (``_nans_along_frames``)."""
     rng = np.random.default_rng(29)
     if kind == "at min + penalty":
         return rng.choice(np.array([1.0, 0.5, 0.25], np.float32), size=(B, S, T))
     em = rng.random((B, S, T)).astype(np.float32) ** 4 + np.float32(1e-3)
     if kind == "equal columns":
         em[:, :, ::3] = 1.0
-    return em / em.sum(1, keepdims=True)
+    em /= em.sum(1, keepdims=True)
+    return _nans_along_frames(em, kind) if kind in ("one NaN", "NaN row") else em
 
 
 def _salience(kind: str, R: int = 2, T: int = 2584) -> np.ndarray:
     """[R, 88, T] salience. "loud then silent": the decay decides the
     envelope; "constant": every block maximum ties; "negative": the last
-    block's padding zeros are its maximum, above the row's maximum."""
+    block's padding zeros are its maximum, above the row's maximum; "one
+    NaN", "NaN row": the random salience with NaNs (``_nans_along_frames``)."""
     rng = np.random.default_rng(31)
     x = rng.random((R, 88, T)).astype(np.float32)
     if kind == "constant":
@@ -133,6 +142,8 @@ def _salience(kind: str, R: int = 2, T: int = 2584) -> np.ndarray:
     if kind == "loud then silent":
         x *= 0.02
         x[:, :, : T // 4] += 1.0
+    if kind in ("one NaN", "NaN row"):
+        return _nans_along_frames(x, kind)
     return x
 
 
@@ -271,16 +282,18 @@ def test_cuda_dbn_score_too_large_for_shared_memory_raises(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "equal columns", "at min + penalty"])
-@pytest.mark.parametrize("B,S,T", [(1, 49, 301), (1, 61, 301), (3, 25, 120), (2, 64, 40), (1, 49, 1801), (2, 7, 1)])
+@pytest.mark.parametrize("kind", ["random", "equal columns", "at min + penalty", "one NaN", "NaN row"])
+@pytest.mark.parametrize("B,S,T", [(1, 49, 301), (4, 49, 301), (1, 61, 301), (3, 25, 120), (2, 64, 40), (1, 49, 1801),
+                                   (2, 7, 1), (2, 33, 70)])
 def test_cuda_constant_switch_kernel_equals_plain_version(cuda, kind, B, S, T):
+    # majmin7 (49 states) for one song, a chunk of 4 and the 180 s song; majmin7plus (61); one and two state words
     em = torch.from_numpy(_switch_emissions(kind, B, S, T)).to(cuda)
     penalty = float(-np.log(np.float32(0.5))) if kind == "at min + penalty" else 2.5
     got = _launched(tvit, lambda: tvit.viterbi_constant_switch(em, penalty), "SWITCH_LAUNCHES")
     ref = tvit.viterbi_constant_switch_plain(em, penalty)
-    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert _same(got, ref)
     one = _launched(tvit, lambda: tvit.viterbi_constant_switch(em[0], penalty), "SWITCH_LAUNCHES")
-    assert torch.equal(one[0], ref[0][0]) and torch.equal(one[1], ref[1][0])
+    assert _same(one, (ref[0][0], ref[1][0]))
 
 
 @pytest.mark.cuda
@@ -290,17 +303,63 @@ def test_cuda_constant_switch_kernel_refuses_too_many_states(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["random", "constant", "negative", "loud then silent"])
-@pytest.mark.parametrize("R,T", [(1, 2584), (4, 2584), (1, 15504), (2, 700), (1, 37)])
+@pytest.mark.parametrize("kind", ["random", "constant", "negative", "loud then silent", "one NaN", "NaN row"])
+@pytest.mark.parametrize("R,T", [(1, 2584), (4, 2584), (1, 15504), (2, 700), (1, 37), (3, 345), (2, 64), (1, 1)])
 def test_cuda_salience_envelope_kernel_equals_plain_version(cuda, kind, R, T):
+    # the 30 s bucket for one song and a chunk of 4, the 180 s song; whole and partial blocks, 16-byte and scalar loads
     sal = torch.from_numpy(_salience(kind, R, T)).to(cuda)
     got = _launched(tbp, lambda: tbp.salience_envelope(sal))
-    assert torch.equal(got, tbp.salience_envelope_plain(sal))
+    assert _same(got, tbp.salience_envelope_plain(sal))
     one = _launched(tbp, lambda: tbp.salience_envelope(sal[0]))
-    assert torch.equal(one, got[0])
+    assert _same(one, got[0])
+    if kind == "NaN row" and R > 1:
+        assert bool(got[1].isnan().all()) and not bool(got[0].isnan().any())
+
+
+@pytest.mark.cuda
+def test_cuda_salience_envelope_kernel_on_a_row_off_16_bytes(cuda):
+    # a contiguous view one float into its storage: T % 4 == 0 but the rows are off 16 bytes (the scalar loads)
+    x = torch.from_numpy(_salience("random", 1, 2584)).to(cuda).reshape(-1)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    buf[1:] = x
+    sal = buf[1:].view(1, 88, 2584)
+    assert sal.is_contiguous() and sal.data_ptr() % 16
+    got = _launched(tbp, lambda: tbp.salience_envelope(sal))
+    assert _same(got, tbp.salience_envelope_plain(sal))
+
+
+@pytest.mark.cuda
+def test_cuda_salience_envelope_kernel_on_two_streams_at_once(cuda):
+    # each stream has its own block counters: launches queued behind a spin kernel on each of two streams, which then
+    # overlap (two rows of the 180 s song are 244 blocks, so both streams' grids fit on the card at once), still give
+    # the plain loop's envelopes; every launch has its own input, so that a stale scratch or output of an earlier
+    # launch cannot pass for its result; a round may not overlap, so there are three
+    base = [torch.from_numpy(_salience(kind, 2, 15504)).to(cuda) for kind in ("random", "loud then silent")]
+    sal = [[x * (i + 1) for i in range(20)] for x in base]
+    ref = [[tbp.salience_envelope_plain(x) for x in row] for row in sal]
+    streams = [torch.cuda.Stream(cuda) for _ in base]
+    for x, stream in zip(base, streams):  # the kernel built and loaded, each stream's counters made, before the queue
+        with torch.cuda.stream(stream):
+            tbp.salience_envelope(x)
+    for round_ in range(3):
+        torch.cuda.synchronize()
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                torch.cuda._sleep(10_000_000)
+        out = [[], []]
+        for i in range(20):
+            for k, stream in enumerate(streams):
+                with torch.cuda.stream(stream):
+                    out[k].append(tbp.salience_envelope(sal[k][i]))
+        torch.cuda.synchronize()
+        for k in range(2):
+            for i in range(20):
+                assert _same(out[k][i], ref[k][i]), (round_, k, i)
 
 
 @pytest.mark.cuda
 def test_cuda_salience_envelope_kernel_refuses_a_stride_off_the_warp(cuda):
-    with pytest.raises(ValueError, match="multiple of 32"):
-        tbp.salience_envelope(torch.rand(1, 88, 100, device=cuda), stride=48)
+    # the kernel's blocks are 64 frames (ENVELOPE_STRIDE), two warps' segments unrolled
+    for stride in (48, 96):
+        with pytest.raises(ValueError, match="the kernel takes 64"):
+            tbp.salience_envelope(torch.rand(1, 88, 100, device=cuda), stride=stride)

@@ -346,3 +346,143 @@ def test_the_warp_layout_and_the_word_walk_read_the_kernels_constants():
     dense, onset = _source("dense_viterbi"), _source("onset_wait")
     assert re.search(r"constexpr int kWarpStates = 32;", dense) and "S <= kWarpStates" in dense
     assert re.search(r"constexpr int kRoundFrames = 1024;", onset)
+
+
+def _min_key(v: torch.Tensor) -> torch.Tensor:
+    """csrc/constant_switch_viterbi.cu's min_key on float32: the signed order
+    of the floats that are not NaN, -0 just below +0; a NaN's key is its
+    bits' (the frame's minimum is a NaN through sw + X wherever one counts)."""
+    i = v.view(torch.int32)
+    return i ^ ((i >> 31) & 0x7FFFFFFF)
+
+
+def _key_value(k: torch.Tensor) -> torch.Tensor:
+    """The kernel's key_value: the inverse of ``_min_key``."""
+    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
+def _first(hit: torch.Tensor) -> int:
+    """The ballot's lowest set lane: the first True."""
+    assert hit.any()
+    return int(torch.argmax(hit.to(torch.uint8)))
+
+
+def _switch_schedule(em: torch.Tensor, penalty: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """csrc/constant_switch_viterbi.cu's schedule on one sequence [S, T]:
+    frame t's minimum is m_t = min(A, sw + X), with A = min(dp + x_t) reduced
+    over integer keys a frame ahead and X = min(x_t), and the pass keeps only
+    each frame's scores dp_t and m_t. The backtrack walks rounds of 32
+    frames: s stays into frame t + 1 when dp_t[s] <= m_t + penalty; the
+    first frame of a round where it does not is a switch, and only there
+    argm, the first state of dp_t equal to m_t (or a NaN), is found. The
+    confidences are gathered after it."""
+    S, T = em.shape
+    logp = -torch.log(torch.clamp(em, 1e-9, 1.0))
+    X = logp.amin(dim=0)  # NaN-propagating, as the lanes' min.NaN.f32
+    p = torch.tensor(penalty, dtype=torch.float32)
+    dp = logp[:, 0].clone()
+    m = X[0]
+    sw = m + p
+    a_key = _min_key(dp + logp[:, 1]).min() if T > 1 else None
+    dps, ms = [dp], [m]
+    for t in range(1, T):
+        dp = torch.minimum(dp, sw) + logp[:, t]  # min.NaN.f32
+        if t + 1 < T:
+            a_next = _min_key(dp + logp[:, t + 1]).min()
+        m = torch.minimum(_key_value(a_key), sw + X[t])
+        sw = m + p
+        dps.append(dp)
+        ms.append(m)
+        if t + 1 < T:
+            a_key = a_next
+
+    def first_min(t: int) -> int:
+        return _first((dps[t] == ms[t]) | dps[t].isnan())
+
+    path = [0] * T
+    s = path[T - 1] = first_min(T - 1)
+    for hi in range(T - 2, -1, -32):
+        n = min(32, hi + 1)
+        j = 0
+        while j < n:  # lane jj holds the scores after frame hi - jj
+            leave = [jj for jj in range(j, n) if not bool(dps[hi - jj][s] <= ms[hi - jj] + p)]
+            jn = leave[0] if leave else n
+            for jj in range(j, jn):
+                path[hi - jj] = s
+            if jn == n:
+                break
+            s = path[hi - jn] = first_min(hi - jn)
+            j = jn + 1
+    path = torch.tensor(path)
+    return path.to(torch.int32), em[path, torch.arange(T)]
+
+
+@pytest.mark.parametrize("kind", ["random", "equal columns", "at min + penalty", "one NaN", "NaN row", "signed zeros"])
+@pytest.mark.parametrize("S,T", [(49, 301), (61, 97), (7, 1), (33, 2), (25, 32), (25, 33), (64, 65)])
+def test_switch_lookahead_minimum_and_walk_are_the_plain_decode(kind, S, T):
+    from audiotabs_tpu_torch.decode import viterbi as tvit
+    from test_torch_decoder_kernels import _switch_emissions
+
+    if kind == "signed zeros":  # emissions of 1: costs of -0, ties of -0 and +0 sums
+        em = torch.from_numpy(_switch_emissions("random", 2, S, T))
+        em[:, ::2, ::3] = 1.0
+        penalty = 0.0
+    else:
+        em = torch.from_numpy(_switch_emissions(kind, 2, S, T))
+        penalty = float(-np.log(np.float32(0.5))) if kind == "at min + penalty" else 2.5
+    ref_path, ref_conf = tvit.viterbi_constant_switch_plain(em, penalty)
+    for b in range(2):
+        path, conf = _switch_schedule(em[b], penalty)
+        assert torch.equal(path, ref_path[b]), b
+        assert torch.equal(conf.isnan(), ref_conf[b].isnan()) and torch.equal(conf[~conf.isnan()], ref_conf[b][~conf.isnan()])
+
+
+def _envelope_schedule(sal: torch.Tensor, stride: int, decay: float) -> torch.Tensor:
+    """csrc/salience_envelope.cu's schedule on one row [88, T]: 32-frame
+    segment maxima over the valid frames, the block maxima from stride / 32
+    segments each (a partial last block with the padding's 0), the row's
+    maximum from the segments; lane 0 scans forward from block 0 and lane 1
+    in reverse from block nblk - 1, the same steps."""
+    F_, T = sal.shape
+    n_seg, nblk, per = -(-T // 32), max(1, -(-T // stride)), stride // 32
+    segs = [sal[:, 32 * q : 32 * q + 32].amax() for q in range(n_seg)]
+    g = torch.stack(segs).amax()
+    m = []
+    for i in range(nblk):
+        v = torch.tensor(0.0 if (i + 1) * stride > T else -float("inf"))
+        for q in range(i * per, min((i + 1) * per, n_seg)):
+            v = torch.maximum(v, segs[q])
+        m.append(v)
+    sc = [[None] * nblk, [None] * nblk]
+    for lane in (0, 1):
+        e = torch.tensor(0.0)
+        for i in range(nblk):
+            at = nblk - 1 - i if lane else i
+            e = torch.maximum(m[at], decay * e)
+            sc[lane][at] = e
+    fl = 0.05 * g
+    return torch.stack([torch.maximum(torch.maximum(a, b), fl) for a, b in zip(*sc)])
+
+
+@pytest.mark.parametrize("kind", ["random", "negative", "loud then silent", "one NaN", "NaN row"])
+@pytest.mark.parametrize("T,stride", [(1, 64), (37, 64), (64, 64), (65, 64), (345, 64), (700, 64), (130, 64)])
+def test_envelope_segments_blocks_and_lane_scans_are_the_plain_envelope(kind, T, stride):
+    from audiotabs_tpu_torch.models import basicpitch as tbp
+    from test_torch_decoder_kernels import _salience
+
+    sal = torch.from_numpy(_salience(kind, 2, T))
+    ref = tbp.salience_envelope_plain(sal, stride, tbp.ENVELOPE_DECAY)
+    for r in range(2):
+        got = _envelope_schedule(sal[r], stride, tbp.ENVELOPE_DECAY)
+        assert torch.equal(got.isnan(), ref[r].isnan()) and torch.equal(got[~got.isnan()], ref[r][~got.isnan()]), r
+
+
+def test_the_switch_and_envelope_schedules_read_the_kernels_constants():
+    from audiotabs_tpu_torch.models import basicpitch as tbp
+
+    switch, envelope = _source("constant_switch_viterbi"), _source("salience_envelope")
+    assert re.search(r"constexpr int kTile = 32;", switch) and "for (int hi" not in switch
+    assert re.search(r"const int n_rounds = \(T \+ 30\) / 32;", switch) and "T - 2 - 32 * r" in switch
+    assert "const float* in = m + (lane ? nblk - 1 : 0);" in envelope and "const int step = lane ? -1 : 1;" in envelope
+    assert "constexpr int kStride = 64;" in envelope and "if (stride != kStride) return -2;" in envelope
+    assert tbp.ENVELOPE_STRIDE == 64  # the one stride the kernel takes

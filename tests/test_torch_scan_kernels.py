@@ -10,7 +10,9 @@ inputs made from numpy seeds: the Viterbi path exactly (confidences within
 TOL) at the chord vocabularies' widths, with ties at every frame of some
 stretches and costs exactly at min + penalty; the salience posteriors of a
 clip of 14 envelope blocks, loud then quiet so that the decay and the floor
-both act, within the tolerance of tests/test_torch_models.py.
+both act, within the tolerance of tests/test_torch_models.py; both on NaN
+inputs (NaN positions and paths equal). The posteriors from the caller's
+hCQT, and of a batch of rows, equal those computed per song.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_scan_kernels.py
 """
@@ -133,6 +135,20 @@ def test_salience_posteriors_match_jax_over_many_blocks():
     assert (norm > torch.maximum(m, floor)).any() and (norm == floor).any()
 
 
+def test_salience_posteriors_split_at_the_hcqt_and_the_salience():
+    """The fused analysis computes the hCQT it gives the CNN once, and takes
+    the posteriors from it through ``salience_from_hcqt`` and
+    ``posteriors_from_salience``: the posteriors of ``salience_posteriors``,
+    per song or as a batch of rows of one length."""
+    y = torch.from_numpy(_loud_then_quiet(seconds=3.0))
+    own = tbp.salience_posteriors(y, SR)
+    sal = tbp.salience_from_hcqt(tbp.hcqt(y, SR))
+    rows = tbp.posteriors_from_salience(torch.stack([sal, 0.5 * sal, sal.flip(-1)]))
+    for r, x in enumerate((sal, 0.5 * sal, sal.flip(-1))):
+        assert all(torch.equal(a[r], b) for a, b in zip(rows, tbp.posteriors_from_salience(x))), r
+    assert all(torch.equal(a, b) for a, b in zip(own, tbp.posteriors_from_salience(sal)))
+
+
 @jax.jit
 def _jax_envelope(sal):
     """The JAX package's envelope of ``salience_posteriors``
@@ -161,6 +177,27 @@ def test_salience_envelope_plain_is_the_jax_envelope(kind, T):
     for r in range(len(sal)):
         np.testing.assert_array_equal(got[r].numpy(), np.asarray(_jax_envelope(jnp.asarray(sal[r]))), err_msg=f"{kind} row {r}")
         assert torch.equal(tbp.salience_envelope(torch.from_numpy(sal[r])), got[r])
+
+
+@pytest.mark.parametrize("kind", ["one NaN", "NaN row"])
+def test_plain_versions_match_jax_on_nans(kind):
+    """A NaN emission (its cost a NaN) wins the minimum and spreads to every
+    later frame, as in jnp.min and jnp.argmin; a NaN salience makes its row's
+    envelope NaN (the floor is NaN), as jnp.maximum and jnp.max propagate it:
+    NaN positions equal, the paths equal."""
+    em = _switch_emissions(kind, B=3, S=49, T=301)
+    path, conf = tvit.viterbi_constant_switch(torch.from_numpy(em), 2.5)
+    assert conf.isnan().any()
+    for b in range(len(em)):
+        p_j, c_j = (np.asarray(a) for a in jvit.viterbi_constant_switch(jnp.asarray(em[b]), 2.5))
+        np.testing.assert_array_equal(path[b].numpy(), p_j, err_msg=f"{kind} row {b}")
+        np.testing.assert_array_equal(conf[b].isnan().numpy(), np.isnan(c_j))
+        np.testing.assert_allclose(conf[b].numpy(), c_j, **TOL)
+    sal = _salience(kind, R=3, T=700)
+    got = tbp.salience_envelope(torch.from_numpy(sal))
+    assert got.isnan().any() and not got[min(2, len(sal) - 1)].isnan().any()
+    for r in range(len(sal)):
+        np.testing.assert_array_equal(got[r].numpy(), np.asarray(_jax_envelope(jnp.asarray(sal[r]))), err_msg=f"{kind} row {r}")
 
 
 def test_wrappers_on_a_cpu_tensor_take_the_plain_version(monkeypatch):
