@@ -55,10 +55,35 @@
 // history (84 candidates over 32 lanes) and writes the beat's run of frames
 // with its 32 lanes.
 //
+// Larger grids. The register layouts take up to 128 tempi and 160 phases
+// (the shipped grid is 84 and 110). Any other grid the JAX scan takes (at
+// 100 fps, a min_bpm below 37.5; the shipped bpm range at 200 fps) takes
+// the general layout, one block of 1,024 threads per song. Its score is one
+// circular buffer per tempo, sum(L_i) floats: phase p of tempo i at frame t
+// lies in slot (p - t) mod L_i, so the roll moves nothing, and the slot that
+// held the last phase receives phase 0. The buffer sits in shared memory
+// where it fits (19,749 states at (30, 215, 100 fps), 22,605 at
+// (55, 215, 200), 44,960 at (20, 300, 100): one copy each, read and
+// written in place), else in device memory (the `score` scratch), so only
+// device memory bounds the grid (180,195 states at (10, 400, 100)). The
+// transition matrix joins it in shared memory where both fit, else the L2
+// serves it (281 tempi: 316 KB). A frame is two steps behind a barrier
+// each: the targets' maxima (a group of lanes per target splits the sources
+// and reduces by shuffles; consecutive lanes hold consecutive targets, so a
+// row of the matrix is read coalesced), then each tempo's slots by one warp
+// (every slot adds its observation, the phase-0 slot takes the entry). Its
+// bound is the register layouts': operations, n^2 + sum(L_i) a frame;
+// a frame's n^2 transition reads from the L2 where the matrix stays there.
+// It is right first and slow: a frame takes 12 to 120 times the register
+// layout's, mostly the slot update (a shared or device load, an add and a
+// store per slot) and the transition maximum (fewer lanes per target). The
+// argmax rules, the history and the backtrack are the register layouts' own.
+//
 // Interface: a plain C function returning cudaGetLastError() after the
 // launch (0 on success), -1 for arguments the kernel does not take and -2
-// when the score does not fit the registers and shared memory of one block
-// (the launcher is the one owner of the layout).
+// when the general layout's per-tempo vectors (5 n floats) do not fit one
+// block's shared memory, past about 11,500 tempi (the launcher is the one
+// owner of the layout).
 
 #include <cuda_runtime.h>
 
@@ -122,6 +147,57 @@ __device__ __forceinline__ float pick(const float (&r)[R], int k) {
   return a[0];
 }
 
+// The block's first maximum of its threads' (value, flat index) pairs, each
+// thread's the first maximum of its own ascending scan (index INT_MAX: none
+// held): known to warp 0 after one barrier, whose lanes all return it; the
+// other warps return -1.
+__device__ __forceinline__ int block_first_max(float bv, int bk, int* red_k, int* red_i) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int mk;
+  int bi = first_max_index(max_key(bv), bk, mk);
+  if (lane == 0) {
+    red_k[warp] = mk;
+    red_i[warp] = bi;
+  }
+  __syncthreads();
+  if (warp != 0) return -1;
+  const int n_warps = (blockDim.x + 31) / 32;
+  return first_max_index(lane < n_warps ? red_k[lane] : INT_MIN, lane < n_warps ? red_i[lane] : INT_MAX, mk);
+}
+
+// The backtrack of song b by one warp from the final state bi = tempo P +
+// phase: the frames lo .. k of a beat hold one tempo, the phase falling by
+// one per earlier frame; at phase 0 the previous frame is at (backpointer of
+// the tempo, its last phase), the backpointer the first maximum of the
+// last-phase scores after frame lo - 1 plus the transition.
+__device__ __forceinline__ void backtrack(int bi, const float* hist_b, const float* __restrict__ log_trans, const int* L,
+                                          int* ph_b, int* iv_b, int T, int n, int P) {
+  const int lane = threadIdx.x & 31;
+  int tempo = bi / P;
+  int phase = bi % P;
+  int k = T - 1;
+  while (true) {
+    const int lo = max(k - phase, 0);
+    const int Lt = L[tempo];
+    for (int f = lo + lane; f <= k; f += 32) {
+      ph_b[f] = phase - (k - f);
+      iv_b[f] = Lt;
+    }
+    if (lo == 0) break;
+    const float* h = hist_b + static_cast<size_t>(lo - 1) * n;
+    float bv = -INFINITY;
+    bi = INT_MAX;
+    for (int i = lane; i < n; i += 32) {
+      take_if_above(bv, bi, h[i] + log_trans[i * n + tempo], i);
+    }
+    int mk;
+    tempo = first_max_index(max_key(bv), bi, mk);
+    phase = L[tempo] - 1;
+    k = lo - 1;
+  }
+}
+
 // The shared-memory layout, in floats: the last-phase scores [2][S kLanes],
 // the staged observations [2][kChunk], the transition matrix transposed
 // [n][S kLanes + 4] when it is not held in registers, the intervals [n], and
@@ -157,7 +233,6 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   const int l = tid % kLanes;  // lane in the group
   const int g = tid / kLanes;  // the group: target tempo g
@@ -275,45 +350,12 @@ dbn_viterbi_kernel(const float* __restrict__ init,       // [B, n, P]
       if (k < in_row) take_if_above(bv, bk, k < valid ? r[k] : kNegInf, k);
     }
   }
-  int mk;
-  int bi = first_max_index(max_key(bv), bk == INT_MAX ? INT_MAX : j * P + base + bk, mk);
-  if (lane == 0) {
-    red_k[warp] = mk;
-    red_i[warp] = bi;
-  }
-  __syncthreads();
+  const int bi = block_first_max(bv, bk == INT_MAX ? INT_MAX : j * P + base + bk, red_k, red_i);
   if (warp != 0) return;
-  const int n_warps = (blockDim.x + 31) / 32;
-  bi = first_max_index(lane < n_warps ? red_k[lane] : INT_MIN, lane < n_warps ? red_i[lane] : INT_MAX, mk);
   SPLIT(4);  // the final argmax
 
-  // backtrack by warp 0: the frames lo .. k of a beat hold one tempo, the
-  // phase falling by one per earlier frame; at phase 0 the previous frame is
-  // at (backpointer of the tempo, its last phase), the backpointer the first
-  // maximum of the last-phase scores after frame lo - 1 plus the transition
-  int* ph_b = phases + static_cast<size_t>(b) * T;
-  int* iv_b = out_intervals + static_cast<size_t>(b) * T;
-  int tempo = bi / P;
-  int phase = bi % P;
-  int k = T - 1;
-  while (true) {
-    const int lo = max(k - phase, 0);
-    const int Lt = L[tempo];
-    for (int f = lo + lane; f <= k; f += 32) {
-      ph_b[f] = phase - (k - f);
-      iv_b[f] = Lt;
-    }
-    if (lo == 0) break;
-    const float* h = hist_b + static_cast<size_t>(lo - 1) * n;
-    bv = -INFINITY;
-    bi = INT_MAX;
-    for (int i = lane; i < n; i += 32) {
-      take_if_above(bv, bi, h[i] + log_trans[i * n + tempo], i);
-    }
-    tempo = first_max_index(max_key(bv), bi, mk);
-    phase = L[tempo] - 1;
-    k = lo - 1;
-  }
+  // backtrack by warp 0
+  backtrack(bi, hist_b, log_trans, L, phases + static_cast<size_t>(b) * T, out_intervals + static_cast<size_t>(b) * T, T, n, P);
   SPLIT(5);  // the backtrack
 }
 
@@ -339,24 +381,239 @@ int launch(const void* init, const void* lo_beat, const void* lo_off, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kGeneralThreads = 1024;
+constexpr int kGeneralChunk = 256;  // frames of observations staged at a time
+
+// The general layout's shared memory, in floats: the last-phase scores [n],
+// the entries [n], the intervals, beat windows and buffer offsets [3][n],
+// the staged observations [2][kGeneralChunk], the argmax's [32][2]; then the
+// transition matrix [n][n] and the score buffer [n_states] where they fit.
+constexpr size_t general_base_floats(int n) { return 5 * static_cast<size_t>(n) + 2 * kGeneralChunk + 64; }
+
+// Any grid: one block per song, the score as one circular buffer per tempo
+// in shared memory (kScoreShared) or in the song's row of `score`
+// (a minimum of one block per SM: with the bound alone, ptxas held the
+// device-memory instantiation to 32 registers and spilled)
+template <bool kScoreShared>
+__global__ void __launch_bounds__(kGeneralThreads, 1)
+dbn_viterbi_kernel_general(const float* __restrict__ init,       // [B, n, P]
+                           const float* __restrict__ lo_beat,    // [B, T]
+                           const float* __restrict__ lo_off,     // [B, T]
+                           const float* __restrict__ log_trans,  // [n, n] (from, to)
+                           const int* __restrict__ intervals,    // [n]
+                           const int* __restrict__ beat_len,     // [n]: ceil(L / lambda)
+                           float* __restrict__ hist,             // [B, T - 1, n]: last-phase scores after frames 0 .. T - 2
+                           float* __restrict__ score,            // [B, n_states] (not kScoreShared): the circular buffers
+                           int* __restrict__ phases,             // [B, T]
+                           int* __restrict__ out_intervals,      // [B, T]
+                           int T, int n, int P, int n_states, bool lt_shared, int ls) {
+  extern __shared__ float smem[];
+  float* lastv = smem;                                // [n]
+  float* enter = lastv + n;                           // [n]: the score entering phase 0 of each tempo
+  int* L = reinterpret_cast<int*>(enter + n);         // [n]
+  int* bl = L + n;                                    // [n]: beat window
+  int* off = bl + n;                                  // [n]: tempo i's buffer starts at off[i]
+  float* ob = reinterpret_cast<float*>(off + n);      // [kGeneralChunk]: log activation of the staged frames
+  float* oo = ob + kGeneralChunk;                     // [kGeneralChunk]: their off-beat term
+  int* red_k = reinterpret_cast<int*>(oo + kGeneralChunk);
+  int* red_i = red_k + 32;
+  float* lt_s = reinterpret_cast<float*>(red_i + 32);  // [n][n] (lt_shared)
+  float* buf = kScoreShared ? lt_s + (lt_shared ? static_cast<size_t>(n) * n : 0)
+                            : score + static_cast<size_t>(blockIdx.x) * n_states;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int tw = 32 / ls;  // targets per warp, ls lanes each: lane l takes target l % tw, sources l / tw + k ls
+  SPLIT_START;
+
+  for (int i = tid; i < n; i += blockDim.x) {
+    L[i] = intervals[i];
+    bl[i] = beat_len[i];
+  }
+  if (lt_shared) {
+    for (int k = tid; k < n * n; k += blockDim.x) lt_s[k] = log_trans[k];
+  }
+  __syncthreads();
+  if (warp == 0) {  // the offsets: an exclusive scan of the intervals
+    int carry = 0;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      int v = i0 + lane < n ? L[i0 + lane] : 0;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, d);
+        if (lane >= d) v += u;
+      }
+      if (i0 + lane < n) off[i0 + lane] = carry + v - L[i0 + lane];
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
+  __syncthreads();
+  const float* lt = lt_shared ? lt_s : log_trans;
+
+  // frame 0: phase p of tempo i in slot p; its last phase
+  float* hist_b = hist + static_cast<size_t>(b) * (T - 1) * n;
+  for (int i = warp; i < n; i += n_warps) {
+    const float* init_i = init + (static_cast<size_t>(b) * n + i) * P;
+    float* row = buf + off[i];
+    for (int q = lane; q < L[i]; q += 32) row[q] = init_i[q];
+    if (lane == 0) {
+      lastv[i] = init_i[L[i] - 1];
+      if (T > 1) hist_b[i] = init_i[L[i] - 1];
+    }
+  }
+
+  const float* lb_b = lo_beat + static_cast<size_t>(b) * T;
+  const float* lo_b = lo_off + static_cast<size_t>(b) * T;
+  int c = kGeneralChunk;  // the frame's place in the staged chunk
+  SPLIT(6);  // the start: intervals, offsets, the matrix and frame 0 into place
+  for (int t = 1; t < T; ++t, ++c) {
+    __syncthreads();  // frame t - 1 is done: its last phases are in, its observations read
+    if (c == kGeneralChunk) {
+      for (int k = tid; k < kGeneralChunk && t + k < T; k += blockDim.x) {
+        ob[k] = lb_b[t + k];
+        oo[k] = lo_b[t + k];
+      }
+      c = 0;
+      __syncthreads();
+    }
+    SPLIT(3);  // the frame's first barrier (and, once per chunk, the staging)
+
+    // the score entering phase 0 of each target j: the maximum over the
+    // sources, this lane's every ls-th, four chains, then over the group
+    for (int j0 = 0; j0 < n; j0 += n_warps * tw) {
+      const int j = j0 + warp * tw + lane % tw;
+      float part[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+      if (j < n) {
+        int i = lane / tw;
+        for (; i + 3 * ls < n; i += 4 * ls) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[q] = max_nan(part[q], lastv[i + q * ls] + lt[(i + q * ls) * n + j]);
+        }
+        for (; i < n; i += ls) part[0] = max_nan(part[0], lastv[i] + lt[i * n + j]);
+      }
+      float best = max_nan(max_nan(part[0], part[1]), max_nan(part[2], part[3]));
+      for (int d = 16; d >= tw; d >>= 1) best = max_nan(best, __shfl_xor_sync(0xffffffffu, best, d));
+      if (j < n && lane < tw) enter[j] = best;
+    }
+    SPLIT(0);  // the transition max: the lanes' sources and the groups' shuffles
+    __syncthreads();  // the entries are in, and every last phase was read
+    SPLIT(1);  // the second barrier
+
+    // each tempo's slots, one warp a tempo: slot q holds phase (q + t) mod L;
+    // every phase adds its observation, phase 0 to the entry
+    const float lb = ob[c];
+    const float lo = oo[c];
+    for (int i = warp; i < n; i += n_warps) {
+      const int Li = L[i];
+      const int bli = bl[i];
+      const int tm = t % Li;
+      float* row = buf + off[i];
+      for (int q = lane; q < Li; q += 32) {
+        int p = q + tm;
+        if (p >= Li) p -= Li;
+        const float o = p < bli ? lb : lo;
+        const float v = (p == 0 ? enter[i] : row[q]) + o;
+        row[q] = v;
+        if (p == Li - 1) {
+          lastv[i] = v;
+          if (t < T - 1) hist_b[static_cast<size_t>(t) * n + i] = v;
+        }
+      }
+    }
+    SPLIT(2);  // the slots of this warp's tempi
+  }
+  __syncthreads();
+
+  // flat argmax over [n, P] in row-major order, first maximum: the valid
+  // phases and -1e30 at the others, each thread ascending, then the block
+  float bv = -INFINITY;
+  int bk = INT_MAX;
+  for (int k = tid; k < n * P; k += blockDim.x) {
+    const int i = k / P;
+    const int p = k - i * P;
+    const int Li = L[i];
+    float v = kNegInf;
+    if (p < Li) {
+      int q = p - (T - 1) % Li;
+      if (q < 0) q += Li;
+      v = buf[off[i] + q];
+    }
+    take_if_above(bv, bk, v, k);
+  }
+  const int bi = block_first_max(bv, bk, red_k, red_i);
+  if (warp != 0) return;
+  SPLIT(4);  // the final argmax
+  backtrack(bi, hist_b, log_trans, L, phases + static_cast<size_t>(b) * T, out_intervals + static_cast<size_t>(b) * T, T, n, P);
+  SPLIT(5);  // the backtrack
+}
+
+template <bool kScoreShared>
+int launch_general(const void* init, const void* lo_beat, const void* lo_off, const void* log_trans, const void* intervals,
+                   const void* beat_len, void* hist, void* score, void* phases, void* out_intervals, int B, int T, int n,
+                   int P, int n_states, size_t smem, bool lt_shared, cudaStream_t stream) {
+  auto kernel = dbn_viterbi_kernel_general<kScoreShared>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int ls = 1;  // lanes per target: as many as keep every target in one pass over the block
+  while (ls < 32 && 2 * ls * n <= kGeneralThreads) ls *= 2;
+  kernel<<<B, kGeneralThreads, smem, stream>>>(
+      static_cast<const float*>(init), static_cast<const float*>(lo_beat), static_cast<const float*>(lo_off),
+      static_cast<const float*>(log_trans), static_cast<const int*>(intervals), static_cast<const int*>(beat_len),
+      static_cast<float*>(hist), static_cast<float*>(score), static_cast<int*>(phases), static_cast<int*>(out_intervals),
+      T, n, P, n_states, lt_shared, ls);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The general layout: the score in shared memory where it fits beside the
+// per-tempo vectors, the transition matrix too where both fit; -2 where the
+// per-tempo vectors alone do not
+int launch_any_grid(const void* init, const void* lo_beat, const void* lo_off, const void* log_trans, const void* intervals,
+                    const void* beat_len, void* hist, void* score, void* phases, void* out_intervals, int B, int T, int n,
+                    int P, int n_states, cudaStream_t stream) {
+  int device = 0;
+  int limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t cap = static_cast<size_t>(limit) / sizeof(float);
+  const size_t base = general_base_floats(n);
+  const size_t lt = static_cast<size_t>(n) * n;
+  if (base > cap) return -2;
+  const bool score_shared = base + n_states <= cap;
+  const bool lt_shared = base + lt + (score_shared ? n_states : 0) <= cap;
+  const size_t smem = sizeof(float) * (base + (lt_shared ? lt : 0) + (score_shared ? n_states : 0));
+  if (score_shared)
+    return launch_general<true>(init, lo_beat, lo_off, log_trans, intervals, beat_len, hist, score, phases, out_intervals, B,
+                                T, n, P, n_states, smem, lt_shared, stream);
+  return launch_general<false>(init, lo_beat, lo_off, log_trans, intervals, beat_len, hist, score, phases, out_intervals, B,
+                               T, n, P, n_states, smem, lt_shared, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // init [B, n, P], lo_beat and lo_off [B, T], log_trans [n, n] float32;
-// intervals and beat_len [n] int32; hist [B, max(T - 1, 1), n] float32
-// scratch; phases and out_intervals [B, T] int32. All contiguous, on the
-// device. The shipped tempo grid (84 tempi, 110 phases) takes the first layout.
+// intervals and beat_len [n] int32; hist [B, max(T - 1, 1), n] and score
+// [B, n_states] float32 scratch, n_states = sum(intervals) (only the general
+// layout with the score in device memory uses it); phases and
+// out_intervals [B, T] int32. All contiguous, on the device. The shipped
+// tempo grid (84 tempi, 110 phases) takes the first layout.
 int dbn_viterbi_f32(const void* init, const void* lo_beat, const void* lo_off, const void* log_trans,
-                    const void* intervals, const void* beat_len, void* hist, void* phases, void* out_intervals,
-                    int B, int T, int n, int P, void* stream) {
-  if (B < 1 || B > 65535 || T < 1 || n < 1 || n > 255 || P < 1) return -1;
+                    const void* intervals, const void* beat_len, void* hist, void* score, void* phases,
+                    void* out_intervals, int B, int T, int n, int P, int n_states, void* stream) {
+  if (B < 1 || B > 65535 || T < 1 || n < 1 || P < 1 || n_states < n || static_cast<long long>(n) * P > INT_MAX ||
+      n_states > static_cast<long long>(n) * P)
+    return -1;
   const auto s = static_cast<cudaStream_t>(stream);
   if (n <= 12 * kLanes && P <= 14 * kLanes)
     return launch<14, 12, false>(init, lo_beat, lo_off, log_trans, intervals, beat_len, hist, phases, out_intervals, B, T, n, P, s);
   if (n <= 16 * kLanes && P <= 20 * kLanes)
     return launch<20, 16, true>(init, lo_beat, lo_off, log_trans, intervals, beat_len, hist, phases, out_intervals, B, T, n, P, s);
-  return -2;
+  return launch_any_grid(init, lo_beat, lo_off, log_trans, intervals, beat_len, hist, score, phases, out_intervals, B, T, n,
+                         P, n_states, s);
 }
 
 }  // extern "C"

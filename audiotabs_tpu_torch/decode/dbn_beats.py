@@ -7,7 +7,8 @@ space is (tempo, phase) stored as a padded [n_tempi, max_interval] score
 matrix; each frame is a phase roll plus a max-plus tempo transition at
 phase 0. The forward pass and the backtrack, lax.scans in JAX, are one
 launch of the CUDA kernel csrc/dbn_viterbi.cu for a batch of songs on the
-card, and a plain loop over frames on the CPU (``_dbn_forward_plain``).
+card, at any tempo grid the JAX scan takes, and a plain loop over frames on
+the CPU (``_dbn_forward_plain``).
 torch computes every logarithm the kernel starts from (``_forward_inputs``),
 so the kernel and the loop agree bit for bit.
 """
@@ -131,11 +132,10 @@ def _dbn_forward_plain(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lamb
     return torch.stack(phases[::-1], dim=1).to(torch.int32), g.intervals[tempos].to(torch.int32)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # the launcher's codes for arguments the kernel does not take
 _REFUSED = {-1: "a batch, length, tempo count or phase count out of range",
-            -2: "the score does not fit the registers and shared memory of one block: at most 128 tempi "
-                "and 160 phases"}
+            -2: "the per-tempo vectors (5 floats a tempo) do not fit one block's shared memory: more than about 11,500 tempi"}
 
 
 def build():
@@ -146,14 +146,18 @@ def build():
 def _launch_args(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda) -> tuple:
     """The kernel's arguments for activations [B, T] on the card: what torch
     computes for it (the tempo grid's tensors from the per-device cache), the
-    scratch for each frame's last-phase scores and the two [B, T] outputs."""
+    scratch for each frame's last-phase scores and for the score itself (one
+    float a valid state: the launcher keeps it in device memory where it
+    does not fit a block's shared memory) and the two [B, T] outputs."""
     f = _forward_inputs(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
     (B, T), n_tempi = act.shape, f.grid.valid.shape[0]
+    n_states = int(_tempo_grid(min_bpm, max_bpm, fps).sum())
     dev = act.device
     return (
         f.init.contiguous(), f.lo_beat.contiguous(), f.lo_off.contiguous(), f.grid.log_trans, f.grid.intervals32,
         f.grid.beat_len32,
         torch.empty((B, max(T - 1, 1), n_tempi), dtype=torch.float32, device=dev),
+        torch.empty((B, n_states), dtype=torch.float32, device=dev),
         torch.empty((B, T), dtype=torch.int32, device=dev), torch.empty((B, T), dtype=torch.int32, device=dev),
     )
 
@@ -161,11 +165,12 @@ def _launch_args(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, ob
 def _launch(*args: torch.Tensor) -> None:
     """One launch of csrc/dbn_viterbi.cu on ``_launch_args``' tensors, one block per song."""
     global LAUNCHES
-    init, lo_beat = args[:2]
+    init, lo_beat, score = args[0], args[1], args[7]
     (B, n_tempi, max_int), T = init.shape, lo_beat.shape[1]
     dev = init.device
     with torch.cuda.device(dev):
-        rc = build()(*(a.data_ptr() for a in args), B, T, n_tempi, max_int, torch.cuda.current_stream(dev).cuda_stream)
+        rc = build()(*(a.data_ptr() for a in args), B, T, n_tempi, max_int, score.shape[1],
+                     torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "dbn_viterbi", _REFUSED)
     LAUNCHES += 1
 
@@ -173,9 +178,6 @@ def _launch(*args: torch.Tensor) -> None:
 def _dbn_forward_cuda(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda):
     """[B, T] on the card → (phases, intervals) [B, T] int32: one launch of
     csrc/dbn_viterbi.cu."""
-    n_tempi = len(_tempo_grid(min_bpm, max_bpm, fps))
-    if n_tempi > 255:
-        raise ValueError(f"the DBN kernel takes at most 255 tempi, got {n_tempi}")
     args = _launch_args(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
     _launch(*args)
     return args[-2], args[-1]

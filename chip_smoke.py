@@ -88,6 +88,14 @@
     (1, 2) ("data", "model") mesh of [cuda:0, cuda:0]: the distributed
     parameters and the bytes in each shard, the 30 s bucket's separation
     within STEM_TOL of the unsharded module's, both warm times by events.
+9b. bench.py's batch (after 9a, ``batch8_phase``): eight 30 s songs
+    (``make_test_audio(30)``, this script's copy of bench.py's generator,
+    plus 0.01 N(0, 1) noise from ``default_rng(7)``) through
+    ``transcribe_batch``, two chunks of 4, cold then three times warm: 8
+    median launches and a CLI song's decoder launches per chunk, 1
+    device-to-host copy per chunk in the trace of one warm run, each row's
+    stems and fused outputs as in step 9, every song's artifact set; prints
+    audio-s per wall s of the fastest warm run.
 10. Decode (after 7): which decoders the machine has (the native library
     built from native/, libmpg123, libmp3lame, the libavformat headers and
     the FFmpeg shim, an ffmpeg binary); the native resampler against
@@ -121,6 +129,26 @@
     Prints the stage times, cold and warm.
 13. Holds the kernel exactly at every shape these paths launched it at (the
     launched inputs, random and tie-heavy), and times each new shape.
+13a. The long song (``long_phase``): bench.py's 180 s song
+    (``make_test_audio(180)``, six 30 s buckets) under the shipped settings
+    through the CLI, cold and then warm as bench.py runs it (up to 3
+    warm-ups, then the minimum of 3), every count set to 0 just before each
+    song: 8 median launches and a CLI song's decoder launches, the guitar
+    stem and the drums beat source, no stage error (a separation error,
+    which the pipeline passes over to analyse the mix, fails the phase),
+    the CLI song's artifact set, a score with measures, every profile.json
+    stage; one warm song traced (device ops, busy share, 1 device-to-host
+    copy) and its peak device memory; ``run_analysis`` with its stems kept,
+    the CPU ``fused_analysis`` on those stems against it (discrete outputs,
+    beat_from_drums and beat times equal, floats within FLOAT_TOL, f16
+    outputs within F16_TOL; one content window's onset density may be one
+    onset apart, a knife edge printed with its envelope's margin), the card's
+    stems within STEM_TOL of each stem's peak of the CPU separation of the
+    same mix, warm ``run_analysis`` and separation times; the CPU
+    ``run_pipeline_from_features`` on the card's features writes the card's
+    beat times, chords, key and time signature. Then the median kernel held
+    exactly on the song's launched inputs and at its new shapes ([1025,
+    7752], [513, 7752], [120, 513, 130]), each timed beside its byte bound.
 14. Training (``train_phase``): htdemucs at the shipped width resumed from a
     copy of the checkpoint in build/ (10 steps of batch 4 through
     ``htdemucs_train.train``, 2 validation clips): every step's loss and
@@ -170,15 +198,21 @@
     two-level inputs and at [4, 18041] once on random inputs, the onset rule
     at [1, 7752], the dense Viterbi at [1, 1801, 25] (with its NaN cases),
     the envelope at [1, 88, 15504] and the constant-switch Viterbi at
-    [1, 49, 1801] on their random and tie-heavy inputs; the dense Viterbi
+    [1, 49, 1801] on their random and tie-heavy inputs (the long song of
+    step 13a launches the [1, ...] ones but the constant-switch Viterbi's,
+    so there they are held on its launched inputs too); the dense Viterbi
     also in its block layout at [2, 301, 61] (``OTHER_LAYOUT_SHAPES``, more
-    states than a warp's lanes); each [1, ...] shape and the block layout's
-    timed (its plain loop once). No decoder kernel may spill registers
-    (ptxas).
+    states than a warp's lanes); the DBN's general layout at the tempo
+    grids of ``DBN_GRIDS`` (at 100 fps 30–215, 20–300 and 10–400 BPM, and
+    55–215 BPM at 200 fps: grids the register layouts do not take), [1, T]
+    at the 30 s bucket's frames, on every input kind; each [1, ...] shape,
+    the block layout and each grid timed (a plain loop of seconds once). No
+    decoder kernel may spill registers (ptxas).
 15. Prints the kernel table as one JSON line (the median kernel and the six
     decoder kernels, each decoder with its launches on its own path: the
     CLI under the shipped settings, the template backend for the
-    constant-switch Viterbi), then the result line.
+    constant-switch Viterbi; and each kernel's launches on the 180 s song
+    and per chunk of the batch of eight), then the result line.
 
 Each phase prints its wall time. Any failed phase raises, and the script
 exits non-zero without a result. It imports nothing of JAX or of the JAX
@@ -188,6 +222,7 @@ package.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -306,6 +341,47 @@ LONG_SONG_S = 180
 OTHER_LAYOUT_SHAPES = {
     "dense_viterbi": {(2, 301, 61): ("random", "equal columns, uniform transitions", "one NaN", "NaN row")},
 }
+# tempo grids (min_bpm, max_bpm, fps) past the DBN's register layouts, which
+# its general layout takes (as the JAX scan takes any grid): 174 tempi x 200
+# phases, 165 x 219, 281 x 300 (the score in shared memory) and 586 x 600 (in
+# device memory); each held at the 30 s bucket's frames at its fps, [1, T],
+# on every input kind, and timed once
+DBN_GRIDS = [(30.0, 215.0, 100), (55.0, 215.0, 200), (20.0, 300.0, 100), (10.0, 400.0, 100)]
+DBN_GRID_CASES = ("random", "constant", "two levels", "one NaN", "NaN row")
+LONG_JOBS = REPO / "build" / "chip_smoke_long"  # git-ignored
+BATCH8_JOBS = REPO / "build" / "chip_smoke_batch8"
+BATCH8_SONGS = 8  # bench.py's batch: eight 30 s songs through transcribe_batch
+
+
+def make_test_audio(duration_s: float = 30.0, sr: int = 22050) -> np.ndarray:
+    """bench.py's synthetic mix (chord pad, melody, percussive clicks), the
+    same numpy operations, so the same bytes (tests/test_torch_long_song.py
+    holds the two equal at 30 s and 180 s); a copy, since the port does not
+    import bench.py."""
+    rng = np.random.default_rng(0)
+    n = int(duration_s * sr)
+    t = np.arange(n) / sr
+    y = np.zeros(n, dtype=np.float64)
+    # chord pad: G D Am C loop, 2 s each
+    chords = [(55, 59, 62), (50, 54, 57), (57, 60, 64), (48, 52, 55)]
+    for i in range(int(duration_s // 2)):
+        pitches = chords[i % 4]
+        seg = slice(int(i * 2 * sr), int(min((i + 1) * 2, duration_s) * sr))
+        ts = t[seg]
+        for p in pitches:
+            f = 440.0 * 2 ** ((p - 69) / 12)
+            y[seg] += 0.12 * np.sin(2 * np.pi * f * ts)
+    # melody: quarter notes at 120 bpm, G major scale walk
+    scale = [67, 69, 71, 72, 74, 72, 71, 69]
+    for i in range(int(duration_s * 2)):
+        p = scale[i % 8]
+        f = 440.0 * 2 ** ((p - 69) / 12)
+        a, b = int(i * 0.5 * sr), int(min((i + 1) * 0.5, duration_s) * sr)
+        ts = t[a:b] - t[a]
+        y[a:b] += 0.3 * np.sin(2 * np.pi * f * ts) * np.exp(-ts * 3)
+        y[a : a + 300] += 0.25 * rng.standard_normal(min(300, b - a))
+    y /= np.abs(y).max() + 1e-9
+    return (0.9 * y).astype(np.float32)
 
 
 def beat_frames(seconds: float, sr: int = 22050, fps: int = 100) -> int:
@@ -916,85 +992,84 @@ def note_rows(out: dict) -> collections.Counter:
     return collections.Counter(tuple(r.split(",")[:3]) for r in out["note_events.csv"].decode().splitlines()[1:])
 
 
-def batch_phase(median, mods: dict, card: str) -> dict:
-    """The batch runner under the shipped settings: the six held-out clips
-    (all in the 30 s bucket) in chunks of 4 and 2 songs, cold then warm;
-    8 median launches and 1 device-to-host copy per chunk; each row's stems
-    against a 1-D separation of the row and its fused outputs against
-    ``fused_analysis`` on the row and the batch's stems; every song's
-    artifact set. Then the six songs one at a time through ``run_pipeline``
-    (printed against the batch, not checked)."""
-    from audiotabs_tpu_torch.config import Settings
+class CountChunks(Capture):
+    """``batch_runner._analyse_chunk`` with every kernel's launch count set to
+    0 just before each chunk; each chunk's median launches (``launches``) and
+    decoder launches (``decoders``) read just after it."""
+
+    def __init__(self, median, mods: dict):
+        from audiotabs_tpu_torch.runtime import batch_runner
+
+        super().__init__(batch_runner, "_analyse_chunk")
+        self.median, self.mods, self.launches, self.decoders = median, mods, [], []
+
+    def __enter__(self):
+        super().__enter__()
+        keep = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            zero_counts(self.median, self.mods)
+            out = keep(*args, **kwargs)
+            self.launches.append(self.median.LAUNCHES)
+            self.decoders.append(decoder_counts(self.mods))
+            return out
+
+        setattr(self.module, self.name, counted)
+        return self
+
+
+def counted_batch(median, mods: dict, paths: list, out_root: Path, s, chunks: tuple) -> tuple:
+    """One ``transcribe_batch`` on the card, counted by chunk: it must run in
+    chunks of ``chunks`` songs, each with 8 median launches and a CLI song's
+    decoder launches (one DBN, one CRF, one salience envelope, two onset and
+    one banded Viterbi launch, whatever the chunk's size). Returns the
+    results, the captures of its separations and transfers, the counts and
+    its wall seconds."""
     from audiotabs_tpu_torch.models import htdemucs
-    from audiotabs_tpu_torch.runtime import batch_runner, pipeline
-    from audiotabs_tpu_torch.runtime.fused import fused_analysis
+    from audiotabs_tpu_torch.runtime import batch_runner
 
-    s = Settings.from_env()  # the shipped settings, as the CLI reads them
-    if s.BATCH_SONGS_PER_DEVICE != CHUNK_SONGS[0] or len(HELDOUT) != sum(CHUNK_SONGS):
-        raise AssertionError(f"expected {len(HELDOUT)} clips in chunks of {s.BATCH_SONGS_PER_DEVICE}")
-    shutil.rmtree(BATCH_JOBS, ignore_errors=True)
-    per_chunk_launches, per_chunk_decoders = [], []
+    with CountChunks(median, mods) as counts, Capture(htdemucs, "separate_program") as sep, \
+            Capture(batch_runner, "features_to_host") as host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = batch_runner.transcribe_batch(paths, out_root, device="cuda", settings=s)
+        wall = time.perf_counter() - t0
+    if counts.launches != [SEPARATED_LAUNCHES] * len(chunks):
+        raise AssertionError(f"median launches per chunk {counts.launches}, expected {SEPARATED_LAUNCHES} in each of {len(chunks)}")
+    if [args[1].shape[0] for args, _, _ in sep.calls] != list(chunks):
+        raise AssertionError(f"chunks of {[args[1].shape[0] for args, _, _ in sep.calls]} songs, expected {list(chunks)}")
+    expect = [DECODER_LAUNCHES_PER_SONG] * len(chunks)
+    if counts.decoders != expect:
+        raise AssertionError(f"decoder launches per chunk {counts.decoders}, expected {expect}")
+    return results, sep, host, counts, wall
 
-    class CountChunk(Capture):
-        def __enter__(self):
-            super().__enter__()
-            keep = getattr(self.module, self.name)
 
-            def counted(*args, **kwargs):
-                median.LAUNCHES = 0
-                zero_decoders(mods)
-                out = keep(*args, **kwargs)
-                per_chunk_launches.append(median.LAUNCHES)
-                per_chunk_decoders.append(decoder_counts(mods))
-                return out
-
-            setattr(self.module, self.name, counted)
-            return self
-
-    walls = []
-    for run in range(2):
-        per_chunk_launches.clear()
-        per_chunk_decoders.clear()
-        with CountChunk(batch_runner, "_analyse_chunk"), Capture(htdemucs, "separate_program") as sep, \
-                Capture(batch_runner, "features_to_host") as host:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            results = batch_runner.transcribe_batch(HELDOUT, BATCH_JOBS, device="cuda", settings=s)
-            walls.append(time.perf_counter() - t0)
-        if per_chunk_launches != [SEPARATED_LAUNCHES] * len(CHUNK_SONGS):
-            raise AssertionError(f"median launches per chunk {per_chunk_launches}, expected {SEPARATED_LAUNCHES} in each of {len(CHUNK_SONGS)}")
-        if [args[1].shape[0] for args, _, _ in sep.calls] != list(CHUNK_SONGS):
-            raise AssertionError(f"chunks of {[args[1].shape[0] for args, _, _ in sep.calls]} songs, expected {list(CHUNK_SONGS)}")
-        # one DBN, one CRF, one salience envelope, two onset and one banded Viterbi launch per chunk
-        expect = [DECODER_LAUNCHES_PER_SONG] * len(CHUNK_SONGS)
-        if per_chunk_decoders != expect:
-            raise AssertionError(f"decoder launches per chunk {per_chunk_decoders}, expected {expect}")
-        print(f"batch run {run} ({'cold' if run == 0 else 'warm'}): {len(HELDOUT)} songs in {walls[-1]:.3f} s, "
-              f"median launches per chunk {per_chunk_launches}, decoder launches per chunk {per_chunk_decoders} [{card}]")
-    batch, true_lens, sr = batch_runner._load_and_bucket(HELDOUT, s.PAD_SECONDS_BUCKET)
-    audio_s = sum(true_lens) / sr
-    print(f"batch: {audio_s:.2f} s of audio in {walls[1]:.3f} s warm = {audio_s / walls[1]:.3f} audio-s per wall s (cold {walls[0]:.3f} s) [{card}]")
-    template_chunk = template_chunk_check(median, mods, s, batch, true_lens, sr, card)
-
-    # every song's artifacts, no stage error
-    for r, clip in zip(results, HELDOUT):
-        job = BATCH_JOBS / "jobs" / clip.stem
+def check_batch_jobs(results: list, paths: list, out_root: Path) -> None:
+    """Every song's result.json and artifact set, the guitar stem, no stage error."""
+    for r, clip in zip(results, paths):
+        job = out_root / "jobs" / clip.stem
         out = read_out(job)
         if r.job_id != clip.stem or r.transcription_error is not None or out["result.json"]["transcription_error"] is not None:
             raise AssertionError(f"batch song {clip.name}: job {r.job_id}, errors {r.transcription_error}")
         missing = OUT_ARTIFACTS - set(out) - {"content_segments.json", "strum_onsets.json", "chosen_shapes.json"}
         if missing or out["beat_times.json"]["stem_source"] != "guitar" or out["beat_times.json"]["errors"]:
             raise AssertionError(f"batch song {clip.name}: missing {sorted(missing)}, beat_times {out['beat_times.json']['stem_source']} {out['beat_times.json']['errors']}")
-    print(f"batch: every song has result.json and the artifact set, stem guitar, no stage error")
-    warm_rows = {k: np.concatenate([res[k] for _, _, res in host.calls]) for k in host.calls[0][2]}
+    print(f"batch: every one of the {len(results)} songs has result.json and the artifact set, stem guitar, no stage error")
 
-    # the last (warm) run's rows: stems against a 1-D separation, fused outputs against fused_analysis on the row
+
+def check_batch_rows(sep: Capture, host: Capture, true_lens: list, sr: int, s) -> None:
+    """A counted batch's rows: each row's stems against a 1-D separation of
+    the row, its fused outputs against ``fused_analysis`` on the row and
+    the batch's stems."""
+    from audiotabs_tpu_torch.models import htdemucs
+    from audiotabs_tpu_torch.runtime import pipeline
+    from audiotabs_tpu_torch.runtime.fused import fused_analysis
+
     cfg = htdemucs.program_config(htdemucs.load_params(), s.DEMUCS_MODEL, s.stem_priority())
-    worst_stem = 0.0
+    worst_stem, a = 0.0, 0
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        for c, ((args, kwargs, stems), feats) in enumerate(zip(sep.calls, (res for _, _, res in host.calls))):
+        for (args, kwargs, stems), (_, _, feats) in zip(sep.calls, host.calls):
             model, y = args[0], args[1]
-            a = sum(CHUNK_SONGS[:c])
             for j in range(y.shape[0]):
                 one = htdemucs.separate_program(model, y[j], *args[2:], **kwargs)
                 err = ((stems[j] - one).abs().amax(dim=-1) / one.abs().amax(dim=-1)).max().item()
@@ -1005,8 +1080,39 @@ def batch_phase(median, mods: dict, card: str) -> dict:
                     stems[j, cfg["stem_idx"]].contiguous(), sr, chord_backend="deep", true_len=true_lens[a + j],
                     y_beat=stems[j, cfg["drums_idx"]].contiguous(), y_mix=y[j]))
                 compare_with_cpu(f"batch row {a + j} vs fused_analysis", row, {k: v[j] for k, v in feats.items()}, quiet=True)
+            a += y.shape[0]
     print(f"batch rows: stems within {worst_stem:.3g} of the peak of a 1-D separation (tolerance {STEM_TOL}); fused outputs of "
-          f"every row against fused_analysis on the row: discrete equal, floats within {FLOAT_TOL}, f16 within {F16_TOL}")
+          f"every one of the {a} rows against fused_analysis on the row: discrete equal, floats within {FLOAT_TOL}, f16 within {F16_TOL}")
+
+
+def batch_phase(median, mods: dict, card: str) -> dict:
+    """The batch runner under the shipped settings: the six held-out clips
+    (all in the 30 s bucket) in chunks of 4 and 2 songs, cold then warm;
+    8 median launches and 1 device-to-host copy per chunk; each row's stems
+    against a 1-D separation of the row and its fused outputs against
+    ``fused_analysis`` on the row and the batch's stems; every song's
+    artifact set. Then the six songs one at a time through ``run_pipeline``
+    (printed against the batch, not checked)."""
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.runtime import batch_runner, pipeline
+
+    s = Settings.from_env()  # the shipped settings, as the CLI reads them
+    if s.BATCH_SONGS_PER_DEVICE != CHUNK_SONGS[0] or len(HELDOUT) != sum(CHUNK_SONGS):
+        raise AssertionError(f"expected {len(HELDOUT)} clips in chunks of {s.BATCH_SONGS_PER_DEVICE}")
+    shutil.rmtree(BATCH_JOBS, ignore_errors=True)
+    walls = []
+    for run in range(2):
+        results, sep, host, counts, wall = counted_batch(median, mods, HELDOUT, BATCH_JOBS, s, CHUNK_SONGS)
+        walls.append(wall)
+        print(f"batch run {run} ({'cold' if run == 0 else 'warm'}): {len(HELDOUT)} songs in {walls[-1]:.3f} s, "
+              f"median launches per chunk {counts.launches}, decoder launches per chunk {counts.decoders} [{card}]")
+    batch, true_lens, sr = batch_runner._load_and_bucket(HELDOUT, s.PAD_SECONDS_BUCKET)
+    audio_s = sum(true_lens) / sr
+    print(f"batch: {audio_s:.2f} s of audio in {walls[1]:.3f} s warm = {audio_s / walls[1]:.3f} audio-s per wall s (cold {walls[0]:.3f} s) [{card}]")
+    template_chunk = template_chunk_check(median, mods, s, batch, true_lens, sr, card)
+    check_batch_jobs(results, HELDOUT, BATCH_JOBS)
+    warm_rows = {k: np.concatenate([res[k] for _, _, res in host.calls]) for k in host.calls[0][2]}
+    check_batch_rows(sep, host, true_lens, sr, s)
 
     # profiler: the whole warm batch, then one chunk of each size alone
     prof = profiled_counts(lambda: batch_runner.transcribe_batch(HELDOUT, BATCH_JOBS / "profiled", device="cuda", settings=s),
@@ -1040,7 +1146,7 @@ def batch_phase(median, mods: dict, card: str) -> dict:
               f"({len(beats[0])} / {len(beats[1])}, largest shift {max((abs(x - y) for x, y in zip(*beats)), default=0.0):.4f} s), "
               f"notes {sum(b_notes.values())} / {sum(s_notes.values())}, {same_notes} in both (start, end, pitch); single run_pipeline {single[-1]:.3f} s")
     print(f"one at a time: {sum(single):.3f} s for the six songs ({audio_s / sum(single):.3f} audio-s per wall s), batch {walls[1]:.3f} s [{card}]")
-    return {"walls": walls, "launches_per_chunk": per_chunk_launches, "decoder_launches_per_chunk": per_chunk_decoders,
+    return {"walls": walls, "launches_per_chunk": counts.launches, "decoder_launches_per_chunk": counts.decoders,
             "profile": prof, "chunks": chunks, "single_s": single, "rows": warm_rows, "template_chunk_decoders": template_chunk}
 
 
@@ -1075,6 +1181,253 @@ def template_chunk_check(median, mods: dict, s, batch: np.ndarray, true_lens, sr
     print(f"template chunk ({b} clips, CHORD_DETECTION_BACKEND=template): decoder launches {launches}; every row's chord path "
           f"equal to fused_analysis of the row, the rest discrete equal and floats within {FLOAT_TOL} [{card}]")
     return launches
+
+
+ONSET_DENSITY = 1  # the column of content_metrics that holds a window's onsets per second
+
+
+def onset_knife_edge(w: int, start: int, stems: tuple, sr: int) -> str:
+    """Where the onset picker of content window ``w`` decides otherwise on
+    the card and on the CPU: each device's envelope of the window (from its
+    own stem) against its threshold, mean + delta, at the frames whose
+    candidacy differs, and the smaller margin."""
+    from audiotabs_tpu_torch.ops.onset import _sliding_reduce, onset_strength
+
+    cand, parts = [], []
+    for stem in stems:
+        n = stem.shape[-1]
+        idx = torch.arange(start, start + 3 * sr, device=stem.device)
+        window = torch.where(idx < n, stem[idx.clamp(max=n - 1)], torch.zeros((), device=stem.device))
+        env = onset_strength(window[None], sr, hop=512, n_fft=1024)[0]
+        thr = _sliding_reduce(env, 3, 5, "mean") + 0.5
+        cand.append(((env >= _sliding_reduce(env, 3, 3, "max")) & (env >= thr)).cpu())
+        parts.append((env.cpu(), thr.cpu()))
+    frames = torch.nonzero(cand[0] != cand[1]).flatten().tolist()
+    out = []
+    for f in frames:
+        (e0, t0), (e1, t1) = (tuple(float(x[f]) for x in pair) for pair in parts)
+        out.append(f"frame {f}: card envelope {e0:.6f} against its threshold {t0:.6f}, cpu {e1:.6f} against {t1:.6f}, "
+                   f"margin {min(abs(e0 - t0), abs(e1 - t1)):.3g}")
+    return "; ".join(out) or "no frame's candidacy differs"
+
+
+def compare_long_with_cpu(what: str, cpu: dict, card: dict, stems: tuple, sr: int) -> list:
+    """``compare_with_cpu`` on the 180 s song, with one knife edge allowed:
+    the onset density of one content window (``content_metrics[w, 1]``) one
+    onset apart, a knife edge (an envelope within float32 noise of its
+    threshold), printed with its margin; every other element of every
+    output at its tolerance, the discrete outputs exactly. Returns the knife
+    edges that showed."""
+    rest_cpu, rest_card = dict(cpu), dict(card)
+    a, b = rest_cpu.pop("content_metrics"), rest_card.pop("content_metrics")
+    compare_with_cpu(what, rest_cpu, rest_card)
+    bad = ~np.isclose(b, a, **FLOAT_TOL)
+    one_onset = 1.0 / 3.0  # one onset over a 3 s window
+    edges = [(int(w), float(b[w, ONSET_DENSITY]), float(a[w, ONSET_DENSITY])) for w in np.nonzero(bad[:, ONSET_DENSITY])[0]]
+    if bad.sum() != len(edges) or len(edges) > 1 or any(abs(abs(x - y) - one_onset) > 1e-5 for _, x, y in edges):
+        np.testing.assert_allclose(b, a, err_msg=f"{what} content_metrics", **FLOAT_TOL)
+    for w, x, y in edges:
+        start = int(card["content_starts"][w])
+        print(f"{what} knife edge: content_metrics[{w}, {ONSET_DENSITY}] (the onset density of the window at sample {start}) "
+              f"{x:.4f} on the card, {y:.4f} on the cpu; {onset_knife_edge(w, start, stems, sr)}")
+    print(f"{what} content_metrics: every other element within {FLOAT_TOL}; knife edges {len(edges)}")
+    return edges
+
+
+def long_phase(median, mods: dict, recorder: RecordMedians, card: str) -> dict:
+    """The JAX package's north-star song, bench.py's 180 s synthetic mix
+    (``make_test_audio``; ``long_song_wall_s``), under the shipped settings:
+
+    - the CLI (``cli.main``, which calls ``run_pipeline``) cold, then warm as
+      bench.py runs it (up to 3 warm-ups, then the minimum of 3), every
+      kernel's count set to 0 just before each song: 8 median launches and
+      a CLI song's decoder launches, the guitar stem and the drums as beat
+      source, no stage error, the 30 s CLI song's artifact set, a
+      result.json whose score has measures, every stage in profile.json;
+    - one warm song traced (device ops, busy share, 1 device-to-host copy)
+      and its peak device memory;
+    - ``run_analysis`` with its stems kept: the CPU ``fused_analysis`` on
+      those stems against the card's outputs (``compare_long_with_cpu``),
+      beat times equal; the card's stems against the CPU separation of the
+      same mix within STEM_TOL of each stem's peak; warm ``run_analysis``
+      and separation times;
+    - the CPU ``run_pipeline_from_features`` on the card CLI's features: the
+      card's beat times, chords, key and time signature.
+
+    ``recorder`` records the median launches (held and timed at the new
+    shapes afterwards)."""
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize, write_wav
+    from audiotabs_tpu_torch.models import htdemucs
+    from audiotabs_tpu_torch.runtime import cli, pipeline
+    from audiotabs_tpu_torch.runtime.fused import fused_analysis
+
+    shutil.rmtree(LONG_JOBS, ignore_errors=True)
+    LONG_JOBS.mkdir(parents=True)
+    sr = pipeline.ANALYSIS_SR
+    wav = LONG_JOBS / "song180.wav"
+    write_wav(wav, make_test_audio(float(LONG_SONG_S), sr), sr)
+    shipped = Settings.from_env()
+
+    with Capture(pipeline, "features_to_host") as feats, Capture(pipeline, "run_pipeline") as result:
+        def run(tag: str, rec: RecordMedians | None = None) -> float:
+            job = LONG_JOBS / tag
+            zero_counts(median, mods)
+            with rec or contextlib.nullcontext():
+                rc = cli.main([str(wav), "--job-dir", str(job), "--keep"])
+            launches, decoders = median.LAUNCHES, decoder_counts(mods)
+            if rc != 0:
+                raise AssertionError(f"cli exited {rc} on the {LONG_SONG_S} s song")
+            if launches != SEPARATED_LAUNCHES or decoders != DECODER_LAUNCHES_PER_SONG:
+                raise AssertionError(f"the {LONG_SONG_S} s song launched the median kernel {launches} times and the decoders {decoders}")
+            out = read_out(job)
+            bt, res = out["beat_times.json"], out["result.json"]
+            if res["transcription_error"] is not None or (bt["stem_source"], bt["beat_source"], bt["demucs_error"], bt["errors"]) != ("guitar", "drums", None, []):
+                raise AssertionError(f"the {LONG_SONG_S} s song did not run cleanly: error {res['transcription_error']}, stem {bt['stem_source']}, "
+                                     f"beats {bt['beat_source']}, demucs_error {bt['demucs_error']}, errors {bt['errors']}")
+            if set(out) != OUT_ARTIFACTS or {p.name for p in (job / "work").iterdir()} != WORK_ARTIFACTS:
+                raise AssertionError(f"the {LONG_SONG_S} s song's artifact set: out {sorted(out)}, work {sorted(p.name for p in (job / 'work').iterdir())}")
+            if not (res["score"] or {}).get("measures") or set(STAGES) - set(out["profile.json"]):
+                raise AssertionError(f"the {LONG_SONG_S} s song: no score, or profile.json lacks {sorted(set(STAGES) - set(out['profile.json']))}")
+            print(f"long song {tag}: run_pipeline {result.seconds:.3f} s, median launches {launches}, decoder launches {decoders}, "
+                  f"{len(bt['beat_times'])} beats, {len(res['chords'])} chords, {len(res['score']['measures'])} measures, "
+                  f"stages (s) {json.dumps(out['profile.json'])} [{card}]")
+            return result.seconds
+
+        cold = run("cold", recorder)
+        prev, warmups = cold, [cold]
+        for i in range(1, 3):  # bench.py's long song: its first run is the cold one
+            cur = run(f"warmup{i}")
+            warmups.append(cur)
+            if cur < prev * 1.2 and cur < LONG_SONG_S / 5:
+                break
+            prev = cur
+        walls = [run(f"run{i}") for i in range(3)]
+        card_feats = feats.last  # the last run's, beside its artifacts
+    card_out = read_out(LONG_JOBS / "run2")
+    stages = read_out(LONG_JOBS / f"run{int(np.argmin(walls))}")["profile.json"]
+    print(f"long song: run_pipeline cold {cold:.3f} s, warm-ups {[round(w, 3) for w in warmups[1:]]}, warm {[round(w, 3) for w in walls]} s, "
+          f"minimum {min(walls):.3f} s ({LONG_SONG_S / min(walls):.2f} audio-s per wall s); stages of the fastest (s) "
+          f"{json.dumps(stages)} [{card}]")
+
+    # one warm song traced, and its peak device memory
+    traced = retrace(lambda: profile_busy_share(lambda: cli.main([str(wav), "--job-dir", str(LONG_JOBS / "profiled"), "--keep"])),
+                     lambda p: p["dtoh"] < 1, "the long song's trace holds no device-to-host copy")
+    if traced["dtoh"] != 1:
+        raise AssertionError(f"{traced['dtoh']} device-to-host copies in the {LONG_SONG_S} s song, expected 1")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    cli.main([str(wav), "--job-dir", str(LONG_JOBS / "peak"), "--keep"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"long song: peak device memory {peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} GiB above the resident "
+          f"{resident / 2**30:.3f} GiB), traced {traced['device_ops']} device ops, busy share {traced['busy_share']} [{card}]")
+
+    # run_analysis with its stems kept; the CPU on those stems
+    with Capture(pipeline, "separate_stems_device") as sep:
+        card_feats_a, beats, info = pipeline.run_analysis(wav, device="cuda", settings=shipped)
+    stems = sep.last
+    if info != {"stem_source": "guitar", "errors": []}:
+        raise AssertionError(f"run_analysis of the {LONG_SONG_S} s song did not separate cleanly: {info}")
+    check_outputs(card_feats_a, beats, FUSED_DEEP_KEYS | {"beat_from_drums"})
+    y, _, _ = decode_for_analysis(wav, sr)
+    y = peak_normalize(y)
+    y_pad = np.ascontiguousarray(pipeline._pad_to_bucket(y, sr, shipped.PAD_SECONDS_BUCKET), dtype=np.float32)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_feats = pipeline.features_to_host(fused_analysis(
+            stems["guitar"].cpu(), sr, chord_backend="deep", true_len=len(y), y_beat=stems["drums"].cpu(), y_mix=torch.from_numpy(y_pad)))
+    cpu_fused_s = time.perf_counter() - t0
+    edges = compare_long_with_cpu("long song, card stems, cuda vs cpu fused", cpu_feats, card_feats_a, (stems["guitar"], stems["guitar"].cpu()), sr)
+    t100 = int(len(y) / sr * 100)
+    cpu_beats = pipeline.beats_from_decoded(cpu_feats["dbn_phases"][:t100], cpu_feats["dbn_intervals"][:t100],
+                                            np.asarray(cpu_feats["beat_activation"], dtype=np.float32)[:t100], fps=100)
+    if not np.array_equal(cpu_beats, beats):
+        raise AssertionError(f"beat times of the {LONG_SONG_S} s song differ between cuda and cpu on the card's stems")
+    print(f"long song, card stems, cuda vs cpu fused ({cpu_fused_s:.1f} s on the cpu): discrete outputs, beat_from_drums and the "
+          f"{beats.size} beat times equal; floats within {FLOAT_TOL}, f16 outputs within {F16_TOL}; chord frames "
+          f"{card_feats_a['crf_path'].shape}, content windows {card_feats_a['content_starts'].shape}")
+    analysis_s = wall_s(lambda: pipeline.run_analysis(wav, device="cuda", settings=shipped))
+
+    # separation: the card's stems against the CPU's on the same padded mix, and its time
+    mix = torch.from_numpy(y_pad)
+    mix_card = mix.cuda()
+    kwargs = dict(model_name=shipped.DEMUCS_MODEL, shifts=shipped.DEMUCS_SHIFTS, bf16=shipped.DEMUCS_BF16)
+    sep_ms = cuda_ms(lambda: htdemucs.separate_stems_device(mix_card, sr, **kwargs), reps=3, warmup=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    htdemucs.separate_stems_device(mix_card, sr, **kwargs)
+    torch.cuda.synchronize()
+    sep_peak = torch.cuda.max_memory_allocated() - before
+    t0 = time.perf_counter()
+    cpu_stems = htdemucs.separate_stems_device(mix, sr, **kwargs)
+    cpu_sep_s = time.perf_counter() - t0
+    errs = {name: float((stems[name].cpu() - a).abs().max() / a.abs().max()) for name, a in cpu_stems.items()}
+    print(f"long song separation: {sep_ms:.2f} ms by events, {sep_peak / 2**30:.3f} GiB above the resident memory; cpu {cpu_sep_s:.1f} s; "
+          f"largest error over the stem's peak {errs} (tolerance {STEM_TOL}) [{card}]")
+    bad = {k: v for k, v in errs.items() if not v < STEM_TOL}
+    if bad:
+        raise AssertionError(f"the {LONG_SONG_S} s song's card stems differ from the CPU stems beyond {STEM_TOL}: {bad}")
+    print(f"long song: run_analysis warm {analysis_s:.3f} s (separation {sep_ms:.2f} ms of it) [{card}]")
+
+    # the CPU tail on the card CLI's own features
+    cpu_job = LONG_JOBS / "tail_cpu" / "jobs" / "song180"
+    t0 = time.perf_counter()
+    cpu_res = pipeline.run_pipeline_from_features(card_feats, len(y), sr, cpu_job, stem_source="guitar", settings=shipped, device="cpu")
+    print(f"cpu run_pipeline_from_features on the card's features: {time.perf_counter() - t0:.3f} s, errors {cpu_res.transcription_error}")
+    compare_pipelines(card_out, cpu_res, read_out(cpu_job))
+    return {"cold_s": cold, "warmups_s": warmups[1:], "walls_s": walls, "stages": stages, "traced": traced,
+            "peak_gib": peak / 2**30, "run_analysis_s": analysis_s, "separation_ms": sep_ms, "separation_peak_gib": sep_peak / 2**30,
+            "cpu_separation_s": cpu_sep_s, "stem_err_over_peak": errs, "knife_edges": edges,
+            "launches": SEPARATED_LAUNCHES, "decoder_launches": dict(DECODER_LAUNCHES_PER_SONG)}
+
+
+def batch8_phase(median, mods: dict, card: str) -> dict:
+    """bench.py's batch: eight 30 s songs (``make_test_audio(30)`` plus
+    0.01 N(0, 1) noise from ``default_rng(7)``) through ``transcribe_batch``
+    under the shipped settings, two chunks of ``BATCH_SONGS_PER_DEVICE``,
+    cold then three warm runs counted by chunk (``counted_batch``); one warm
+    run traced: 8 median launches and 1 device-to-host copy per chunk; each
+    row against ``fused_analysis`` on the row and the batch's stems; every
+    song's artifact set. Prints audio-s per wall s of the fastest warm run."""
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.io.wav import write_wav
+    from audiotabs_tpu_torch.runtime import batch_runner
+
+    s = Settings.from_env()
+    sr, seconds = 22050, 30.0
+    chunks = (s.BATCH_SONGS_PER_DEVICE,) * (BATCH8_SONGS // s.BATCH_SONGS_PER_DEVICE)
+    if sum(chunks) != BATCH8_SONGS:
+        raise AssertionError(f"{BATCH8_SONGS} songs do not fall into chunks of {s.BATCH_SONGS_PER_DEVICE}")
+    shutil.rmtree(BATCH8_JOBS, ignore_errors=True)
+    BATCH8_JOBS.mkdir(parents=True)
+    audio = make_test_audio(seconds, sr)
+    rng = np.random.default_rng(7)
+    paths = []
+    for i in range(BATCH8_SONGS):
+        y = audio + 0.01 * rng.standard_normal(len(audio)).astype(np.float32)
+        paths.append(BATCH8_JOBS / f"b{i}.wav")
+        write_wav(paths[-1], y.astype(np.float32), sr)
+    walls = []
+    for run in range(4):
+        results, sep, host, counts, wall = counted_batch(median, mods, paths, BATCH8_JOBS / f"run{run}", s, chunks)
+        walls.append(wall)
+        print(f"batch of {BATCH8_SONGS} run {run} ({'cold' if run == 0 else 'warm'}): {wall:.3f} s, median launches per chunk "
+              f"{counts.launches}, decoder launches per chunk {counts.decoders} [{card}]")
+    check_batch_jobs(results, paths, BATCH8_JOBS / "run3")
+    _, true_lens, _ = batch_runner._load_and_bucket(paths, s.PAD_SECONDS_BUCKET)
+    check_batch_rows(sep, host, true_lens, sr, s)
+    launches, dtoh = SEPARATED_LAUNCHES * len(chunks), len(chunks)
+    prof = profiled_counts(lambda: batch_runner.transcribe_batch(paths, BATCH8_JOBS / "profiled", device="cuda", settings=s), launches, dtoh)
+    if (prof["median_launches"], prof["dtoh"]) != (launches, dtoh):
+        raise AssertionError(f"profiled batch of {BATCH8_SONGS}: {prof['median_launches']} median launches and {prof['dtoh']} device-to-host copies")
+    audio_s = BATCH8_SONGS * seconds
+    print(f"batch of {BATCH8_SONGS}: {audio_s:.0f} s of audio, warm {[round(w, 3) for w in walls[1:]]} s, fastest {min(walls[1:]):.3f} s = "
+          f"{audio_s / min(walls[1:]):.3f} audio-s per wall s (cold {walls[0]:.3f} s); traced: {json.dumps(prof)} [{card}]")
+    return {"walls_s": walls, "audio_s_per_s": audio_s / min(walls[1:]), "launches_per_chunk": counts.launches,
+            "decoder_launches_per_chunk": counts.decoders, "profile": prof}
 
 
 MESH_JOBS = REPO / "build" / "chip_smoke_mesh"  # git-ignored
@@ -1936,17 +2289,27 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
         kernel, plain = calls[name]
         _, launch_args, launch, _ = decoder_api(mods, name)
         rows, err = {}, 0.0
-        # shapes no path launched: the 180 s song's, and another layout's
-        extra = long_shapes.get(name, {}) | OTHER_LAYOUT_SHAPES.get(name, {})
-        for shape, launched in sorted(by_shape.items()) + sorted(dict.fromkeys(extra).items()):
+        # shapes no path launched: the 180 s song's (the long phase launches
+        # them at [1, ...]; the rest are held here), another layout's; and
+        # for the DBN the tempo grids of its general layout
+        long_at = long_shapes.get(name, {})
+        extra = {shape: c for shape, c in (long_at | OTHER_LAYOUT_SHAPES.get(name, {})).items() if shape not in by_shape}
+        jobs = [(shape, launched, None) for shape, launched in sorted(by_shape.items())] + [(shape, None, None) for shape in sorted(extra)]
+        if name == "dbn_viterbi":
+            jobs += [((1, beat_frames(Settings().PAD_SECONDS_BUCKET, fps=grid[2])), None, grid) for grid in DBN_GRIDS]
+        for shape, launched, grid in jobs:
             held = launched is None
-            long_song = held and shape in long_shapes.get(name, {})
+            long_song = grid is None and shape in long_at
             like = shapes[name][next(iter(bucket[name]))][0] if held else launched[0]
+            if grid is not None:  # the DBN's arguments: (activations, fps, min_bpm, max_bpm, transition and observation lambdas)
+                like = (like[0], grid[2], grid[0], grid[1], *like[4:])
             made = decoder_inputs(name, shape, like, rng)
-            if held:
+            if grid is not None:
+                cases = {k: made[k] for k in DBN_GRID_CASES}
+            elif held:
                 cases = {k: made[k] for k in extra[shape]}
-            else:
-                cases = {f"launched {i}": a for i, a in enumerate(launched)} | made
+            else:  # at the long song's shapes, its launched inputs and the inputs named there
+                cases = {f"launched {i}": a for i, a in enumerate(launched)} | ({k: made[k] for k in long_at[shape]} if long_song else made)
             for case, args in cases.items():
                 got, ref = kernel(*args), plain(*args)
                 torch.cuda.synchronize()
@@ -1960,6 +2323,7 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                 print(f"{name} {'x'.join(map(str, shape))}: bit-equal to the plain version on {', '.join(cases)} (the {LONG_SONG_S} s song, not timed)")
                 continue
             args = next(iter(cases.values())) if held else like
+            once = held or long_song  # plain loops of seconds: timed once, after the checks' runs
             prepared = launch_args(*args)
             adds, compares, nbytes = decoder_work(name, args, mods)
             row = dict(
@@ -1967,18 +2331,17 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                 single_ms=cuda_ms(lambda: launch(*prepared), reps=10, spin=False),
                 device_ms=device_ms(lambda: launch(*prepared), reps=10, key=f"{name}_kernel"),
                 wrapper_ms=cuda_ms(lambda: kernel(*args), reps=10),
-                # seconds a run at the long song's length: once, after the checks' runs
-                plain_ms=cuda_ms(lambda: plain(*args), reps=1, warmup=0) if held else cuda_ms(lambda: plain(*args), reps=3, warmup=1),
+                plain_ms=cuda_ms(lambda: plain(*args), reps=1, warmup=0) if once else cuda_ms(lambda: plain(*args), reps=3, warmup=1),
                 adds=adds, compares=compares, bytes=nbytes,
                 ops_bound_ms=max(adds / add_rate, compares / compare_rate) * 1e3, byte_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 frames=shape[-2] if name in ("banded_viterbi", "dense_viterbi") else shape[-1],
                 cases=sorted(cases), launched=sum(1 for n, _, s, _ in recorder.launches if (n, s) == (name, shape)),
-                long_song=long_song, other_layout=held and not long_song,
+                long_song=long_song, other_layout=held and not long_song and grid is None, grid=list(grid) if grid else None,
             )
             row["bound_ms"] = max(row["ops_bound_ms"], row["byte_bound_ms"])
             row["bound_by"] = "operations" if row["ops_bound_ms"] >= row["byte_bound_ms"] else "bytes"
             row["ms_per_frame"] = row["ms"] / row["frames"]
-            label = "x".join(map(str, shape))
+            label = "x".join(map(str, shape)) + (f" at {grid[0]:g}-{grid[1]:g} bpm, {grid[2]} fps" if grid else "")
             rows[label] = row
             print(f"{name} {label}: bit-equal to the plain version on {len(cases)} inputs ({', '.join(sorted(cases))}); "
                   f"kernel {row['ms']:.4f} ms by events ({row['single_ms']:.4f} ms without the spin kernel, {row['device_ms']} ms "
@@ -2032,6 +2395,8 @@ def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_pa
                       for label, r in measured["rows"].items() if r["long_song"]},
         "other_layout": {label: {k: r[k] for k in ("ms", "plain_ms", "ms_per_frame", "bound_ms")}
                          for label, r in measured["rows"].items() if r["other_layout"]},
+        "tempo_grids": {label: {k: r[k] for k in ("ms", "wrapper_ms", "plain_ms", "ms_per_frame", "bound_ms", "bound_by")}
+                        for label, r in measured["rows"].items() if r["grid"]},
         "ptxas": measured["ptxas"],
     }
 
@@ -2351,6 +2716,7 @@ def main() -> int:
         serve_launches = run_phase("serve", lambda: serving_phase(median, mods, card, main_path["out"]["result.json"]))
         batch = run_phase("batch", lambda: batch_phase(median, mods, card))
         mesh = run_phase("mesh", lambda: mesh_phase(median, mods, card, batch))
+        batch8 = run_phase("batch8", lambda: batch8_phase(median, mods, card))
 
         def analysis_phase():
             """run_analysis under the shipped settings, separation on; the stems it
@@ -2425,6 +2791,9 @@ def main() -> int:
             cases = {name: run_phase(name, lambda name=name: settings_phase(median, card, name, recorder)) for name in SETTINGS_CASES}
             degraded = run_phase("degraded", lambda: degraded_phase(median, card, recorder))
         new_shapes = run_phase("new shapes", lambda: new_shape_kernel_check(median, recorder))
+        long_recorder = RecordMedians(keep=2)
+        long_song = run_phase("long", lambda: long_phase(median, mods, long_recorder, card))
+        long_shapes = run_phase("long shapes", lambda: new_shape_kernel_check(median, long_recorder))
         with RecordMedians(keep=4) as train_recorder:
             train = run_phase("train", lambda: train_phase(median, train_recorder))
     train_shapes = run_phase("train shapes", lambda: new_shape_kernel_check(median, train_recorder))
@@ -2458,7 +2827,10 @@ def main() -> int:
         "launches_train": train["total"],
         "launches_train_by_trainer": train["launches"],
         "launches_train_by_shape": train["by_shape"],
-        "max_abs_err": max(kernel["max_abs_err"], mesh["new_shapes"]["max_abs_err"], new_shapes["max_abs_err"], train_shapes["max_abs_err"]),
+        "launches_long_song": long_song["launches"],
+        "launches_batch_of_8_per_chunk": batch8["launches_per_chunk"],
+        "max_abs_err": max(kernel["max_abs_err"], mesh["new_shapes"]["max_abs_err"], new_shapes["max_abs_err"], train_shapes["max_abs_err"],
+                           long_shapes["max_abs_err"]),
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
         "bound_ms": kernel["bound_ms"],
@@ -2469,6 +2841,7 @@ def main() -> int:
         "ms_per_launch_new_shapes": new_shapes["rows"],
         "ms_per_launch_mesh_shapes": mesh["new_shapes"]["rows"],
         "ms_per_launch_train_shapes": train_shapes["rows"],
+        "ms_per_launch_long_song_shapes": long_shapes["rows"],
         "per_batch_chunk": kernel["per_chunk"],
         "single_ms": kernel["single_ms"],
         "device_ms": kernel["device_ms"],
@@ -2483,6 +2856,8 @@ def main() -> int:
         "template_batch_chunk_of_4": batch["template_chunk_decoders"][name],
         **{case: cases[case]["decoder_launches"][name] for case in SETTINGS_CASES},
         "degraded": degraded["runs"][-1]["decoder_launches"][name],
+        "long_song_180_s": long_song["decoder_launches"][name],
+        "batch_of_8_per_chunk": [c[name] for c in batch8["decoder_launches_per_chunk"]],
         "train_by_trainer": {t: n[name] for t, n in train["decoder_launches"].items()},
     }, own_path[name][1]) for name in DECODERS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

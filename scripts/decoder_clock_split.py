@@ -14,7 +14,9 @@ without adding (time that a called function's own marks counted). The modules' o
 (``_launch_args`` and ``_launch``, or the prefixed ones of a module with two
 kernels) then run these builds (their cached launchers are swapped for the
 marked ones), once to warm up and once counted, on random inputs at each
-kernel's shapes (``CASES``): the DBN at [1, 3007] (the 30 s bucket), the
+kernel's shapes (``CASES``): the DBN at [1, 3007] (the 30 s bucket; on
+the shipped tempo grid, and on the grids of ``DBN_GRIDS``, which take its
+general layout), the
 banded Viterbi at [20, 130, 241] (the content windows of one song, band 25),
 the dense Viterbi at [1, 301, 25] (the CRF of the 30 s bucket) and
 [1, 1801, 25] (a 180 s song), the onset rule at [20, 130] (the content
@@ -94,6 +96,9 @@ CASES = {
     "salience_envelope": [(1, 88, 2584), (1, 88, 15504), (4, 88, 2584)],
     "constant_switch_viterbi": [(1, 49, 301), (1, 49, 1801), (4, 49, 301)],
 }
+# the DBN also at tempo grids (min_bpm, max_bpm, fps) past its register
+# layouts, which take its general layout (the shipped grid is 55-215 BPM at 100 fps)
+DBN_GRIDS = [(30.0, 215.0, 100), (20.0, 300.0, 100), (10.0, 400.0, 100)]
 SPIN_CYCLES = 2_000_000  # about 1 ms of a spin kernel ahead of each timed launch, as chip_smoke.py's
 
 
@@ -109,12 +114,13 @@ def build_marked(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def inputs(name: str, shape: tuple) -> tuple:
-    """The wrapper's arguments at ``shape`` on the card, and the frames of its frame loop."""
+def inputs(name: str, shape: tuple, grid: tuple = (55.0, 215.0, 100)) -> tuple:
+    """The wrapper's arguments at ``shape`` on the card (the DBN's at the
+    tempo grid ``grid``), and the frames of its frame loop."""
     rng = np.random.default_rng(0)
     if name == "dbn_viterbi":
         act = torch.from_numpy(rng.random(shape).astype(np.float32)).cuda()
-        return (act, 100, 55.0, 215.0, 100.0, 16), shape[-1] - 1
+        return (act, grid[2], grid[0], grid[1], 100.0, 16), shape[-1] - 1
     if name == "onset_wait":
         # the calibration's rule: candidates at about a tenth of the frames, wait 4
         return (torch.from_numpy(rng.random(shape) < 0.1).cuda(), 4), shape[-1]
@@ -141,7 +147,7 @@ def inputs(name: str, shape: tuple) -> tuple:
     return (log_v, torch.from_numpy(log_u).cuda().expand(*shape), 25, 0.01), T
 
 
-def split(name: str, lib: ctypes.CDLL, shape: tuple) -> dict:
+def split(name: str, lib: ctypes.CDLL, shape: tuple, *grid) -> dict:
     module, symbol, prefix = KERNELS[name]
     mod = importlib.import_module(module)
     pre = f"_{prefix}" if prefix else ""
@@ -149,7 +155,7 @@ def split(name: str, lib: ctypes.CDLL, shape: tuple) -> dict:
     fn = getattr(lib, symbol)
     fn.argtypes, fn.restype = getattr(mod, f"{pre.upper()}_ARGTYPES"), ctypes.c_int
     _build._FUNCS[(name, symbol)] = fn  # the module's launch function now runs the marked build
-    args, frames = inputs(name, shape)
+    args, frames = inputs(name, shape, *grid)
     prepared = launch_args(*args)
     launch(*prepared)
     torch.cuda.synchronize()
@@ -202,6 +208,9 @@ def main() -> int:
         lib = build_marked(name)
         for shape in CASES[name]:
             out[f"{name} {list(shape)}"] = split(name, lib, shape)
+        if name == "dbn_viterbi":
+            for grid in DBN_GRIDS:
+                out[f"{name} {list(CASES[name][0])} at {grid[0]:g}-{grid[1]:g} bpm, {grid[2]} fps"] = split(name, lib, CASES[name][0], grid)
     for label, row in out.items():
         per = ", ".join(f"part {i}: {c:.1f}" for i, c in row["clocks_per_frame"].items())
         print(f"{label}: {row['ms']:.4f} ms by events ({row['us_per_frame']:.3f} us per frame over {row['frames']} frames; "

@@ -10,14 +10,19 @@ plain loop's output, on random and tie-heavy inputs made from numpy seeds
 tests/test_torch_scan_kernels.py hold the plain loops against the JAX
 package with), with a NaN where the loops take one ("one NaN", "NaN row":
 a NaN is the maximum, as torch.argmax and jnp.argmax take it; a NaN output
-equals a NaN). Every test here is ``cuda``-marked and skips without a card.
-The file imports no JAX, so it also runs where only PyTorch is installed:
+equals a NaN). The DBN runs at every tempo grid the JAX scan takes: past
+the register layouts (128 tempi, 160 phases) its general layout, held here
+at the grids of ``WIDE_GRIDS`` (tests/test_torch_decoders.py holds the
+plain loop against the JAX scan at the first three). Every test here is
+``cuda``-marked and skips without a card. The file imports no JAX, so it
+also runs where only PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_decoder_kernels.py -m cuda
 """
 
 from __future__ import annotations
 
+import ctypes
 import importlib
 
 import numpy as np
@@ -31,6 +36,11 @@ from audiotabs_tpu_torch.ops import onset as tonset
 
 # the ops package re-exports the pyin function under the module's name
 tpyin = importlib.import_module("audiotabs_tpu_torch.ops.pyin")
+
+# (min_bpm, max_bpm, fps) past the register layouts: 174 tempi x 200 phases,
+# 165 x 219, 281 x 300 (a score of 44,960 states, the largest that one block's
+# shared memory holds of these) and 586 x 600 (180,195 states, in device memory)
+WIDE_GRIDS = [(30.0, 215.0, 100), (55.0, 215.0, 200), (20.0, 300.0, 100), (10.0, 400.0, 100)]
 
 
 # ---- inputs --------------------------------------------------------------
@@ -275,10 +285,25 @@ def test_cuda_banded_viterbi_kernel_equals_plain_version_at_other_widths(cuda, n
 
 
 @pytest.mark.cuda
-def test_cuda_dbn_score_too_large_for_shared_memory_raises(cuda):
-    # 25 BPM at 100 fps: 214 tempi x 240 phases, two scores of 411 KB
-    with pytest.raises(ValueError, match="shared memory"):
-        tdbn._dbn_forward(torch.rand(1, 50, device=cuda), min_bpm=25.0)
+@pytest.mark.parametrize("grid", WIDE_GRIDS + [(25.0, 215.0, 100)], ids=lambda g: f"{g[0]:g}-{g[1]:g}bpm-{g[2]}fps")
+@pytest.mark.parametrize("kind", ["random", "constant", "beats", "one NaN", "NaN row"])
+def test_cuda_dbn_kernel_equals_plain_version_on_wide_tempo_grids(cuda, grid, kind):
+    # every grid the JAX scan takes: 25 BPM at 100 fps (214 tempi x 240
+    # phases) was refused before the general layout
+    min_bpm, max_bpm, fps = grid
+    act = torch.from_numpy(_activations(kind)).to(cuda)
+    got = _launched(tdbn, lambda: tdbn._dbn_forward(act, fps=fps, min_bpm=min_bpm, max_bpm=max_bpm))
+    ref = tdbn._dbn_forward_plain(act, fps, min_bpm, max_bpm, 100.0, 16)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.cuda
+def test_cuda_dbn_launcher_refuses_more_tempi_than_shared_memory_holds(cuda):
+    # 12,000 tempi: the general layout's five per-tempo vectors alone pass 227 KB;
+    # the launcher refuses before it touches an argument
+    n = P = 12_000
+    args = [ctypes.c_void_p(0)] * 10 + [1, 2, n, P, n * P // 2, ctypes.c_void_p(0)]
+    assert tdbn.build()(*args) == -2
 
 
 @pytest.mark.cuda
@@ -363,3 +388,4 @@ def test_cuda_salience_envelope_kernel_refuses_a_stride_off_the_warp(cuda):
     for stride in (48, 96):
         with pytest.raises(ValueError, match="the kernel takes 64"):
             tbp.salience_envelope(torch.rand(1, 88, 100, device=cuda), stride=stride)
+

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 
 from audiotabs_tpu_torch import _build
 from audiotabs_tpu_torch.decode import dbn_beats as tdbn
+from test_torch_fused import torch_threads  # noqa: F401 (an autouse fixture)
 
 NEG = -1e30
 BIG = 2**31 - 1  # INT_MAX: the index a lane with no candidate starts from
@@ -486,3 +487,99 @@ def test_the_switch_and_envelope_schedules_read_the_kernels_constants():
     assert "const float* in = m + (lane ? nblk - 1 : 0);" in envelope and "const int step = lane ? -1 : 1;" in envelope
     assert "constexpr int kStride = 64;" in envelope and "if (stride != kStride) return -2;" in envelope
     assert tbp.ENVELOPE_STRIDE == 64  # the one stride the kernel takes
+
+
+# ---- the DBN's general layout (grids past the register layouts) ----------
+
+WIDE_GRIDS = [(30.0, 215.0, 100), (55.0, 215.0, 200), (20.0, 300.0, 100), (10.0, 400.0, 100)]
+
+
+def _general_constants() -> tuple[int, int]:
+    """(kGeneralThreads, kGeneralChunk) of csrc/dbn_viterbi.cu."""
+    text = _source("dbn_viterbi")
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) for name in ("kGeneralThreads", "kGeneralChunk"))
+
+
+def _dbn_general_layout(act: torch.Tensor, fps: int, min_bpm: float, max_bpm: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The general layout's schedule on one song [T]: tempo i's phases in a
+    circular buffer of L_i slots at off[i] (phase p at frame t in slot
+    (p - t) mod L_i); each target's entry the maximum over ls lanes' sources
+    (lane s: s, s + ls, ...); then every slot adds its observation, the
+    phase-0 slot to the entry, and the last phase is kept; the final argmax
+    by 1,024 threads each scanning flat indices tid, tid + 1,024, ..., then a
+    warp's and the block's first maximum of keys; the backtrack from the kept
+    last phases."""
+    threads, _ = _general_constants()
+    f = tdbn._forward_inputs(act[None], fps, min_bpm, max_bpm, 100.0, 16)
+    g = f.grid
+    L = g.intervals
+    n, P = g.valid.shape
+    bl = g.beat_len32.to(torch.int64)
+    off = torch.cumsum(L, 0) - L
+    tempo_of = torch.repeat_interleave(torch.arange(n), L)  # each slot's tempo
+    slot = torch.arange(int(L.sum())) - off[tempo_of]
+    Ls, bls = L[tempo_of], bl[tempo_of]
+    buf = f.init[0][tempo_of, slot].clone()  # frame 0: phase q in slot q
+    last = (slot == Ls - 1)
+    lastv = buf[last]
+    hist = [lastv]
+    ls = 1
+    while ls < 32 and 2 * ls * n <= threads:
+        ls *= 2
+    T = act.shape[0]
+    for t in range(1, T):
+        cand = lastv[:, None] + g.log_trans  # [from, to]
+        enter = torch.stack([cand[s::ls].amax(dim=0) for s in range(ls)]).amax(dim=0)  # a NaN propagates
+        p = (slot + t) % Ls
+        obs = torch.where(p < bls, f.lo_beat[0, t], f.lo_off[0, t])
+        buf = torch.where(p == 0, enter[tempo_of], buf) + obs
+        lastv = torch.zeros(n).index_put_((tempo_of[p == Ls - 1],), buf[p == Ls - 1])
+        hist.append(lastv)
+    # the final [n, P] score read through the slot map, -1e30 past each interval
+    p_all = torch.arange(P)[None, :]
+    q = (p_all - (T - 1) % L[:, None]) % L[:, None]
+    final = torch.where(g.valid, buf[(off[:, None] + q).clamp(max=len(buf) - 1)], torch.tensor(NEG))
+    flat = final.reshape(-1)
+    cols = -(-flat.numel() // threads)
+    padded = torch.cat([flat, torch.full((cols * threads - flat.numel(),), -float("inf"))]).reshape(cols, threads)
+    k = torch.argmax(padded, dim=0)  # each thread's ascending scan: the first maximum, a NaN first
+    lane_v = padded.gather(0, k[None])[0]
+    lane_i = torch.where(k * threads + torch.arange(threads) < flat.numel(), k * threads + torch.arange(threads), BIG)
+    warp_v, warp_i = _redux_first(lane_v.reshape(-1, 32), lane_i.reshape(-1, 32))
+    _, bi = _redux_first(warp_v[None], warp_i[None])
+    tempo, phase, k = int(bi) // P, int(bi) % P, T - 1
+    phases, ivs = torch.empty(T, dtype=torch.int32), torch.empty(T, dtype=torch.int32)
+    while True:
+        lo = max(k - phase, 0)
+        phases[lo : k + 1] = phase - (k - torch.arange(lo, k + 1))
+        ivs[lo : k + 1] = int(L[tempo])
+        if lo == 0:
+            break
+        tempo = int(torch.argmax(hist[lo - 1] + g.log_trans[:, tempo]))  # the first maximum, a NaN first
+        phase, k = int(L[tempo]) - 1, lo - 1
+    return phases, ivs
+
+
+@pytest.mark.parametrize("grid", WIDE_GRIDS, ids=lambda g: f"{g[0]:g}-{g[1]:g}bpm-{g[2]}fps")
+@pytest.mark.parametrize("kind", ["random", "constant", "beats", "one NaN", "NaN row"])
+def test_dbn_general_layout_is_the_plain_decode(grid, kind):
+    from test_torch_decoder_kernels import _activations
+
+    min_bpm, max_bpm, fps = grid
+    intervals = tdbn._tempo_grid(min_bpm, max_bpm, fps)
+    lanes, r, s = _dbn_layout()
+    assert len(intervals) > 16 * lanes or intervals.max() > 20 * lanes  # past both register layouts
+    act = torch.from_numpy(_activations(kind, B=1, T=240))
+    ph, iv = tdbn._dbn_forward_plain(act, fps, min_bpm, max_bpm, 100.0, 16)
+    for b in range(len(act)):
+        got = _dbn_general_layout(act[b], fps, min_bpm, max_bpm)
+        assert torch.equal(got[0], ph[b]) and torch.equal(got[1], iv[b]), b
+
+
+def test_the_general_layout_reads_the_kernels_constants():
+    threads, chunk = _general_constants()
+    text = _source("dbn_viterbi")
+    assert threads == 1024 and chunk & (chunk - 1) == 0
+    assert "while (ls < 32 && 2 * ls * n <= kGeneralThreads) ls *= 2;" in text  # the emulation's lanes per target
+    assert "int q = p - (T - 1) % Li;" in text and "int p = q + tm;" in text  # the slot map both ways
+    assert "return launch_any_grid(" in text and "n > 255" not in text

@@ -38,7 +38,7 @@ from audiotabs_tpu_torch.decode import dbn_beats as tdbn
 from audiotabs_tpu_torch.decode import viterbi as tvit
 from audiotabs_tpu_torch.models import crf_chords as tcrf
 from audiotabs_tpu_torch.ops import onset as tonset
-from test_torch_decoder_kernels import _activations, _emissions, _envelopes, _pyin_obs
+from test_torch_decoder_kernels import WIDE_GRIDS, _activations, _emissions, _envelopes, _pyin_obs
 from test_torch_fused import torch_threads  # noqa: F401 (an autouse fixture)
 
 # both ops packages re-export the pyin function under the module's name
@@ -79,14 +79,30 @@ def test_dbn_beat_track_matches_jax():
     np.testing.assert_array_equal(tdbn.dbn_beat_track(act, device="cpu"), jdbn.dbn_beat_track(act))
 
 
+@pytest.mark.parametrize("grid", WIDE_GRIDS[:3], ids=lambda g: f"{g[0]:g}-{g[1]:g}bpm-{g[2]}fps")
+@pytest.mark.parametrize("kind", ["random", "constant", "beats", "one NaN", "NaN row"])
+def test_dbn_plain_equals_jax_on_wide_tempo_grids(grid, kind):
+    # tempo grids past the kernel's register layouts (its general layout on the card)
+    min_bpm, max_bpm, fps = grid
+    act = _activations(kind, B=2, T=300)
+    ph, iv = tdbn._dbn_forward(torch.from_numpy(act), fps=fps, min_bpm=min_bpm, max_bpm=max_bpm)
+    for b in range(len(act)):
+        ph_j, iv_j = jdbn._dbn_forward(jnp.asarray(act[b]), fps=fps, min_bpm=min_bpm, max_bpm=max_bpm)
+        np.testing.assert_array_equal(ph[b].numpy(), np.asarray(ph_j), err_msg=f"{kind} row {b} phases")
+        np.testing.assert_array_equal(iv[b].numpy(), np.asarray(iv_j), err_msg=f"{kind} row {b} intervals")
+
+
 def test_dbn_kernel_limits_raise_before_a_launch():
-    # 1,000 fps gives 813 tempi, more than a byte backpointer can name
-    with pytest.raises(ValueError, match="255"):
-        tdbn._dbn_forward_cuda(torch.rand(1, 10), fps=1000, min_bpm=55.0, max_bpm=215.0, transition_lambda=100.0,
-                               observation_lambda=16)
-    # the launcher owns the shared-memory layout: its codes for a score that
-    # does not fit, and for arguments out of range, raise ValueError; a
-    # cudaError raises RuntimeError
+    # 1,000 fps gives 813 tempi x 1,091 phases: the wrapper refuses no grid
+    # (the general layout takes any); its arguments hold the score scratch,
+    # one float a valid state, for where the score does not fit shared memory
+    args = tdbn._launch_args(torch.empty((2, 10), device="meta"), 1000, 55.0, 215.0, 100.0, 16)
+    grid = tdbn._tempo_grid(55.0, 215.0, 1000)
+    assert len(grid) == 813 and args[0].shape == (2, 813, 1091)
+    assert args[7].shape == (2, int(grid.sum())) and args[-2].shape == args[-1].shape == (2, 10)
+    # the launcher owns the layout: its codes for per-tempo vectors that do
+    # not fit shared memory, and for arguments out of range, raise
+    # ValueError; a cudaError raises RuntimeError
     with pytest.raises(ValueError, match="shared memory"):
         _build.check_launch(-2, "dbn_viterbi", tdbn._REFUSED)
     with pytest.raises(ValueError, match="out of range"):
