@@ -1,0 +1,57 @@
+"""A cell and its files, found by name: ``BENCHMARK.json`` at the root of the
+checkout names the workload, its configuration and its traffic mix; the
+configuration is the file that its entry names, the mix is
+``benchmarks/traffic/<traffic>.json`` and each per-layer metric is read by
+``benchmarks/metrics/<name>.py``. Adding a configuration, a mix or a metric
+adds files and entries and edits none."""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+from pathlib import Path
+from typing import Callable
+
+ROOT = Path(__file__).resolve().parents[2]
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    end_to_end: list[dict]  # the BENCHMARK.json entries this cell reports
+    per_layer: list[dict]
+    root: Path
+
+
+def reports(metric: dict, workload: str) -> bool:
+    return "workloads" not in metric or workload in metric["workloads"]
+
+
+def load_cell(workload: str, root: Path = ROOT) -> Cell:
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    entry = next((w for w in bench["workloads"] if w["name"] == workload), None)
+    if entry is None:
+        raise KeyError(f"no workload {workload!r} in BENCHMARK.json")
+    conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    return Cell(
+        name=workload,
+        chips=int(entry["chips"]),
+        config=json.loads((root / conf["file"]).read_text()),
+        traffic=json.loads((root / "benchmarks" / "traffic" / f"{entry['traffic']}.json").read_text()),
+        end_to_end=[m for m in bench["end_to_end"] if reports(m, workload)],
+        per_layer=[m for m in bench["per_layer"] if reports(m, workload)],
+        root=root,
+    )
+
+
+def reader(metric: str, root: Path = ROOT) -> Callable:
+    """The ``read`` function of ``benchmarks/metrics/<metric>.py``."""
+    path = root / "benchmarks" / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location(f"bench_metric_{metric.replace('.', '_').replace('-', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
