@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from ..ops.features import mel_filterbank
 from ..ops.spectral import as_device, stft
 from ..theory.quantize import to_beats
+from ..tracing import traced
 
 
 def _onset_strength_median(y: torch.Tensor, sr: int, hop: int = 512, n_fft: int = 2048) -> torch.Tensor:
@@ -155,6 +156,7 @@ def _peak_pick_np(env: np.ndarray, delta: float, sr: int, hop: int = 512) -> np.
     return np.asarray(frames, dtype=np.int64)
 
 
+@traced("mode/strum")
 def detect_strum_onsets(
     y: np.ndarray,
     sr: int,

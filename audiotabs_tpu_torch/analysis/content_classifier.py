@@ -28,6 +28,7 @@ from ..ops.hpss import hpss_masks
 from ..ops.onset import onset_detect_frames, onset_strength
 from ..ops.pyin import pyin
 from ..ops.spectral import stft
+from ..tracing import traced
 
 _LOG = logging.getLogger(__name__)
 
@@ -136,6 +137,7 @@ def classify_metrics(
     return ContentType.HYBRID, max(0.3, confidence - 0.2)
 
 
+@traced("mode/content")
 def analyze_musical_content(
     y: np.ndarray,
     sr: int,

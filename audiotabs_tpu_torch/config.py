@@ -10,7 +10,8 @@ not copied: the separation program takes its segment from the checkpoint's
 ``DEMUCS_SEGMENT_SEC`` and ``DEMUCS_OVERLAP`` are not read, as in the JAX
 package. ``FUSED_SPLIT_FETCH`` and ``PROFILE_DIR`` are the JAX package's
 device→host transfer and trace knobs: the port always copies the fused
-outputs in one transfer, and is traced with ``torch.profiler`` from outside.
+outputs in one transfer, and its spans (the package's ``tracing.py``) reach a
+trace whenever a ``torch.profiler`` records, with no setting.
 The serving knobs (``FRONTEND_ORIGIN`` to ``BATCH_SONGS_PER_DEVICE``) are read
 by ``runtime/{jobs,server,celery_integration,batch_runner}.py``, and
 ``MESH_SHAPE``/``MESH_AXES`` by ``parallel/mesh.py::default_mesh`` (empty:

@@ -24,6 +24,7 @@ import torch
 
 from .. import _build
 from ..device import on_device
+from ..tracing import uploaded
 
 # Launches of the CUDA kernel (csrc/dbn_viterbi.cu) in this process; only
 # _launch adds to it.
@@ -67,12 +68,12 @@ def _device_grid(min_bpm: float, max_bpm: float, fps: int, transition_lambda: fl
     in and out of inference mode. Callers read them and never write them."""
     with torch.inference_mode(False):
         intervals_np = _tempo_grid(min_bpm, max_bpm, fps)
-        intervals = torch.from_numpy(intervals_np.astype(np.int64)).to(device, copy=True)
-        log_trans = torch.from_numpy(_tempo_transition(min_bpm, max_bpm, fps, transition_lambda)).to(device, copy=True)
+        intervals = uploaded(torch.from_numpy(intervals_np.astype(np.int64)).to(device, copy=True))
+        log_trans = uploaded(torch.from_numpy(_tempo_transition(min_bpm, max_bpm, fps, transition_lambda)).to(device, copy=True))
         phase_idx = torch.arange(int(intervals_np.max()), device=device)[None, :]
         valid = phase_idx < intervals[:, None]
         beat_len = torch.ceil(intervals[:, None] / observation_lambda).to(torch.int64)
-        neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=device)
+        neg_inf = uploaded(torch.tensor(-1e30, dtype=torch.float32, device=device))
         init_prior = torch.where(valid, torch.log(1.0 / valid.sum().to(torch.float32)), neg_inf)
         return _Grid(intervals, log_trans, valid, phase_idx < beat_len, init_prior,
                      intervals.to(torch.int32), beat_len[:, 0].to(torch.int32))
@@ -101,7 +102,7 @@ def _dbn_forward_plain(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lamb
     f = _forward_inputs(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
     g = f.grid
     n_tempi, max_int = g.valid.shape
-    neg_inf = torch.tensor(-1e30, dtype=torch.float32, device=act.device)
+    neg_inf = uploaded(torch.tensor(-1e30, dtype=torch.float32, device=act.device))
     tempo_ar = torch.arange(n_tempi, device=act.device)
     score = f.init
     bp_tempi = []

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .tracing import uploaded
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
@@ -31,4 +33,4 @@ def on_device(y, device: str | torch.device | None = None) -> torch.Tensor:
     card unless the caller names the CPU."""
     if isinstance(y, torch.Tensor):
         return y.to(torch.float32)
-    return torch.from_numpy(np.require(y, np.float32, ["C", "W"])).to(resolve_device(device))
+    return uploaded(torch.from_numpy(np.require(y, np.float32, ["C", "W"])).to(resolve_device(device)), "song")

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..ops.cqt import cqt
 from ..ops.spectral import as_device, hann_window
 from ..ops.spectral import frame as frame_signal
+from ..tracing import uploaded
 from . import convert
 from .params_io import load_pytree_npz, weights_path
 
@@ -215,7 +216,7 @@ def onset_activation(y: torch.Tensor, sr: int, fps: int = FPS_DEFAULT) -> torch.
     logb = torch.log10(1.0 + 5.0 * C)
     diff = torch.clamp(logb[:, 1:] - logb[:, :-1], min=0.0)
     act = F.pad(diff.mean(dim=0), (1, 0))
-    kernel = torch.tensor([[[0.25, 0.5, 0.25]]], dtype=act.dtype, device=act.device)
+    kernel = uploaded(torch.tensor([[[0.25, 0.5, 0.25]]], dtype=act.dtype, device=act.device))
     act = F.conv1d(act[None, None], kernel, padding=1)[0, 0]  # jnp.convolve(mode="same")
     act = torch.clamp(act - torch.quantile(act, 0.25), min=0.0)
     denom = torch.quantile(act, 0.99) + 1e-8

@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..tracing import uploaded
+
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
@@ -118,7 +120,7 @@ def htdemucs_state(params: dict) -> dict[str, torch.Tensor]:
 
 def crf_tensors(params: dict, device: torch.device) -> dict[str, torch.Tensor]:
     """CRF emission/transition arrays → float32 tensors on ``device``."""
-    return {k: _t(params[k]).to(device) for k in ("emit_w", "emit_b", "transitions", "initial")}
+    return {k: uploaded(_t(params[k]).to(device)) for k in ("emit_w", "emit_b", "transitions", "initial")}
 
 
 def _leaves(tree) -> list:

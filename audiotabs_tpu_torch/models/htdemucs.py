@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.spectral import _pad_last, istft, stft
+from ..tracing import uploaded
 from . import convert
 from .params_io import load_pytree_npz, save_pytree_npz, weights_path
 
@@ -99,7 +100,8 @@ def _embeddings(d: int, fq: int, ts: int, tt: int, device: torch.device) -> tupl
     1-D embedding of the time tokens [tt, d]) on ``device``, built once."""
     pe2 = create_2d_sin_embedding(d, fq, ts).transpose(2, 1, 0).reshape(ts * fq, d)
     with torch.inference_mode(False):
-        return torch.from_numpy(np.ascontiguousarray(pe2)).to(device), torch.from_numpy(create_sin_embedding(tt, d)).to(device)
+        return (uploaded(torch.from_numpy(np.ascontiguousarray(pe2)).to(device)),
+                uploaded(torch.from_numpy(create_sin_embedding(tt, d)).to(device)))
 
 
 # ------------------------------------------------------------------ layers --
@@ -600,7 +602,7 @@ def _resample2_mats(taps: int = 129) -> tuple[np.ndarray, np.ndarray]:
 @lru_cache(maxsize=4)
 def _resample_mats(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     with torch.inference_mode(False):
-        return tuple(torch.from_numpy(m).to(device) for m in _resample2_mats())
+        return tuple(uploaded(torch.from_numpy(m).to(device)) for m in _resample2_mats())
 
 
 def _down2(x: torch.Tensor) -> torch.Tensor:
@@ -663,7 +665,7 @@ def separate_program(model: HTDemucs, y: torch.Tensor, sr: int, seg: int, stride
     stems = stems.reshape(n_songs, len(metas), n_sources, 2, seg)
     tri = _triangle(seg, y.device)
     lead = max(0, -min(metas))
-    pos = torch.tensor(metas, device=y.device) + lead
+    pos = uploaded(torch.tensor(metas, device=y.device)) + lead
     idx = (pos[:, None] + torch.arange(seg, device=y.device)).reshape(-1)
     src = (stems * tri).permute(0, 2, 3, 1, 4).reshape(n_songs, n_sources, 2, -1)
     acc = stems.new_zeros(n_songs, n_sources, 2, lead + L44 + seg).index_add_(-1, idx, src)
@@ -731,7 +733,7 @@ def separate_stems_device(y: torch.Tensor, sr: int, model_name: str = "htdemucs_
     if y.dim() != 1 or sr not in (MODEL_SR, MODEL_SR // 2):
         # the JAX routing: other shapes and rates take the host path
         host = separate_stems(y.detach().cpu().numpy(), sr, model_name=model_name, device=y.device)
-        return None if host is None else {k: torch.from_numpy(v).to(y.device) for k, v in host.items()}
+        return None if host is None else {k: uploaded(torch.from_numpy(v).to(y.device), "song") for k, v in host.items()}
     cfg = program_config(params, model_name, list(MODEL_STEMS["htdemucs"]))
     with torch.inference_mode():
         out = separate_program(load_model(y.device), y, sr, cfg["seg"], cfg["stride"], shifts, bf16=bf16)
@@ -765,7 +767,7 @@ def apply_model(net: HTDemucs, mix: np.ndarray, sr: int, *, shifts: int = 2, ove
         offset = int(rng.integers(0, max_shift)) if shifts > 1 and shift_i > 0 else 0
         padded = np.pad(mix, ((0, 0), (offset, seg)))
         offsets = _segment_windows(L + offset, seg, stride)
-        windows = torch.from_numpy(np.stack([padded[:, o : o + seg] for o in offsets]).astype(np.float32)).to(device)
+        windows = uploaded(torch.from_numpy(np.stack([padded[:, o : o + seg] for o in offsets]).astype(np.float32)).to(device), "song")
         with torch.inference_mode():
             stems = torch.cat([net(windows[i : i + _FWD_CHUNK]) for i in range(0, len(offsets), _FWD_CHUNK)]).cpu().numpy()
         for o, st in zip(offsets, stems):

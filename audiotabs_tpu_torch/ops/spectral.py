@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..tracing import uploaded
+
 
 @lru_cache(maxsize=32)
 def hann_window(n: int, periodic: bool = True) -> np.ndarray:
@@ -35,7 +37,7 @@ def as_device(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     device. Always a copy: on the CPU a ``from_numpy`` view would share its
     memory with the ``lru_cache``d constant, and an in-place op on it would
     change the constant for every later caller in the process."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(like.device, copy=True)
+    return uploaded(torch.from_numpy(np.ascontiguousarray(a)).to(like.device, copy=True))
 
 
 @lru_cache(maxsize=32)
@@ -43,7 +45,7 @@ def device_hann(n: int, device: torch.device) -> torch.Tensor:
     """The periodic Hann window, uploaded once per device (not per call);
     a copy, never a view of ``hann_window``'s cached array."""
     with torch.inference_mode(False):  # a normal tensor, usable in and out of inference mode
-        return torch.from_numpy(hann_window(n)).to(device, copy=True)
+        return uploaded(torch.from_numpy(hann_window(n)).to(device, copy=True))
 
 
 def _pad_last(x: torch.Tensor, left: int, right: int, mode: str) -> torch.Tensor:

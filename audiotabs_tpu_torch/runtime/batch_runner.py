@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -38,6 +37,7 @@ from ..config import Settings
 from ..device import resolve_device
 from ..parallel.mesh import Mesh, data_shards, default_mesh, make_mesh
 from ..schemas import JobResult
+from ..tracing import span, uploaded
 from .fused import fused_analysis_batch
 from .pipeline import features_to_host
 
@@ -178,13 +178,14 @@ def batched_fused_analysis_stream(
             for dev, part in data_shards(mesh, rows):
                 lo, hi = a + part.start, a + part.stop
                 # each card runs its shard on its own (default) stream
-                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-                    y = torch.from_numpy(np.ascontiguousarray(batch[lo:hi], dtype=np.float32)).to(dev)
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext(), span("batch/dispatch"):
+                    y = uploaded(torch.from_numpy(np.ascontiguousarray(batch[lo:hi], dtype=np.float32)).to(dev), "song")
                     sep_cfg, model, _stem_name = separation[dev]
                     shards.append(_analyse_chunk(y, true_lens[lo:hi], sr, s, sep_cfg, model))
             outs.append((a, rows, shards))
     for a, rows, shards in outs:
-        hosts = [features_to_host(o) for o in shards]
+        with span("batch/chunk"):
+            hosts = [features_to_host(o) for o in shards]
         host = hosts[0] if len(hosts) == 1 else {k: np.concatenate([h[k] for h in hosts]) for k in hosts[0]}
         n = min(rows, B - a)
         yield a, {k: v[:n] for k, v in host.items()}
@@ -231,45 +232,43 @@ def transcribe_batch(
     dev = mesh.axis_devices("data")[0]
     paths = [Path(p) for p in paths]
     out_root = Path(out_root)
-    t0 = time.perf_counter()
-    batch, true_lens, sr = _load_and_bucket(paths, s.PAD_SECONDS_BUCKET)
-    t_load = time.perf_counter() - t0
+    with span("batch") as whole:
+        with span("batch/load") as load:
+            batch, true_lens, sr = _load_and_bucket(paths, s.PAD_SECONDS_BUCKET)
 
-    _cfg, _model, batch_stem_source = _resolve_separation(s, sr, dev)
+        _cfg, _model, batch_stem_source = _resolve_separation(s, sr, dev)
 
-    # unique job ids even when different directories share a filename
-    stems = [p.stem for p in paths]
-    job_ids = [
-        stem if stems.count(stem) == 1 else f"{stem}-{i}" for i, stem in enumerate(stems)
-    ]
+        # unique job ids even when different directories share a filename
+        stems = [p.stem for p in paths]
+        job_ids = [
+            stem if stems.count(stem) == 1 else f"{stem}-{i}" for i, stem in enumerate(stems)
+        ]
 
-    def one(i: int, feats_i: dict) -> JobResult:
-        job_id = job_ids[i]
-        job_dir = out_root / "jobs" / job_id
-        for sub in ("input", "work", "out"):
-            (job_dir / sub).mkdir(parents=True, exist_ok=True)
-        return run_pipeline_from_features(
-            feats_i, true_lens[i], sr, job_dir, job_id, stem_source=batch_stem_source, settings=s, device=dev
-        )
+        def one(i: int, feats_i: dict) -> JobResult:
+            job_id = job_ids[i]
+            job_dir = out_root / "jobs" / job_id
+            for sub in ("input", "work", "out"):
+                (job_dir / sub).mkdir(parents=True, exist_ok=True)
+            return run_pipeline_from_features(
+                feats_i, true_lens[i], sr, job_dir, job_id, stem_source=batch_stem_source, settings=s, device=dev
+            )
 
-    # every chunk is dispatched before the stream yields its first transfer;
-    # each chunk's songs then go to the host pool as its transfer lands, and
-    # their tails overlap each other and the later transfers, not device work
-    t0 = time.perf_counter()
-    futures = []
-    with ThreadPoolExecutor(max_workers=host_workers) as pool:
-        for a, feats_chunk in batched_fused_analysis_stream(batch, sr, true_lens, mesh=mesh, settings=s):
-            n = next(iter(feats_chunk.values())).shape[0]
-            for j in range(min(n, len(paths) - a)):
-                feats_i = {k: np.asarray(v[j]) for k, v in feats_chunk.items()}
-                futures.append(pool.submit(one, a + j, feats_i))
-        results = [f.result() for f in futures]
-    t_run = time.perf_counter() - t0
+        # every chunk is dispatched before the stream yields its first transfer;
+        # each chunk's songs then go to the host pool as its transfer lands, and
+        # their tails overlap each other and the later transfers, not device work
+        futures = []
+        with ThreadPoolExecutor(max_workers=host_workers) as pool:
+            for a, feats_chunk in batched_fused_analysis_stream(batch, sr, true_lens, mesh=mesh, settings=s):
+                n = next(iter(feats_chunk.values())).shape[0]
+                for j in range(min(n, len(paths) - a)):
+                    feats_i = {k: np.asarray(v[j]) for k, v in feats_chunk.items()}
+                    futures.append(pool.submit(one, a + j, feats_i))
+            with span("batch/drain") as drain:
+                results = [f.result() for f in futures]
 
     total_audio = sum(true_lens) / sr
-    wall = t_load + t_run
     _LOG.info(
-        "batch: %d songs, %.0fs audio in %.2fs (load %.2f device+host %.2f) = %.1f audio-s/s",
-        len(paths), total_audio, wall, t_load, t_run, total_audio / wall,
+        "batch: %d songs, %.0fs audio in %.2fs (load %.2f, the tails' drain after the last transfer %.2f) = %.1f audio-s/s",
+        len(paths), total_audio, whole.seconds, load.seconds, drain.seconds, total_audio / whole.seconds,
     )
     return results

@@ -35,6 +35,7 @@ from ..ops.features import rms, spectral_centroid, spectral_rolloff
 from ..ops.hpss import hpss, hpss_masks
 from ..ops.onset import onset_detect_frames, onset_strength
 from ..ops.spectral import stft
+from ..tracing import span, uploaded
 
 F16_OUTPUTS = ("y_harm", "amt_onset", "amt_frame", "beat_activation")
 
@@ -137,79 +138,86 @@ def fused_analysis_batch(
     out: dict[str, torch.Tensor] = {}
 
     # 1. harmonic/percussive split
-    y_harm, y_perc = hpss(y)
-    out["y_harm"] = y_harm
+    with span("fused/hpss"):
+        y_harm, y_perc = hpss(y)
+        out["y_harm"] = y_harm
 
-    # 2. the beat source
-    if y_beat is not None:
-        fallback = hpss(y_mix)[1] if y_mix is not None else y_perc
-        r_beat = torch.sqrt(torch.mean(y_beat**2, dim=-1))
-        r_ref = torch.sqrt(torch.mean((y_mix if y_mix is not None else y) ** 2, dim=-1))
-        use_drums = r_beat > 0.15 * r_ref
-        out["beat_from_drums"] = use_drums
-        beat_src = torch.where(use_drums[:, None], y_beat, fallback)
-    else:
-        beat_src = y_perc if separate else y
+        # 2. the beat source
+        if y_beat is not None:
+            fallback = hpss(y_mix)[1] if y_mix is not None else y_perc
+            r_beat = torch.sqrt(torch.mean(y_beat**2, dim=-1))
+            r_ref = torch.sqrt(torch.mean((y_mix if y_mix is not None else y) ** 2, dim=-1))
+            use_drums = r_beat > 0.15 * r_ref
+            out["beat_from_drums"] = use_drums
+            beat_src = torch.where(use_drums[:, None], y_beat, fallback)
+        else:
+            beat_src = y_perc if separate else y
 
     # 3. the nets up to the salience, song by song (one hCQT each, shared by
     # the salience and the Basic Pitch CNN)
-    rows = [_song_nets(y_harm[b], beat_src[b], sr, models) for b in range(n_songs)]
-    sal = torch.stack([r.pop("salience") for r in rows])  # [B, 88, T]: the songs share the bucket's length
-    # 3b. the posteriors of every song's salience: one envelope launch
-    sal_onset, sal_frame = basicpitch.posteriors_from_salience(sal)
-    if models.basicpitch is None:
-        out["amt_onset"], out["amt_frame"] = sal_onset.contiguous(), sal_frame.contiguous()
+    with span("fused/nets"):
+        rows = [_song_nets(y_harm[b], beat_src[b], sr, models) for b in range(n_songs)]
+        sal = torch.stack([r.pop("salience") for r in rows])  # [B, 88, T]: the songs share the bucket's length
+        # 3b. the posteriors of every song's salience: one envelope launch
+        sal_onset, sal_frame = basicpitch.posteriors_from_salience(sal)
+        if models.basicpitch is None:
+            out["amt_onset"], out["amt_frame"] = sal_onset.contiguous(), sal_frame.contiguous()
 
     # 4. chroma, chord emissions, DeepChroma and the key, song by song
-    for b, r in enumerate(rows):
-        r.update(_song_chords(y[b], y_harm[b], sal_frame[b], sr, chord_backend, lens[b], models))
-    out.update({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
+    with span("fused/chords"):
+        for b, r in enumerate(rows):
+            r.update(_song_chords(y[b], y_harm[b], sal_frame[b], sr, chord_backend, lens[b], models))
+        out.update({k: torch.stack([r[k] for r in rows]) for k in rows[0]})
 
-    # 4a. the template backend's decode of every song's emissions in one call
-    # (one constant-switch launch)
-    if chord_backend in ("template", "both"):
-        out["chord_path"], out["chord_conf"] = viterbi_constant_switch(out["chord_emissions"], switch_penalty)
+        # 4a. the template backend's decode of every song's emissions in one call
+        # (one constant-switch launch)
+        if chord_backend in ("template", "both"):
+            out["chord_path"], out["chord_conf"] = viterbi_constant_switch(out["chord_emissions"], switch_penalty)
 
-    # 4b. CRF chord decode of every song's gated features in one call (one
-    # dense Viterbi launch)
-    if "crf_features" in out:
-        out["crf_path"], out["crf_conf"] = crf_chords.decode(models.crf, out.pop("crf_features"))
+        # 4b. CRF chord decode of every song's gated features in one call (one
+        # dense Viterbi launch)
+        if "crf_features" in out:
+            out["crf_path"], out["crf_conf"] = crf_chords.decode(models.crf, out.pop("crf_features"))
 
     # 4c. DBN beat decode of every song in one launch (on the f32
     # activations, before the f16 cast)
-    out["dbn_phases"], out["dbn_intervals"] = _dbn_forward(out["beat_activation"])
+    with span("fused/dbn"):
+        out["dbn_phases"], out["dbn_intervals"] = _dbn_forward(out["beat_activation"])
 
     # 4d. full-track strum envelope, from the input (not the harmonic) signal
-    strum_env = _onset_strength_median(y, sr, 512)
-    out["strum_envelope"] = strum_env / (strum_env.amax(dim=-1, keepdim=True) + 1e-9)
+    with span("fused/strum"):
+        strum_env = _onset_strength_median(y, sr, 512)
+        out["strum_envelope"] = strum_env / (strum_env.amax(dim=-1, keepdim=True) + 1e-9)
 
     # 5. content-classifier window metrics on the 3 s / 1.5 s window grid;
     # every song's windows are one [B·W, win] batch
-    win = 3 * sr
-    hop_w = sr + sr // 2
-    starts = [p for p in range(0, max(1, n - sr // 2), hop_w) if p + sr // 2 <= n]
-    if starts:
-        st = torch.tensor(starts, dtype=torch.int32, device=y.device)
-        idx = st[:, None].long() + torch.arange(win, device=y.device)[None, :]
-        windows = torch.where(idx < n, y[:, torch.clamp(idx, 0, n - 1)], torch.zeros((), device=y.device))
-        metrics = torch.stack(_window_metrics(windows.reshape(-1, win), sr), dim=1)
-        out["content_starts"] = st.expand(n_songs, -1)
-        out["content_metrics"] = metrics.reshape(n_songs, len(starts), -1)
+    with span("fused/content"):
+        win = 3 * sr
+        hop_w = sr + sr // 2
+        starts = [p for p in range(0, max(1, n - sr // 2), hop_w) if p + sr // 2 <= n]
+        if starts:
+            st = uploaded(torch.tensor(starts, dtype=torch.int32, device=y.device))
+            idx = st[:, None].long() + torch.arange(win, device=y.device)[None, :]
+            windows = torch.where(idx < n, y[:, torch.clamp(idx, 0, n - 1)], torch.zeros((), device=y.device))
+            metrics = torch.stack(_window_metrics(windows.reshape(-1, win), sr), dim=1)
+            out["content_starts"] = st.expand(n_songs, -1)
+            out["content_metrics"] = metrics.reshape(n_songs, len(starts), -1)
 
     # 6. calibration characteristics
-    r = rms(y, 2048, 512)
-    S = torch.abs(stft(y, n_fft=1024, hop=512))
-    mh, mp = hpss_masks(S, 17, 17)
-    eh = torch.sum((S * mh) ** 2, dim=(-2, -1))
-    ep = torch.sum((S * mp) ** 2, dim=(-2, -1))
-    onsets = onset_detect_frames(onset_strength(y, sr, hop=512, n_fft=1024), delta=0.5, wait=4)
-    # parity trap: jnp.percentile interpolates linearly, as torch.quantile does
-    out["char_rms_median"] = torch.quantile(r, 0.5, dim=-1)
-    out["char_noise_rms"] = torch.quantile(r, 0.1, dim=-1)
-    out["char_centroid"] = spectral_centroid(y, sr, 2048, 512).mean(dim=-1)
-    out["char_rolloff"] = spectral_rolloff(y, sr, 2048, 512).mean(dim=-1)
-    out["char_harm_ratio"] = torch.where(eh + ep > 1e-9, eh / (eh + ep), torch.full_like(eh, 0.5))
-    out["char_onset_density"] = onsets.sum(dim=-1).to(torch.float32) / (n / sr)
+    with span("fused/calibration"):
+        r = rms(y, 2048, 512)
+        S = torch.abs(stft(y, n_fft=1024, hop=512))
+        mh, mp = hpss_masks(S, 17, 17)
+        eh = torch.sum((S * mh) ** 2, dim=(-2, -1))
+        ep = torch.sum((S * mp) ** 2, dim=(-2, -1))
+        onsets = onset_detect_frames(onset_strength(y, sr, hop=512, n_fft=1024), delta=0.5, wait=4)
+        # parity trap: jnp.percentile interpolates linearly, as torch.quantile does
+        out["char_rms_median"] = torch.quantile(r, 0.5, dim=-1)
+        out["char_noise_rms"] = torch.quantile(r, 0.1, dim=-1)
+        out["char_centroid"] = spectral_centroid(y, sr, 2048, 512).mean(dim=-1)
+        out["char_rolloff"] = spectral_rolloff(y, sr, 2048, 512).mean(dim=-1)
+        out["char_harm_ratio"] = torch.where(eh + ep > 1e-9, eh / (eh + ep), torch.full_like(eh, 0.5))
+        out["char_onset_density"] = onsets.sum(dim=-1).to(torch.float32) / (n / sr)
 
     # halve the big device→host transfers (unit-scale posteriors and waveforms)
     for k in F16_OUTPUTS:

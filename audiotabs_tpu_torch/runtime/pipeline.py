@@ -8,9 +8,16 @@ step on the card and writes the JAX package's artifact set into
 ``beat_times.json``, ``chords.json``, ``threshold_calibration.json``,
 ``content_segments.json``, ``strum_onsets.json``, ``chosen_shapes.json``,
 ``tab_positions.json``, ``note_events.csv``, ``result.musicxml``,
-``transcription.mid``, ``score.ly``, ``score.pdf`` and ``profile.json``
-(per-stage wall seconds), and ``audio_mono_44k.wav`` and
-``audio_harmonic.wav`` into ``<job_dir>/work``.
+``transcription.mid``, ``score.ly``, ``score.pdf`` and ``profile.json``,
+and ``audio_mono_44k.wav`` and ``audio_harmonic.wav`` into
+``<job_dir>/work``.
+
+``profile.json`` holds each stage's host wall seconds, the duration of its
+span (the package's ``tracing.py``; the stages are the request span's stages, its
+other spans add nothing there). The card runs asynchronously, so a stage
+holds the device time the host waited for in it: ``separation`` is only the
+enqueue of separation's work, and ``analysis``, whose one transfer waits for
+the card, holds separation's device time as well as the fused analysis'.
 
 Steps 1–3 (``_analyse``, shared with ``run_analysis``): the host decodes and
 peak-normalises the WAV and wrap-pads it to the 30 s bucket; the padded mix
@@ -40,7 +47,6 @@ import dataclasses
 import json
 import logging
 import os
-import time
 from pathlib import Path
 
 import numpy as np
@@ -53,30 +59,12 @@ from ..io.wav import decode_for_analysis, peak_normalize, write_artifact_async, 
 from ..models.htdemucs import separate_stems_device
 from ..schemas import ChordSegment, JobResult
 from ..theory.events import NoteEvent
+from ..tracing import request, span, uploaded
 from .fused import fused_analysis
 
 _LOG = logging.getLogger(__name__)
 
 ANALYSIS_SR = 22050
-
-
-class StageTimer:
-    def __init__(self):
-        self.times: dict[str, float] = {}
-
-    def __call__(self, name: str):
-        timer = self
-
-        class _Ctx:
-            def __enter__(self):
-                self.t0 = time.perf_counter()
-                return self
-
-            def __exit__(self, *exc):
-                timer.times[name] = timer.times.get(name, 0.0) + time.perf_counter() - self.t0
-                return False
-
-        return _Ctx()
 
 
 def _pad_to_bucket(y: np.ndarray, sr: int, bucket_s: float) -> np.ndarray:
@@ -129,17 +117,17 @@ class _Analysis:
 
 
 def _analyse(
-    input_path: Path, dev: torch.device, s: Settings, timer: StageTimer, errors: list[str], *,
+    input_path: Path, dev: torch.device, s: Settings, stages: dict[str, float] | None, errors: list[str], *,
     strict: bool, artifact_path: Path | None = None,
 ) -> _Analysis:
     """Steps 1–3: decode, separation, the fused analysis and its one
-    transfer. A failed separation is recorded in ``errors`` and the mix
-    analysed; a failed analysis raises when ``strict``, else it is recorded
-    and ``feats`` is None."""
+    transfer, each stage's seconds added to ``stages``. A failed separation
+    is recorded in ``errors`` and the mix analysed; a failed analysis raises
+    when ``strict``, else it is recorded and ``feats`` is None."""
     # ---- 1. decode ----
     # one resample from the native rate straight to the analysis rate; the
     # mono-44.1k work artifact writes on a thread, overlapped with device work
-    with timer("decode"):
+    with span("decode", stages):
         y, sr, (x_native, sr_native) = decode_for_analysis(input_path, ANALYSIS_SR)
         writer = write_artifact_async(x_native, sr_native, artifact_path) if artifact_path is not None else None
         if y.size < sr // 10:
@@ -150,7 +138,6 @@ def _analyse(
         # sees (reference runs strum detection at the decode rate)
         y_native = peak_normalize(x_native)
     true_len = len(y)
-    y_pad = _pad_to_bucket(y, sr, s.PAD_SECONDS_BUCKET)
 
     backend = s.CHORD_DETECTION_BACKEND
     stem_source = "mix"
@@ -160,12 +147,14 @@ def _analyse(
     # parity trap: cuDNN convolutions and the LSTM default to TF32 on the
     # card; the reference is f32 (matmul TF32 stays off, PyTorch's default)
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        y_mix = torch.from_numpy(np.ascontiguousarray(y_pad, dtype=np.float32)).to(dev)  # uploaded once
+        with span("upload"):
+            y_pad = _pad_to_bucket(y, sr, s.PAD_SECONDS_BUCKET)
+            y_mix = uploaded(torch.from_numpy(np.ascontiguousarray(y_pad, dtype=np.float32)).to(dev), "song")  # uploaded once
         stem = y_mix
         # ---- 2. separation ----
         if s.ENABLE_DEMUCS:
             try:
-                with timer("separation"):
+                with span("separation", stages):
                     stems = separate_stems_device(y_mix, sr, model_name=s.DEMUCS_MODEL, shifts=s.DEMUCS_SHIFTS, bf16=s.DEMUCS_BF16)
                     if stems is None:
                         # no weights: fused_analysis' HPSS split stands in (harmonic analysed, percussive tracked)
@@ -181,19 +170,21 @@ def _analyse(
                 _LOG.warning("separation failed: %s", exc)
 
         # ---- 3. fused device analysis: one call + one transfer ----
-        with timer("analysis"):
+        with span("analysis", stages):
             try:
-                out = fused_analysis(
-                    stem,
-                    sr,
-                    switch_penalty=s.SWITCH_PENALTY,
-                    separate=hpss_fallback,
-                    chord_backend=backend if backend in ("deep", "template") else "both",
-                    true_len=true_len,
-                    y_beat=y_beat,
-                    y_mix=y_mix if y_beat is not None else None,
-                )
-                feats = features_to_host(out)
+                with span("analysis/fused"):
+                    out = fused_analysis(
+                        stem,
+                        sr,
+                        switch_penalty=s.SWITCH_PENALTY,
+                        separate=hpss_fallback,
+                        chord_backend=backend if backend in ("deep", "template") else "both",
+                        true_len=true_len,
+                        y_beat=y_beat,
+                        y_mix=y_mix if y_beat is not None else None,
+                    )
+                with span("analysis/transfer"):
+                    feats = features_to_host(out)
             except Exception as exc:
                 if strict:
                     raise
@@ -218,7 +209,7 @@ def run_analysis(input_path: str | os.PathLike, device: str | torch.device | Non
     dev = resolve_device(device)
     s = settings or Settings.from_env()
     errors: list[str] = []
-    a = _analyse(Path(input_path), dev, s, StageTimer(), errors, strict=True)
+    a = _analyse(Path(input_path), dev, s, None, errors, strict=True)
     feats = a.feats
     t100 = int(a.true_len / ANALYSIS_SR * 100)
     act = np.asarray(feats["beat_activation"], dtype=np.float32)[:t100]
@@ -238,27 +229,34 @@ def run_pipeline(
     dev = resolve_device(device)
     s = settings or Settings.from_env()
     job_dir = Path(job_dir)
+    with request(job_dir.name):
+        return _run_pipeline(job_dir, Path(input_path), dev, s)
+
+
+def _run_pipeline(job_dir: Path, input_path: Path, dev: torch.device, s: Settings) -> JobResult:
     work = job_dir / "work"
     out = job_dir / "out"
-    work.mkdir(parents=True, exist_ok=True)
-    out.mkdir(parents=True, exist_ok=True)
-    timer = StageTimer()
+    with span("job_dirs"):
+        work.mkdir(parents=True, exist_ok=True)
+        out.mkdir(parents=True, exist_ok=True)
+    stages: dict[str, float] = {}
     errors: list[str] = []
     sr = ANALYSIS_SR
 
-    a = _analyse(Path(input_path), dev, s, timer, errors, strict=False, artifact_path=work / "audio_mono_44k.wav")
+    a = _analyse(input_path, dev, s, stages, errors, strict=False, artifact_path=work / "audio_mono_44k.wav")
     feats, true_len = a.feats, a.true_len
     # the tail's device stages as _analyse's: inference mode, cuDNN without
     # TF32 (the reference is float32; matmul TF32 is off by default)
     with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         if feats is not None:
-            y_harm = np.asarray(feats["y_harm"], dtype=np.float32)[:true_len]
-            try:
-                write_wav(work / "audio_harmonic.wav", y_harm, sr)
-            except Exception:
-                pass
+            with span("work_wavs"):
+                y_harm = np.asarray(feats["y_harm"], dtype=np.float32)[:true_len]
+                try:
+                    write_wav(work / "audio_harmonic.wav", y_harm, sr)
+                except Exception:
+                    pass
         else:
-            with timer("harmonic"):
+            with span("harmonic", stages):
                 # the fused analysis failed: the harmonic part of the padded
                 # stem again, on the card (two median launches)
                 try:
@@ -271,7 +269,8 @@ def run_pipeline(
                     y_harm = a.stem[:true_len].cpu().numpy()
 
         if a.artifact_writer is not None:
-            a.artifact_writer.join(timeout=30)  # artifact durable before the tail
+            with span("work_wavs"):
+                a.artifact_writer.join(timeout=30)  # artifact durable before the tail
             if a.artifact_writer.is_alive():
                 errors.append("decode: audio_mono_44k.wav writer did not finish")
             elif getattr(a.artifact_writer, "error", None) is not None:
@@ -286,7 +285,7 @@ def run_pipeline(
             work=work,
             out=out,
             job_id=job_dir.name,
-            timer=timer,
+            stages=stages,
             errors=errors,
             stem_source=a.stem_source,
             beat_act_from_feats=a.beat_act_from_feats,
@@ -313,37 +312,41 @@ def run_pipeline_from_features(
     not cover) runs it on ``device``, the card unless the caller names the CPU."""
     s = settings or Settings.from_env()
     job_dir = Path(job_dir)
-    work = job_dir / "work"
-    out = job_dir / "out"
-    work.mkdir(parents=True, exist_ok=True)
-    out.mkdir(parents=True, exist_ok=True)
-    y_harm = np.asarray(feats["y_harm"], dtype=np.float32)[:true_len]
-    try:
-        write_wav(work / "audio_harmonic.wav", y_harm, sr)
-    except Exception:
-        pass
-    # the batch runner calls this from a thread pool: inference mode is per
-    # thread, cuDNN's flags are global, and no stage that reaches cuDNN (the
-    # failed-analysis fallbacks) runs from here
-    with torch.inference_mode():
-        result = _pipeline_tail(
-            feats=feats,
-            y_harm=y_harm,
-            true_len=true_len,
-            sr=sr,
-            work=work,
-            out=out,
-            job_id=job_id or job_dir.name,
-            timer=StageTimer(),
-            errors=[],
-            stem_source=stem_source or ("hpss_harmonic" if s.ENABLE_DEMUCS else "mix"),
-            beat_act_from_feats=True,
-            settings=s,
-            device=device,
-        )
-    from .storage import LocalStorage
+    job_id = job_id or job_dir.name
+    with request(job_id):
+        work = job_dir / "work"
+        out = job_dir / "out"
+        with span("job_dirs"):
+            work.mkdir(parents=True, exist_ok=True)
+            out.mkdir(parents=True, exist_ok=True)
+        with span("work_wavs"):
+            y_harm = np.asarray(feats["y_harm"], dtype=np.float32)[:true_len]
+            try:
+                write_wav(work / "audio_harmonic.wav", y_harm, sr)
+            except Exception:
+                pass
+        # the batch runner calls this from a thread pool: inference mode is per
+        # thread, cuDNN's flags are global, and no stage that reaches cuDNN (the
+        # failed-analysis fallbacks) runs from here
+        with torch.inference_mode():
+            result = _pipeline_tail(
+                feats=feats,
+                y_harm=y_harm,
+                true_len=true_len,
+                sr=sr,
+                work=work,
+                out=out,
+                job_id=job_id,
+                stages={},
+                errors=[],
+                stem_source=stem_source or ("hpss_harmonic" if s.ENABLE_DEMUCS else "mix"),
+                beat_act_from_feats=True,
+                settings=s,
+                device=device,
+            )
+        from .storage import LocalStorage
 
-    LocalStorage(job_dir.parent.parent).write_json(out / "result.json", result.to_dict())
+        LocalStorage(job_dir.parent.parent).write_json(out / "result.json", result.to_dict())
     return result
 
 
@@ -355,7 +358,7 @@ def _pipeline_tail(
     sr: int,
     out: Path,
     job_id: str,
-    timer: StageTimer,
+    stages: dict[str, float],
     errors: list[str],
     stem_source: str,
     beat_act_from_feats: bool,
@@ -379,7 +382,7 @@ def _pipeline_tail(
     beat_times = np.asarray([], dtype=np.float32)
     time_sig = "4/4"
     downbeats = np.asarray([], dtype=np.float32)
-    with timer("beats"):
+    with span("beats", stages):
         try:
             t100 = int(true_len / sr * 100)
             if beat_act_from_feats and feats is not None and "dbn_phases" in feats:
@@ -413,7 +416,7 @@ def _pipeline_tail(
     onset_thr, frame_thr = s.BASIC_PITCH_ONSET_THRESHOLD, s.BASIC_PITCH_FRAME_THRESHOLD
     if s.ENABLE_AUTO_THRESHOLD_CALIBRATION:
         try:
-            with timer("calibration"):
+            with span("calibration", stages):
                 from ..analysis.audio_quality import _to_db, analyze_audio_characteristics, calibrate_thresholds
 
                 if feats is not None:
@@ -441,7 +444,7 @@ def _pipeline_tail(
     # ---- 6. base transcription on harmonic stem (pipeline.py:1730-1739) ----
     base_events: list[NoteEvent] = []
     base_backend = "none"
-    with timer("transcription"):
+    with span("transcription", stages):
         try:
             from ..models.basicpitch import HOP as BP_HOP
             from ..models.basicpitch import load_params as load_bp
@@ -486,7 +489,7 @@ def _pipeline_tail(
 
     raw_beats = beat_times.copy()
     tempo_raw_bpm = tempo_from_beat_times(raw_beats)
-    with timer("beat_select"):
+    with span("beat_select", stages):
         try:
             beat_times = pick_best_beat_times(base_events, beat_times, time_signature=time_sig)
         except Exception as exc:
@@ -503,7 +506,7 @@ def _pipeline_tail(
     # ---- 8. chords (pipeline.py:1767-1774) ----
     chords: list[ChordSegment] = []
     chroma, chroma_times = None, None
-    with timer("chords"):
+    with span("chords", stages):
         try:
             from ..chords.extract import CHROMA_FPS
 
@@ -567,7 +570,7 @@ def _pipeline_tail(
     # ---- 9. key + respelling + 7th simplification (pipeline.py:1776-1816) ----
     key_sig = None
     use_flats = False
-    with timer("key"):
+    with span("key", stages):
         try:
             from ..theory.chord_simplify import simplify_chord_segments
             from ..theory.key import estimate_key_from_chroma, estimate_key_from_events, spell_chord_label
@@ -619,7 +622,7 @@ def _pipeline_tail(
 
     mode = s.TRANSCRIPTION_MODE
     mode_result = ModeResult(note_events=base_events, backend=base_backend)
-    with timer("mode"):
+    with span("mode", stages):
         try:
             if mode == "guitar":
                 pre_content = None
@@ -697,7 +700,7 @@ def _pipeline_tail(
     score = mode_result.score_override
     pickup_quarters = mode_result.pickup_quarters
     tab_positions = mode_result.tab_positions
-    with timer("quantize"):
+    with span("quantize", stages):
         if score is None:
             try:
                 from ..theory.quantize import quantize_note_events_to_score
@@ -729,7 +732,7 @@ def _pipeline_tail(
         beat_source_name = "mix"
     else:
         beat_source_name = "drums"
-    with timer("artifacts"):
+    with span("artifacts", stages):
         _write_json(
             out / "beat_times.json",
             {
@@ -805,52 +808,55 @@ def _pipeline_tail(
             errors.append(f"csv: {exc}")
 
     # ---- 13. exports (pipeline.py:1996-2030) ----
-    with timer("export"):
+    with span("export", stages):
         if score is not None:
+            with span("export/musicxml"):
+                try:
+                    from ..score.musicxml import export_musicxml
+                    from ..tab.fretboard import get_tuning
+
+                    export_musicxml(
+                        out / "result.musicxml",
+                        score,
+                        tempo_bpm=tempo_bpm,
+                        time_signature=time_sig,
+                        key_signature_fifths=key_sig.fifths if key_sig else None,
+                        title=job_id,
+                        instrument="guitar",
+                        chords=chords,
+                        beat_times=norm_beats,
+                        pickup_quarters=pickup_quarters,
+                        slash_notation=(mode == "accompaniment"),
+                        tab_positions=tab_positions,
+                        tab_tuning=get_tuning(s.GUITAR_TUNING),
+                        midi_path=out / "transcription.mid",
+                    )
+                except Exception as exc:
+                    errors.append(f"musicxml: {exc}")
+                    _LOG.warning("musicxml export failed: %s", exc)
+        with span("export/lilypond"):
             try:
-                from ..score.musicxml import export_musicxml
-                from ..tab.fretboard import get_tuning
+                from ..score.lilypond import build_lilypond_score, render_lilypond_pdf
 
-                export_musicxml(
-                    out / "result.musicxml",
-                    score,
-                    tempo_bpm=tempo_bpm,
-                    time_signature=time_sig,
-                    key_signature_fifths=key_sig.fifths if key_sig else None,
-                    title=job_id,
-                    instrument="guitar",
-                    chords=chords,
-                    beat_times=norm_beats,
-                    pickup_quarters=pickup_quarters,
-                    slash_notation=(mode == "accompaniment"),
-                    tab_positions=tab_positions,
-                    tab_tuning=get_tuning(s.GUITAR_TUNING),
-                    midi_path=out / "transcription.mid",
+                ly = build_lilypond_score(
+                    chords, tempo_bpm=tempo_bpm, beat_times=norm_beats, title=job_id, key_signature=key_sig
                 )
+                (out / "score.ly").write_text(ly)
+                if not render_lilypond_pdf(out / "score.ly", out / "score.pdf"):
+                    # no lilypond binary: the dependency-free engraver keeps the
+                    # artifact contract's score.pdf (reference golden jobs ship
+                    # one; engraving/lilypond.py:318-336)
+                    from ..score.pdfwriter import render_pdf_lead_sheet
+
+                    render_pdf_lead_sheet(
+                        out / "score.pdf", chords, tempo_bpm=tempo_bpm,
+                        beat_times=norm_beats, title=job_id, key_signature=key_sig,
+                    )
             except Exception as exc:
-                errors.append(f"musicxml: {exc}")
-                _LOG.warning("musicxml export failed: %s", exc)
-        try:
-            from ..score.lilypond import build_lilypond_score, render_lilypond_pdf
+                errors.append(f"lilypond: {exc}")
 
-            ly = build_lilypond_score(
-                chords, tempo_bpm=tempo_bpm, beat_times=norm_beats, title=job_id, key_signature=key_sig
-            )
-            (out / "score.ly").write_text(ly)
-            if not render_lilypond_pdf(out / "score.ly", out / "score.pdf"):
-                # no lilypond binary: the dependency-free engraver keeps the
-                # artifact contract's score.pdf (reference golden jobs ship
-                # one; engraving/lilypond.py:318-336)
-                from ..score.pdfwriter import render_pdf_lead_sheet
-
-                render_pdf_lead_sheet(
-                    out / "score.pdf", chords, tempo_bpm=tempo_bpm,
-                    beat_times=norm_beats, title=job_id, key_signature=key_sig,
-                )
-        except Exception as exc:
-            errors.append(f"lilypond: {exc}")
-
-    _write_json(out / "profile.json", {k: round(v, 4) for k, v in timer.times.items()})
+    with span("profile_json"):
+        _write_json(out / "profile.json", {k: round(v, 4) for k, v in stages.items()})
 
     return JobResult(
         job_id=job_id,

@@ -25,6 +25,7 @@ from typing import Iterable
 
 import numpy as np
 
+from ..tracing import traced
 from .fretboard import STANDARD_TUNING, pitch_to_fret_options
 from .open_chords import matches_open_chord
 
@@ -198,6 +199,7 @@ def _fingers(c: _Candidate) -> dict[int, int]:
     return out
 
 
+@traced("quantize/tab")
 def optimize_tab_positions_for_events(
     events: Iterable[tuple[float, list[int], str | None]],
     *,

@@ -836,7 +836,7 @@ def cli_phase(median, mods: dict, recorder: RecordDecoders, card: str) -> dict:
     cpu_job = JOBS / "tail_cpu" / job.name
     tail = pipeline._pipeline_tail(
         feats=feats.last, y_harm=np.asarray(feats.last["y_harm"], dtype=np.float32)[: len(y)], true_len=len(y), sr=sr,
-        out=cpu_job / "out", job_id=job.name, timer=pipeline.StageTimer(), errors=[], stem_source="guitar",
+        out=cpu_job / "out", job_id=job.name, stages={}, errors=[], stem_source="guitar",
         beat_act_from_feats=True, y_native=(peak_normalize(x_nat), sr_nat), settings=Settings(),
     )
     card_out, cpu_out = read_out(job), read_out(cpu_job)
@@ -1895,7 +1895,7 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
     shutil.rmtree(cpu_job, ignore_errors=True)
     tail = pipeline._pipeline_tail(
         feats=feats.last, y_harm=np.asarray(feats.last["y_harm"], dtype=np.float32)[: len(y)], true_len=len(y), sr=sr,
-        out=cpu_job / "out", job_id=job.name, timer=pipeline.StageTimer(), errors=[], stem_source="guitar",
+        out=cpu_job / "out", job_id=job.name, stages={}, errors=[], stem_source="guitar",
         beat_act_from_feats=True, y_native=(peak_normalize(x_nat), sr_nat), settings=settings, device="cpu",
     )
     card_out, cpu_out = read_out(job), read_out(cpu_job)

@@ -120,7 +120,7 @@ def _tails(features, tmp_path, jax_env, stem_source: str, chord_rtol: float = 0.
     """The JAX and the port's ``_pipeline_tail`` on the same features under ``settings`` → (ref, got)."""
     from audiotabs_tpu.runtime.pipeline import StageTimer as JaxTimer
     from audiotabs_tpu.runtime.pipeline import _pipeline_tail as jax_tail
-    from audiotabs_tpu_torch.runtime.pipeline import StageTimer, _pipeline_tail
+    from audiotabs_tpu_torch.runtime.pipeline import _pipeline_tail
 
     feats, y, native = features
     true_len = len(y)
@@ -129,7 +129,7 @@ def _tails(features, tmp_path, jax_env, stem_source: str, chord_rtol: float = 0.
                   beat_act_from_feats=True, y_native=native)
     jax_env(**settings)
     ref = jax_tail(**common, y=y, work=tmp_path / "jax_work", out=tmp_path / "jax", timer=JaxTimer(), errors=[], beat_source=None)
-    got = _pipeline_tail(**common, out=tmp_path / "port", timer=StageTimer(), errors=[], settings=Settings(**settings), device="cpu")
+    got = _pipeline_tail(**common, out=tmp_path / "port", stages={}, errors=[], settings=Settings(**settings), device="cpu")
     assert ref.transcription_error is None and ref.score is not None
     got_json, ref_json = json.loads(got.to_json()), json.loads(ref.model_dump_json())
     if chord_rtol:
