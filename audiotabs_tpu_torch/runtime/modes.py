@@ -20,7 +20,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..accompaniment.shapes import Shape, pick_shape_for_chord, shape_pitches, shape_positions
-from ..accompaniment.strum import detect_strum_onsets
+from ..accompaniment.strum import card_fluxes, detect_strum_onsets
 from ..analysis.content_classifier import ContentSegment, analyze_musical_content
 from ..schemas import ChordSegment, ScoreData, ScoreItem, ScoreMeasure
 from ..theory.events import NoteEvent
@@ -242,11 +242,15 @@ def run_accompaniment_mode(
     use_flats: bool = False,
     time_signature: str = "4/4",
     strum_envelope: np.ndarray | None = None,
+    device=None,
 ) -> ModeResult:
-    """Strum onsets + chord shapes → slash score (pipeline.py:1884-1909)."""
+    """Strum onsets + chord shapes → slash score (pipeline.py:1884-1909).
+    Without ``strum_envelope``, the whole song's envelope is computed on
+    ``device`` where it is a CUDA device (``accompaniment/strum.py``)."""
+    flux = card_fluxes(y, sr, [(0, len(y))], device)[0] if strum_envelope is None else None
     onsets = detect_strum_onsets(
         y, sr, beat_times=beat_times if beat_times is not None and len(beat_times) > 1 else None,
-        tempo_bpm=tempo_bpm, envelope=strum_envelope,
+        tempo_bpm=tempo_bpm, envelope=strum_envelope, flux=flux,
     )
     segments = assign_shapes(chords)
     events = build_strum_events(onsets, segments, use_flats=use_flats)
@@ -288,7 +292,8 @@ def run_guitar_mode(
     ``y_strum`` = (native_audio, native_sr) to detect strums from the
     full-band signal (the >11 kHz pick transients shape the median-mel
     envelope — accompaniment/strum.py); otherwise the 22.05 kHz
-    ``strum_envelope`` slices are used."""
+    ``strum_envelope`` slices are used. Segments without a slice have their
+    envelopes computed in one pass on ``device`` where it is a CUDA device."""
     content = analyze_musical_content(
         y, sr, window_sec=window_sec, hop_sec=hop_sec, precomputed=precomputed_content, device=device
     )
@@ -308,41 +313,50 @@ def run_guitar_mode(
     strum_events: list[StrumEvent] = []
     all_onsets: list[float] = []
 
-    for seg in content:
+    # the chordal and hybrid segments' samples [lo, hi) of the strum signal
+    y_src, sr_seg = y_strum if y_strum is not None else (y, sr)
+    strum_bounds: dict[int, tuple[int, int]] = {}
+    for i, seg in enumerate(content):
+        if seg.content_type in ("chordal", "hybrid"):
+            lo, hi, _ = slice(int(seg.start_time_s * sr_seg), int(seg.end_time_s * sr_seg)).indices(len(y_src))
+            if hi - lo > sr_seg * 0.2:
+                strum_bounds[i] = (lo, hi)
+    fluxes = {}
+    if y_strum is not None or strum_envelope is None:
+        fluxes = dict(zip(strum_bounds, card_fluxes(y_src, sr_seg, list(strum_bounds.values()), device)))
+
+    for i, seg in enumerate(content):
         a, b = seg.start_time_s, seg.end_time_s
         if seg.content_type in ("melodic", "hybrid"):
             note_events.extend(n for n in base_note_events if a <= n.start_time_s < b)
-        if seg.content_type in ("chordal", "hybrid"):
-            if y_strum is not None:
-                y_nat, sr_nat = y_strum
-                y_seg, sr_seg = y_nat[int(a * sr_nat) : int(b * sr_nat)], sr_nat
-            else:
-                y_seg, sr_seg = y[int(a * sr) : int(b * sr)], sr
-            if len(y_seg) > sr_seg * 0.2:
-                bt_seg = None
-                if beat_times is not None and len(beat_times) > 1:
-                    bt = np.asarray(beat_times)
-                    m = (bt >= a) & (bt < b)
-                    if np.count_nonzero(m) >= 2:
-                        bt_seg = bt[m] - a
-                try:
-                    env_seg = None
-                    if y_strum is None and strum_envelope is not None:
-                        env_seg = strum_envelope[int(a * sr) // 512 : int(b * sr) // 512 + 1]
-                    onsets = detect_strum_onsets(
-                        y_seg,
-                        sr_seg,
-                        beat_times=bt_seg,
-                        tempo_bpm=tempo_bpm,
-                        min_interval_s=0.12 if seg.content_type == "chordal" else 0.2,
-                        onset_delta=0.2 if seg.content_type == "chordal" else 0.25,
-                        envelope=env_seg,
-                    )
-                    onsets = onsets + a
-                    all_onsets.extend(float(t) for t in onsets)
-                    strum_events.extend(build_strum_events(onsets, segment_shapes, use_flats=use_flats))
-                except Exception as exc:
-                    _LOG.warning("strum detection failed for %.1f-%.1f: %s", a, b, exc)
+        if i in strum_bounds:
+            lo, hi = strum_bounds[i]
+            y_seg = y_src[lo:hi]
+            bt_seg = None
+            if beat_times is not None and len(beat_times) > 1:
+                bt = np.asarray(beat_times)
+                m = (bt >= a) & (bt < b)
+                if np.count_nonzero(m) >= 2:
+                    bt_seg = bt[m] - a
+            try:
+                env_seg = None
+                if y_strum is None and strum_envelope is not None:
+                    env_seg = strum_envelope[int(a * sr) // 512 : int(b * sr) // 512 + 1]
+                onsets = detect_strum_onsets(
+                    y_seg,
+                    sr_seg,
+                    beat_times=bt_seg,
+                    tempo_bpm=tempo_bpm,
+                    min_interval_s=0.12 if seg.content_type == "chordal" else 0.2,
+                    onset_delta=0.2 if seg.content_type == "chordal" else 0.25,
+                    envelope=env_seg,
+                    flux=fluxes.get(i),
+                )
+                onsets = onsets + a
+                all_onsets.extend(float(t) for t in onsets)
+                strum_events.extend(build_strum_events(onsets, segment_shapes, use_flats=use_flats))
+            except Exception as exc:
+                _LOG.warning("strum detection failed for %.1f-%.1f: %s", a, b, exc)
 
     # merge with dedup (pipeline.py:1420-1480)
     def ctype_at(t: float) -> str:

@@ -657,8 +657,8 @@ def _pipeline_tail(
                 if y_native is not None:
                     # full-band strum detection at the native rate (the
                     # reference detects on the decode-rate stem,
-                    # pipeline.py:1884-1893); the detector computes its own
-                    # host-side envelope
+                    # pipeline.py:1884-1893); its envelope is computed on
+                    # ``device`` where that is the card, else on the host
                     y_strum, sr_strum, strum_env = y_native[0], y_native[1], None
                 else:
                     # batch path: no native-rate copy is kept; reuse the
@@ -671,7 +671,7 @@ def _pipeline_tail(
                         ]
                 mode_result = run_accompaniment_mode(
                     y_strum, sr_strum, acc_chords, beat_times, tempo_bpm, use_flats=use_flats,
-                    strum_envelope=strum_env, time_signature=time_sig,
+                    strum_envelope=strum_env, time_signature=time_sig, device=device,
                 )
             else:  # notes
                 from ..theory.postprocess import postprocess_note_events

@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build, check, time, drive.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every step
+    python3 chip_smoke.py strum    # step 13b alone
 
 1. Prints the card's name and power limit, and turns TF32 off.
 2. Builds the seven kernels with nvcc into build/, one nvcc process per
@@ -33,7 +34,8 @@
    constant-switch Viterbi; no ``transcription_error``,
    ``stem_source`` guitar with the drums as beat source and no separation
    error, the whole artifact set in ``out/`` and ``work/``; one
-   device-to-host copy per song and each decoder kernel in the trace
+   device-to-host copy per song (two where its strum segments took the
+   device envelope pass) and each decoder kernel in the trace
    (profiler: the warm song's device ops and busy share); the
    CPU ``_pipeline_tail`` fed the card's own host features and native audio
    writes byte-equal artifacts. Prints the cold and warm wall and every
@@ -138,7 +140,7 @@
     which the pipeline passes over to analyse the mix, fails the phase),
     the CLI song's artifact set, a score with measures, every profile.json
     stage; one warm song traced (device ops, busy share, 1 device-to-host
-    copy) and its peak device memory; ``run_analysis`` with its stems kept,
+    copy, 2 with the strum envelope pass) and its peak device memory; ``run_analysis`` with its stems kept,
     the CPU ``fused_analysis`` on those stems against it (discrete outputs,
     beat_from_drums and beat times equal, floats within FLOAT_TOL, f16
     outputs within F16_TOL; one content window's onset density may be one
@@ -149,6 +151,21 @@
     beat times, chords, key and time signature. Then the median kernel held
     exactly on the song's launched inputs and at its new shapes ([1025,
     7752], [513, 7752], [120, 513, 130]), each timed beside its byte bound.
+13b. The strum detector (``strum_phase``; alone: ``python3 chip_smoke.py
+    strum``): the 16 clips of the ``clip30`` traffic (``benchmarks/core/
+    songs.py``) at ``STRUM_SEEDS`` seeds and one 180 s song of the
+    ``song180`` traffic through ``run_pipeline`` on the card under the
+    ``mix`` settings (no separation), on each card route of the detector:
+    guitar mode's chordal and hybrid segments of the 44.1 kHz audio, the
+    same calls of ``run_guitar_mode`` again without the native audio or an
+    envelope (on the mix resampled to 22.05 kHz), and accompaniment mode
+    (the whole song one segment). Every segment's device flux (``strum_flux_batch``) against
+    the host envelope of its audio: prints per route the largest gap in dB,
+    the smallest decision margin in dB against ``GUARD_DB``, the fallbacks,
+    the wall and peak device memory of the pass (a clip, and the 180 s
+    song's) and of the host envelopes. Every segment's onsets must equal the
+    host path's, and the largest gap must lie at least 100 times under
+    ``GUARD_DB``.
 14. Training (``train_phase``): htdemucs at the shipped width resumed from a
     copy of the checkpoint in build/ (10 steps of batch 4 through
     ``htdemucs_train.train``, 2 validation clips): every step's loss and
@@ -289,6 +306,7 @@ F16_TOL = dict(rtol=2**-9, atol=2**-13)
 STEM_TOL = 1e-3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores (NVIDIA data sheet)
 JOBS = REPO / "build" / "chip_smoke_jobs"  # git-ignored
+STRUM_SEEDS = tuple(range(2_147_483_600, 2_147_483_610))  # step 13b's seeds of the clip30 traffic
 BATCH_JOBS = REPO / "build" / "chip_smoke_batch"
 SERVE_DATA = REPO / "build" / "chip_smoke_serve"
 HELDOUT = sorted((REPO / "tests" / "data" / "heldout").glob("*.wav"))
@@ -771,6 +789,138 @@ class Capture:
         return False
 
 
+def strum_phase(card: str, seeds=None) -> dict:
+    """Step 13b: the strum detector's device flux against its host envelope,
+    segment by segment, on its three card routes: the clip30 traffic at
+    ``seeds`` and one 180 s song of the song180 traffic through
+    ``run_pipeline`` in guitar mode (each chordal and hybrid segment of the
+    native 44.1 kHz audio) and in accompaniment mode (the whole song one
+    segment), and each guitar-mode call again without the native audio or an
+    envelope, on the mix resampled to 22.05 kHz (the segments of the
+    analysis-rate signal). Also the pass's wall and its peak device memory
+    above what was allocated before it."""
+    sys.path.insert(0, str(REPO / "benchmarks"))
+    from core import songs
+    from scipy.signal import resample_poly
+
+    from audiotabs_tpu_torch import tracing
+    from audiotabs_tpu_torch.accompaniment import strum
+    from audiotabs_tpu_torch.config import Settings
+    from audiotabs_tpu_torch.runtime import modes, pipeline
+
+    clip30 = json.loads((REPO / "benchmarks" / "traffic" / "clip30.json").read_text())
+    song180 = json.loads((REPO / "benchmarks" / "traffic" / "song180.json").read_text())
+    song180 = {**song180, "songs": 1, "seconds": song180["seconds"][:1], "tempi_bpm": song180["tempi_bpm"][:1]}
+    guitar = dataclasses.replace(Settings(), ENABLE_DEMUCS=False)
+    accompaniment = dataclasses.replace(guitar, TRANSCRIPTION_MODE="accompaniment")
+    seeds = STRUM_SEEDS if seeds is None else seeds
+    routes = {r: dict(segments=0, gap=0.0, margin=np.inf, fallbacks=0, differ=0, host_s=[])
+              for r in ("guitar 44.1 kHz", "guitar 22.05 kHz", "accompaniment")}
+    passes = []  # (route, audio seconds, frame rows, wall s, peak bytes above the allocated)
+    batch = strum.strum_flux_batch
+
+    def measured(y, sr, bounds, device, **kw):
+        cuda = torch.device(device).type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = batch(y, sr, bounds, device, **kw)
+        peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+        passes.append([None, len(y) / sr, sum(1 + max(b - a, 2048) // 512 for a, b in bounds), time.perf_counter() - t0, peak])
+        return out
+
+    def held(route: str, name: str, run) -> list:
+        """``run()`` with the detector's calls kept; each call's flux held
+        against the host envelope of its audio, its margins and its onsets."""
+        r, before, n_pass = routes[route], tracing.counters().get("strum_fallbacks", 0), len(passes)
+        with Capture(modes, "detect_strum_onsets") as det:
+            run()
+        r["fallbacks"] += tracing.counters().get("strum_fallbacks", 0) - before
+        if not det.calls or len(passes) != n_pass + 1:
+            raise AssertionError(f"{route} {name}: {len(det.calls)} strum segments, {len(passes) - n_pass} device passes")
+        passes[-1][0] = route
+        t_host = 0.0
+        for args, kwargs, got in det.calls:
+            y, sr = args
+            flux = kwargs["flux"]
+            if flux is None:
+                raise AssertionError(f"{route} {name}: a strum segment had no device flux")
+            t0 = time.perf_counter()
+            host = strum._onset_strength_median_host(y, sr)
+            t_host += time.perf_counter() - t0
+            r["gap"] = max(r["gap"], float(np.abs(flux - host).max()))
+            n_env = len(y) // 512 + 1
+            top = float(np.abs(flux[:n_env]).max())
+            _, m = strum._strum_times(strum._normalize(flux[:n_env]), sr, 512, kwargs.get("onset_delta", 0.2),
+                                      kwargs.get("min_interval_s", 0.12), margins=True)
+            r["margin"] = min(r["margin"], m * top)
+            ref = strum.detect_strum_onsets(y, sr, **{**kwargs, "flux": None})
+            r["differ"] += ref.dtype != got.dtype or ref.tobytes() != got.tobytes()
+            r["segments"] += 1
+        r["host_s"].append(t_host)
+        return det.calls
+
+    def song(clip, name: str) -> None:
+        with Capture(modes, "run_guitar_mode") as mode:
+            held("guitar 44.1 kHz", name, lambda: pipeline.run_pipeline(root / "job", clip.path, device="cuda", settings=guitar))
+        shutil.rmtree(root / "job", ignore_errors=True)
+        (args, kwargs, _), = mode.calls
+        # the route's 22.05 kHz signal is the harmonic part, whose flux is 0 in these songs without attacks (every
+        # segment falls back); the mix resampled to it holds the clicks' attacks
+        (y_nat, sr_nat), sr = kwargs["y_strum"], args[1]
+        y = resample_poly(y_nat, sr, sr_nat).astype(np.float32)
+        held("guitar 22.05 kHz", name, lambda: modes.run_guitar_mode(y, *args[1:], **{**kwargs, "y_strum": None, "strum_envelope": None}))
+        held("accompaniment", name, lambda: pipeline.run_pipeline(root / "job", clip.path, device="cuda", settings=accompaniment))
+        shutil.rmtree(root / "job", ignore_errors=True)
+
+    root = Path(tempfile.mkdtemp(prefix="strum_", dir=REPO / "build"))
+    strum.strum_flux_batch = measured
+    try:
+        for seed in seeds:
+            clips = songs.make_songs(clip30, seed, root, device="cuda")
+            for clip in clips:
+                song(clip, f"seed {seed} {clip.path.name}")
+                clip.path.unlink()
+        n_clips = len(passes) // 3
+        (long,) = songs.make_songs(song180, seeds[0], root, device="cuda")
+        song(long, f"seed {seeds[0]} the 180 s song")
+    finally:
+        strum.strum_flux_batch = batch
+        shutil.rmtree(root, ignore_errors=True)
+    for route, r in routes.items():
+        clip_ms = [1e3 * p[3] for p in passes[: 3 * n_clips] if p[0] == route]
+        clip_peak = max(p[4] for p in passes[: 3 * n_clips] if p[0] == route)
+        (_, _, rows, wall, peak), = (p for p in passes[3 * n_clips :] if p[0] == route)
+        r.update(pass_ms=statistics.median(clip_ms), peak_bytes=clip_peak, long_rows=rows, long_ms=1e3 * wall, long_peak_bytes=peak)
+        print(f"strum {route}: {len(seeds)} seeds x {clip30['songs']} clips and a 180 s song, {r['segments']} segments; largest "
+              f"device-host gap {r['gap']:.3e} dB, smallest decision margin {r['margin']:.3e} dB, guard {strum.GUARD_DB:.1e} dB "
+              f"({strum.GUARD_DB / max(r['gap'], 1e-30):.0f}x the gap); {r['fallbacks']} fallbacks; onsets differ in {r['differ']}; "
+              f"device pass {r['pass_ms']:.2f} ms a clip (median), peak {r['peak_bytes'] / 2**20:.1f} MiB; host envelopes "
+              f"{1e3 * statistics.median(r['host_s'][:n_clips]):.2f} ms a clip; the 180 s song: {rows} frame rows, pass "
+              f"{r['long_ms']:.2f} ms, peak {peak / 2**20:.1f} MiB, host envelopes {1e3 * r['host_s'][-1]:.2f} ms [{card}]")
+    for route, r in routes.items():
+        if r["differ"]:
+            raise AssertionError(f"strum {route}: onsets differ from the host path's in {r['differ']} segments")
+        if r["gap"] * 100 > strum.GUARD_DB:
+            raise AssertionError(f"strum {route}: the largest gap {r['gap']:.3e} dB is not 100 times under the guard {strum.GUARD_DB} dB")
+    return {route: {k: v for k, v in r.items() if k != "host_s"} for route, r in routes.items()}
+
+
+def traced_copies(run, what: str) -> tuple[dict, int]:
+    """One song traced (``profile_busy_share``, taken again while its trace
+    holds fewer device-to-host copies than it should: see retrace), and the
+    copies it should hold: the fused analysis' one, and one more where the
+    song's strum segments took the device envelope pass."""
+    from audiotabs_tpu_torch.accompaniment import strum
+
+    with Capture(strum, "strum_flux_batch") as passes:
+        traced = retrace(lambda: profile_busy_share(run), lambda p: p["dtoh"] < 1 + bool(passes.calls),
+                         f"{what}'s trace lacks a device-to-host copy")
+    return traced, 1 + bool(passes.calls)
+
+
 def cli_phase(median, mods: dict, recorder: RecordDecoders, card: str) -> dict:
     """The main path: the port's CLI on the card under the shipped settings,
     cold and then twice warm, every kernel's launch count set to 0 just
@@ -824,11 +974,10 @@ def cli_phase(median, mods: dict, recorder: RecordDecoders, card: str) -> dict:
           f"key {res.key_signature.name}, {res.time_signature}, tempo {res.tempo_bpm:.2f}, {len(res.chords)} chords, "
           f"{len(res.score.measures)} measures, artifacts {sorted(OUT_ARTIFACTS)} + work {sorted(WORK_ARTIFACTS)} [{card}]")
 
-    # one device-to-host copy per song (a trace short of it is taken again: see retrace)
-    traced = retrace(lambda: profile_busy_share(lambda: cli.main([str(CLIP), "--job-dir", str(JOBS / "cli_profiled"), "--keep"])),
-                     lambda p: p["dtoh"] < 1, "the song's trace holds no device-to-host copy")
-    if traced["dtoh"] != 1:
-        raise AssertionError(f"{traced['dtoh']} device-to-host copies in one run_pipeline, expected 1")
+    # the song's device-to-host copies (a trace short of one is taken again: see retrace)
+    traced, dtoh = traced_copies(lambda: cli.main([str(CLIP), "--job-dir", str(JOBS / "cli_profiled"), "--keep"]), "the song")
+    if traced["dtoh"] != dtoh:
+        raise AssertionError(f"{traced['dtoh']} device-to-host copies in one run_pipeline, expected {dtoh}")
 
     # the host tail on the CPU, on the card's own host features and native audio
     job = JOBS / "cli2"
@@ -1244,8 +1393,8 @@ def long_phase(median, mods: dict, recorder: RecordMedians, card: str) -> dict:
       a CLI song's decoder launches, the guitar stem and the drums as beat
       source, no stage error, the 30 s CLI song's artifact set, a
       result.json whose score has measures, every stage in profile.json;
-    - one warm song traced (device ops, busy share, 1 device-to-host copy)
-      and its peak device memory;
+    - one warm song traced (device ops, busy share, 1 device-to-host copy,
+      2 with the strum envelope pass) and its peak device memory;
     - ``run_analysis`` with its stems kept: the CPU ``fused_analysis`` on
       those stems against the card's outputs (``compare_long_with_cpu``),
       beat times equal; the card's stems against the CPU separation of the
@@ -1311,10 +1460,9 @@ def long_phase(median, mods: dict, recorder: RecordMedians, card: str) -> dict:
           f"{json.dumps(stages)} [{card}]")
 
     # one warm song traced, and its peak device memory
-    traced = retrace(lambda: profile_busy_share(lambda: cli.main([str(wav), "--job-dir", str(LONG_JOBS / "profiled"), "--keep"])),
-                     lambda p: p["dtoh"] < 1, "the long song's trace holds no device-to-host copy")
-    if traced["dtoh"] != 1:
-        raise AssertionError(f"{traced['dtoh']} device-to-host copies in the {LONG_SONG_S} s song, expected 1")
+    traced, dtoh = traced_copies(lambda: cli.main([str(wav), "--job-dir", str(LONG_JOBS / "profiled"), "--keep"]), "the long song")
+    if traced["dtoh"] != dtoh:
+        raise AssertionError(f"{traced['dtoh']} device-to-host copies in the {LONG_SONG_S} s song, expected {dtoh}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -2688,6 +2836,11 @@ def main() -> int:
     for name in DECODERS:
         decoder_api(mods, name)[3]()
     print(f"build: median_filter.cu, {', '.join(f'{n}.cu' for n in DECODERS)} in {time.perf_counter() - t0:.2f} s (in parallel)")
+    if sys.argv[1:] == ["strum"]:
+        t0 = time.perf_counter()
+        strum_phase(card)
+        print(f"phase strum: {time.perf_counter() - t0:.2f} s")
+        return 0
 
     t_run = time.perf_counter()
 
@@ -2791,6 +2944,7 @@ def main() -> int:
             cases = {name: run_phase(name, lambda name=name: settings_phase(median, card, name, recorder)) for name in SETTINGS_CASES}
             degraded = run_phase("degraded", lambda: degraded_phase(median, card, recorder))
         new_shapes = run_phase("new shapes", lambda: new_shape_kernel_check(median, recorder))
+        run_phase("strum", lambda: strum_phase(card))
         long_recorder = RecordMedians(keep=2)
         long_song = run_phase("long", lambda: long_phase(median, mods, long_recorder, card))
         long_shapes = run_phase("long shapes", lambda: new_shape_kernel_check(median, long_recorder))
