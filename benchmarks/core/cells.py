@@ -3,7 +3,13 @@ checkout names the workload, its configuration and its traffic mix; the
 configuration is the file that its entry names, the mix is
 ``benchmarks/traffic/<traffic>.json`` and each per-layer metric is read by
 ``benchmarks/metrics/<name>.py``. Adding a configuration, a mix or a metric
-adds files and entries and edits none."""
+adds files and entries and edits none. A configuration whose nets are not
+the checked-in checkpoints names them under ``weights`` (a seed and the
+widths, made in set-up), and one whose plain reference differs from the
+shared ``benchmarks/reference/`` names files of its own under
+``reference_modules``, each standing in for one module of it; both are
+set up by ``core/configured.py``, so such a configuration too adds only
+files and entries."""
 
 from __future__ import annotations
 

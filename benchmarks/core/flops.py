@@ -25,7 +25,9 @@ def samples(seconds: float, sr: int = ANALYSIS_SR) -> int:
 
 
 def htdemucs_window(h: dict, length: int) -> int:
-    """One window of ``length`` samples (a multiple of 1024) at 44.1 kHz through htdemucs."""
+    """One window of ``length`` samples (a multiple of 1024) at 44.1 kHz through htdemucs.
+    ``cross_layers``: the indices of the transformer's cross-attention
+    layers, the others self-attending; without it the even layers cross-attend."""
     chans, hidden, ch = h["channels"], h["dconv_hidden"], h["audio_channels"]
     S, D, ff, layers = h["sources"], h["bottom_channels"], h["transformer_ff"], h["transformer_layers"]
     T, F = -(-length // 1024), 2048
@@ -38,9 +40,10 @@ def htdemucs_window(h: dict, length: int) -> int:
         c_in = t_in = c
     ns, nt, c = fq * T, lt, chans[-1]
     total += 2 * 2 * (ns + nt) * c * D  # up and down projections of both branches
+    cross = set(h.get("cross_layers", range(0, layers, 2)))
     for i in range(layers):
         for nq, nk in ((ns, nt), (nt, ns)):
-            nk = nk if i % 2 == 0 else nq  # even layers cross-attend, odd ones self-attend
+            nk = nk if i in cross else nq
             total += 2 * 2 * nq * D * D + 2 * 2 * nk * D * D + 2 * 2 * nq * nk * D + 2 * 2 * nq * D * ff
     outs = chans[:-1][::-1] + [S * 2 * ch]
     touts = chans[:-1][::-1] + [S * ch]

@@ -3,6 +3,7 @@ the check, and the result line's object."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import shutil
@@ -18,6 +19,7 @@ import torch
 
 from . import check, flops, songs
 from .cells import Cell, reader
+from .configured import configured
 from .drive import Hooks, Loop
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "audiotabs_tpu")
@@ -79,7 +81,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t0
     overrides = cell.config.get("settings", {})
     settings = Settings(**overrides)
     tmp = Path(tempfile.mkdtemp(prefix="audiotabs-bench-"))
+    config_set_up = contextlib.ExitStack()
     try:
+        made = config_set_up.enter_context(configured(cell.config, cell.root, tmp, dev))
         (tmp / "songs").mkdir()
         t_songs = time.perf_counter()
         song_list = songs.make_songs(cell.traffic, seed, tmp / "songs", dev)
@@ -149,6 +153,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t0
         within = {k: v <= limits[k] for k, v in numbers.items()}
         correct = bool(prog) and failed == 0 and all(within.values()) and set(numbers) == set(cell.config["limits"])
     finally:
+        config_set_up.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
     # a number that is not finite (a missing output, a NaN) prints as null; the run is not correct
@@ -163,7 +168,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t0
     info = card() if dev.type == "cuda" else {"kind": "cpu", "power_limit": "none"}
     err = [f"run: set-up {setup_s:.3f} s (songs {t_songs:.3f} s, warm-up {t_warm:.3f} s), window {window_s:.3f} s, trace read {t_trace:.3f} s, check {t_check:.3f} s",
            f"run: {len(done)} songs, {audio:.1f} s of audio in {window_s:.3f} s; bytes written {bytes_written()}; "
-           f"card {info['kind']}, power limit {info['power_limit']}"]
+           f"card {info['kind']}, power limit {info['power_limit']}", *made]
     errors = sorted({d.error for d in done if d.error is not None})
     err += [f"failed: {e}" for e in errors[:5]]
     err.append(f"check: the reference's tail ran on its own features for {tally[0]} of {tally[1]} songs "

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import shutil
 import statistics
@@ -125,6 +126,7 @@ def main(argv=None) -> int:
 
     from core import program, songs
     from core.cells import load_cell
+    from core.configured import configured
     from core.drive import Hooks, Loop
     from core.runner import card
     from core.trace import Trace, breakdown, busy_s, profiler
@@ -138,7 +140,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tmp = Path(tempfile.mkdtemp(prefix="audiotabs-trace-"))
+    config_set_up = contextlib.ExitStack()
     try:
+        config_set_up.enter_context(configured(cell.config, cell.root, tmp, torch.device("cuda")))
         (tmp / "songs").mkdir()
         song_list = songs.make_songs(cell.traffic, args.seed, tmp / "songs", torch.device("cuda"))
         hooks = Hooks(True)
@@ -158,6 +162,7 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(str(path))
         device, spans, bench, window, htod_bytes, skew = read_chrome(path)
     finally:
+        config_set_up.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
     # what the tracer kept in the window alone

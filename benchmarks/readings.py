@@ -31,9 +31,10 @@ sys.path[:0] = [str(HERE), str(HERE.parent)]
 
 def control(cell, seed: int, dev, overrides: dict, tf32: bool) -> dict:
     from core import check, songs
+    from core.configured import configured
     from core.runner import sample
 
-    with tempfile.TemporaryDirectory(prefix="audiotabs-control-") as d:
+    with tempfile.TemporaryDirectory(prefix="audiotabs-control-") as d, configured(cell.config, cell.root, Path(d), dev):
         tmp = Path(d)
         (tmp / "songs").mkdir()
         song_list = songs.make_songs(cell.traffic, seed, tmp / "songs", dev)

@@ -352,11 +352,11 @@ class HTDemucs(nn.Module):
         pe2, pe1 = _embeddings(tok_s.shape[-1], Fq, Ts, tok_t.shape[1], x.device)
         tok_s = self.norm_in(tok_s) + pe2.to(tok_s.dtype)
         tok_t = self.norm_in_t(tok_t) + pe1.to(tok_t.dtype)
-        for i, (ls, lt) in enumerate(zip(self.tlayers, self.tlayers_t)):
-            if i % 2 == 1:
-                tok_s, tok_t = ls(tok_s), lt(tok_t)
-            else:  # both cross layers read the other branch's tokens from before this layer
+        for ls, lt in zip(self.tlayers, self.tlayers_t):
+            if ls.cross:  # both cross layers read the other branch's tokens from before this layer
                 tok_s, tok_t = ls(tok_s, tok_t), lt(tok_t, tok_s)
+            else:
+                tok_s, tok_t = ls(tok_s), lt(tok_t)
         x = self.down_s(tok_s).reshape(B, Ts, Fq, C).permute(0, 3, 2, 1)
         xt = self.down_t(tok_t).transpose(1, 2)
 
@@ -400,12 +400,16 @@ def init_params(generator: torch.Generator, n_sources: int = 4, audio_channels: 
     ``init_params``: the same shapes, He scaling (``sqrt(2 / fan_in)``, the
     transposed convs with fan-in ``ci * KERNEL``), zero biases, unit norms,
     LayerScale at 1e-3 (dconv) and 1e-4 (transformer) and the sinusoidal
-    frequency embedding; the draws come from ``generator``."""
+    frequency embedding. Every He weight comes from one draw of
+    ``generator`` on its own device (the card's generator draws on the
+    card), scaled there and copied to the host once."""
     t_ff = t_ff or 4 * bottom
+    draws: list[tuple[tuple[int, ...], float]] = []  # (shape, std) of each He weight, in the order drawn
 
     def he(shape, fan_in=None):
         fan_in = fan_in or int(np.prod(shape[1:]))
-        return (torch.randn(shape, generator=generator) * math.sqrt(2.0 / fan_in)).numpy()
+        draws.append((tuple(shape), math.sqrt(2.0 / fan_in)))
+        return len(draws) - 1  # a placeholder for the draw, filled in below
 
     def zeros(n):
         return np.zeros((n,), np.float32)
@@ -463,7 +467,21 @@ def init_params(generator: torch.Generator, n_sources: int = 4, audio_channels: 
 
     p["tlayers"] = [tlayer_init(cross=i % 2 == 0) for i in range(t_layers)]
     p["tlayers_t"] = [tlayer_init(cross=i % 2 == 0) for i in range(t_layers)]
-    return p
+
+    sizes = [math.prod(shape) for shape, _ in draws]
+    z = torch.randn(sum(sizes), generator=generator, device=generator.device)
+    z *= torch.tensor([std for _, std in draws], device=z.device).repeat_interleave(torch.tensor(sizes, device=z.device))
+    flat = np.split(z.cpu().numpy(), np.cumsum(sizes)[:-1])
+    weights = [w.reshape(shape) for w, (shape, _) in zip(flat, draws)]
+
+    def fill(node):
+        if isinstance(node, dict):
+            return {k: fill(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [fill(v) for v in node]
+        return weights[node] if isinstance(node, int) else node
+
+    return fill(p)
 
 
 def params_of(net: HTDemucs, template: dict) -> dict:

@@ -7,6 +7,7 @@ refusal without a card and the import rules.
 
 import ast
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -36,10 +37,10 @@ def few_threads():
     torch.set_num_threads(n)
 
 
-def tiny_cell(workload: str, loop: str = "single", n: int = 2, **settings) -> cells.Cell:
+def tiny_cell(workload: str, loop: str = "single", n: int = 2, root: Path = ROOT, **settings) -> cells.Cell:
     """A cell of the benchmark at a size a CPU test holds: ``n`` songs of 3.5 to 4.5 s in a 6 s bucket.
     ``settings`` override the configuration's; with separation on, its stems are compared too."""
-    cell = cells.load_cell(workload)
+    cell = cells.load_cell(workload, root)
     cell.config["settings"] = dict(cell.config.get("settings", {}), PAD_SECONDS_BUCKET=6.0, BATCH_SONGS_PER_DEVICE=2,
                                    **settings)
     cell.traffic = {"loop": loop, "songs": n, "seconds": [3.5 + 0.5 * (i % 3) for i in range(n)],
@@ -82,10 +83,15 @@ def test_a_song_is_a_stereo_wav_of_its_length(tmp_path):
     assert 0.85 < np.abs(x).max() <= 0.91
 
 
-def test_configs_traffic_and_metrics_are_found_by_name(tmp_path):
+def checkout(tmp_path: Path) -> tuple[Path, dict]:
+    """A checkout of the benchmark's files (the shared reference is imported from this one) and its BENCHMARK.json."""
     root = tmp_path / "checkout"
     shutil.copytree(BENCH, root / "benchmarks", ignore=shutil.ignore_patterns("__pycache__", "reference"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    return root, json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def test_configs_traffic_and_metrics_are_found_by_name(tmp_path):
+    root, bench = checkout(tmp_path)
     conf = json.loads((BENCH / "configs" / "mix.json").read_text()) | {"name": "mix_small"}
     (root / "benchmarks" / "configs" / "mix_small.json").write_text(json.dumps(conf))
     (root / "benchmarks" / "traffic" / "clip10.json").write_text(json.dumps(tiny_cell("mix-clip30").traffic))
@@ -101,6 +107,74 @@ def test_configs_traffic_and_metrics_are_found_by_name(tmp_path):
     assert "window_s" in [m["name"] for m in cell.per_layer]
     assert cells.reader("window_s", root)(type("Run", (), {"window_s": 3.5})()) == 3.5
     assert "song_p90_s" not in [m["name"] for m in cell.end_to_end]
+
+
+TINY_HTDEMUCS = {"seed": 5, "widths": {"n_sources": 6, "audio_channels": 2, "channels": 8, "bottom": 32, "t_layers": 2}}
+
+# a module standing in for reference.models.htdemucs: the shared one, noting which of its functions ran, and the
+# bottom width of the net that separate_program was given
+MARKED_HTDEMUCS = """
+import pathlib as _pathlib
+
+
+def _marked(fn):
+    def wrapped(*args, **kwargs):
+        with open(_pathlib.Path(__file__).with_suffix(".ran"), "a") as f:
+            f.write(f"{fn.__name__}:{getattr(getattr(args[0], 'up_s', None), 'out_features', '')}\\n")
+        return fn(*args, **kwargs)
+    return wrapped
+
+
+init_params = _marked(init_params)
+separate_program = _marked(separate_program)
+"""
+
+
+def test_a_configuration_with_its_own_weights_and_reference_module_runs(tmp_path, monkeypatch):
+    root, bench = checkout(tmp_path)
+    own = root / "benchmarks" / "references" / "htdemucs_marked.py"
+    own.parent.mkdir()
+    own.write_text((BENCH / "reference" / "models" / "htdemucs.py").read_text() + MARKED_HTDEMUCS)
+    conf = {k: v for k, v in json.loads((BENCH / "configs" / "mix.json").read_text()).items() if k not in ("settings", "nets")}
+    conf |= {"name": "separated", "settings": {}, "weights": {"htdemucs": TINY_HTDEMUCS},
+             "reference_modules": {"models.htdemucs": "references/htdemucs_marked.py"}}
+    (root / "benchmarks" / "configs" / "separated.json").write_text(json.dumps(conf))
+    bench["configs"].append({"name": "separated", "source": "https://example.org", "file": "benchmarks/configs/separated.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "separated-clip30", "config": "separated", "traffic": "clip30", "chips": 1, "why": "a test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    monkeypatch.delenv("HTDEMUCS_WEIGHTS", raising=False)
+    imported = sys.modules.get("reference.models.htdemucs")
+
+    line, err = run_cell(tiny_cell("separated-clip30", root=root), BIG_SEED, 0.1, False, "cpu", 0.0)
+    assert line["correct"] is True, line["compared"]
+    assert line["compared"]["stem_err"]["value"] == 0
+    ran = own.with_suffix(".ran").read_text().split()
+    assert ran[0] == "init_params:" and "separate_program:32" in ran  # the weight maker's, then the check's, seeded
+    made = [e for e in err if e.startswith("run: weights htdemucs from seed 5: ")]
+    assert len(made) == 1 and int(made[0].split(": ")[2].split()[0]) > 0
+    assert "HTDEMUCS_WEIGHTS" not in os.environ
+    assert sys.modules.get("reference.models.htdemucs") is imported  # the shared reference is back
+
+
+def test_a_seed_makes_the_same_weights(tmp_path, monkeypatch):
+    from core.configured import seeded_weights
+    from reference.models.params_io import load_pytree_npz
+
+    monkeypatch.setenv("HTDEMUCS_WEIGHTS", "off")
+    made = {}
+    for d, seed in (("a", 5), ("b", 5), ("c", 6)):
+        (tmp_path / d).mkdir()
+        with seeded_weights({"htdemucs": TINY_HTDEMUCS | {"seed": seed}}, tmp_path / d, torch.device("cpu")):
+            data = np.load(os.environ["HTDEMUCS_WEIGHTS"])
+            made[d] = {k: data[k].tobytes() for k in data.files}
+        assert os.environ["HTDEMUCS_WEIGHTS"] == "off"
+    assert made["a"] == made["b"] and made["a"].keys() == made["c"].keys()
+    assert made["a"]["tlayers/#0/q_w"] != made["c"]["tlayers/#0/q_w"]
+    p = load_pytree_npz(tmp_path / "a" / "weights" / "htdemucs.npz")
+    assert [np.asarray(e["conv_w"]).shape[0] for e in p["encoder"]] == [8, 16, 32, 64]
+    assert np.asarray(p["up_s_w"]).shape == (32, 64) and len(p["tlayers"]) == 2
+    assert np.asarray(p["tdecoder"][-1]["convtr_w"]).shape[1] == 6 * 2
 
 
 def test_every_metric_of_every_cell_has_a_reader():
@@ -151,12 +225,38 @@ CHECKED_IN_HTDEMUCS = {"channels": [24, 48, 96, 192], "dconv_hidden": [[4, 4], [
                        "transformer_layers": 3, "segment": 131072, "stride": 98304, "shifts": 1}
 
 
-def test_htdemucs_flops_match_the_counter():
+# a small seeded htdemucs in the published layer order (arXiv:2211.08553; demucs' CrossTransformerEncoder with
+# cross_first=False: self-attention at the even layers, cross-attention at the odd ones)
+SMALL_PUBLISHED_ORDER = {"channels": [8, 16, 32, 64], "dconv_hidden": [[4, 4], [4, 4], [4, 4], [8, 8]], "audio_channels": 2,
+                         "sources": 6, "bottom_channels": 32, "transformer_ff": 128, "transformer_layers": 5,
+                         "cross_layers": [1, 3]}
+
+
+def htdemucs_net(order: str):
+    """The reference's htdemucs and the widths core/flops.py takes for it: the
+    checked-in checkpoint in its order (even layers cross-attend), or a small
+    seeded net whose TransformerLayers are set to the published order."""
     from reference.models import htdemucs
 
-    net = htdemucs.HTDemucs.from_params(htdemucs.load_params())
+    if order == "checked_in":
+        return htdemucs.HTDemucs.from_params(htdemucs.load_params()), CHECKED_IN_HTDEMUCS
+    h = SMALL_PUBLISHED_ORDER
+    net = htdemucs.HTDemucs.from_params(htdemucs.init_params(
+        torch.Generator().manual_seed(3), n_sources=h["sources"], channels=h["channels"][0], bottom=h["bottom_channels"],
+        t_layers=h["transformer_layers"]))
+    for layers in (net.tlayers, net.tlayers_t):
+        for i in range(len(layers)):
+            layers[i] = htdemucs.TransformerLayer(h["bottom_channels"], h["transformer_ff"], cross=i in h["cross_layers"])
+    return net, h
+
+
+@pytest.mark.parametrize("order", ["checked_in", "published"])
+def test_htdemucs_flops_match_the_counter(order):
+    net, widths = htdemucs_net(order)
+    assert [layer.cross for layer in net.tlayers] == [i in widths.get("cross_layers", (0, 2, 4)) for i in
+                                                      range(widths["transformer_layers"])]
     for length in (8192, 16384):
-        assert counted(lambda: net(torch.randn(1, 2, length))) == flops.htdemucs_window(CHECKED_IN_HTDEMUCS, length)
+        assert counted(lambda: net(torch.randn(1, 2, length))) == flops.htdemucs_window(widths, length)
 
 
 def test_a_song_counts_at_its_true_length():
@@ -287,16 +387,26 @@ def test_the_harness_and_reference_import_no_jax():
     assert not FORBIDDEN & set(json.loads(out.strip().replace("'", '"')))
 
 
+def own_reference_modules() -> dict[str, str]:
+    """Every module that a configuration's ``reference_modules`` names, with its file."""
+    return {m: f for c in (BENCH / "configs").glob("*.json") for m, f in json.loads(c.read_text()).get("reference_modules", {}).items()}
+
+
 def test_the_reference_imports_nothing_of_the_program():
     code = (
         "import sys\n"
         f"sys.path[:0] = [{str(BENCH)!r}]\n"
         "import reference.runtime.pipeline, reference.runtime.batch_runner, reference.models.htdemucs\n"
+        "from core.configured import reference_modules\n"
+        "from pathlib import Path\n"
+        f"for module, file in {own_reference_modules()!r}.items():\n"
+        f"    with reference_modules({{module: file}}, Path({str(ROOT)!r})):\n"
+        "        import reference.runtime.pipeline, reference.runtime.batch_runner\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True).stdout
     assert not (FORBIDDEN | {"audiotabs_tpu_torch"}) & set(json.loads(out.strip().replace("'", '"')))
-    for path in (BENCH / "reference").rglob("*.py"):
+    for path in [*(BENCH / "reference").rglob("*.py"), *(BENCH / f for f in own_reference_modules().values())]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
                 [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
