@@ -6,17 +6,28 @@ channels, a 192-wide bottom and 3 transformer layers, not the published
 48/512/5): a spectral branch (STFT 4096/1024 as complex-as-channels, four
 frequency-strided conv encoders, each with a dilated residual DConv along
 time), a time branch (four stride-4 conv1d encoders), a cross-domain
-transformer (even layers cross-attend between the branches, odd layers
-self-attend; pre-norm, LayerScale, GroupNorm over all of a layer's tokens),
+transformer (layers that self-attend and layers that cross-attend between
+the branches; pre-norm, LayerScale, GroupNorm over all of a layer's tokens),
 and mirrored transposed-conv decoders whose outputs are denormalised, the
 spectral one through the iSTFT, and summed. ``forward`` takes a batch of
 windows [B, 2, L], the JAX ``vmap`` written out.
+
+Each transformer layer's kind is read from its parameters: a layer whose
+pytree has ``norm3_g`` cross-attends (a released state dict: ``cross_attn``
+against ``self_attn``). Published demucs (``t_cross_first=False``)
+self-attends at layers 0, 2 and 4 and cross-attends at 1 and 3; the JAX
+package, the checked-in checkpoint and ``init_params`` cross-attend at the
+even layers.
 
 ``separate_program`` is the JAX ``_separate_program``: 2x upsampling to the
 model rate as frame @ banded matrix, pseudo-stereo, deterministic shift
 offsets, fixed windows run through the net in chunks of ``_FWD_CHUNK``, one
 triangular-weighted overlap-add, the mono mean and 2x decimation. Its stems
-stay on the input's device.
+stay on the input's device. Its spans (``tracing.py``): ``separation/windows``
+(the window batch), ``separation/net`` (each chunk's forward),
+``separation/transformer`` (the transformer inside each forward) and
+``separation/overlap_add``; its counters: ``separation_windows`` and
+``separation_chunks`` (forward calls), on the host path too.
 
 Normalisation statistics (GroupNorm, LayerNorm) and the attention softmax are
 computed in float32 and GELU is exact. ``bf16=True`` (``DEMUCS_BF16``) runs
@@ -37,7 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.spectral import _pad_last, istft, stft
-from ..tracing import uploaded
+from ..tracing import count, span, uploaded
 from . import convert
 from .params_io import load_pytree_npz, save_pytree_npz, weights_path
 
@@ -296,7 +307,9 @@ def _ispec(z: torch.Tensor, length: int) -> torch.Tensor:
 
 class HTDemucs(nn.Module):
     def __init__(self, chans: list[int], hidden: list[tuple[int, int]], n_sources: int, audio_channels: int,
-                 bottom: int, t_ff: int, t_layers: int, freq_emb_rows: int):
+                 bottom: int, t_ff: int, t_layers: int, freq_emb_rows: int, cross_layers: list[int]):
+        """``cross_layers``: the indices of the transformer layers that
+        cross-attend (in both branches); the others self-attend."""
         super().__init__()
         self.n_sources, self.audio_channels = n_sources, audio_channels
         spec_in = 2 * audio_channels
@@ -312,12 +325,13 @@ class HTDemucs(nn.Module):
         self.up_s, self.up_t = nn.Linear(dim, bottom), nn.Linear(dim, bottom)
         self.down_s, self.down_t = nn.Linear(bottom, dim), nn.Linear(bottom, dim)
         self.norm_in, self.norm_in_t = LayerNorm32(bottom), LayerNorm32(bottom)
-        self.tlayers = nn.ModuleList(TransformerLayer(bottom, t_ff, cross=i % 2 == 0) for i in range(t_layers))
-        self.tlayers_t = nn.ModuleList(TransformerLayer(bottom, t_ff, cross=i % 2 == 0) for i in range(t_layers))
+        self.tlayers = nn.ModuleList(TransformerLayer(bottom, t_ff, cross=i in cross_layers) for i in range(t_layers))
+        self.tlayers_t = nn.ModuleList(TransformerLayer(bottom, t_ff, cross=i in cross_layers) for i in range(t_layers))
 
     @classmethod
     def from_params(cls, params: dict) -> "HTDemucs":
-        """Build from a JAX-layout pytree; every width is read off its arrays."""
+        """Build from a JAX-layout pytree; every width, and each transformer
+        layer's kind (``norm3_g`` present: cross-attention), is read off it."""
         enc, tenc = params["encoder"], params["tencoder"]
 
         def hid(layer: dict) -> int:
@@ -333,6 +347,7 @@ class HTDemucs(nn.Module):
             t_ff=np.asarray(params["tlayers"][0]["lin1_w"]).shape[1],
             t_layers=len(params["tlayers"]),
             freq_emb_rows=np.asarray(params["freq_emb"]).shape[0],
+            cross_layers=[i for i, layer in enumerate(params["tlayers"]) if "norm3_g" in layer],
         )
         net.load_state_dict(convert.htdemucs_state(params))
         return net.requires_grad_(False).eval()
@@ -354,11 +369,12 @@ class HTDemucs(nn.Module):
         pe2, pe1 = _embeddings(tok_s.shape[-1], Fq, Ts, tok_t.shape[1], x.device)
         tok_s = self.norm_in(tok_s) + pe2.to(tok_s.dtype)
         tok_t = self.norm_in_t(tok_t) + pe1.to(tok_t.dtype)
-        for i, (ls, lt) in enumerate(zip(self.tlayers, self.tlayers_t)):
-            if i % 2 == 1:
-                tok_s, tok_t = ls(tok_s), lt(tok_t)
-            else:  # both cross layers read the other branch's tokens from before this layer
-                tok_s, tok_t = ls(tok_s, tok_t), lt(tok_t, tok_s)
+        with span("separation/transformer"):
+            for ls, lt in zip(self.tlayers, self.tlayers_t):
+                if ls.cross:  # both cross layers read the other branch's tokens from before this layer
+                    tok_s, tok_t = ls(tok_s, tok_t), lt(tok_t, tok_s)
+                else:
+                    tok_s, tok_t = ls(tok_s), lt(tok_t)
         x = self.down_s(tok_s).reshape(B, Ts, Fq, C).permute(0, 3, 2, 1)
         xt = self.down_t(tok_t).transpose(1, 2)
 
@@ -495,6 +511,8 @@ def convert_torch_state_dict(state_dict: dict, audio_channels: int = 2) -> dict:
     """A released HTDemucs checkpoint's state dict (upstream key naming,
     ``models.0.`` prefix stripped) → the JAX-layout pytree that
     ``HTDemucs.from_params`` loads; raises ``KeyError`` on a missing key.
+    Each transformer layer's kind is read from its keys: ``cross_attn`` (with
+    ``norm3``) or ``self_attn``, so either layer order converts.
 
     Counterpart of the JAX ``convert_torch_state_dict``: tensors or numpy
     arrays; Linear and attention weights transposed to the ``x @ W``
@@ -546,7 +564,8 @@ def convert_torch_state_dict(state_dict: dict, audio_channels: int = 2) -> dict:
     p["norm_in_t_g"] = arr("crosstransformer.norm_in_t.weight")
     p["norm_in_t_b"] = arr("crosstransformer.norm_in_t.bias")
 
-    def tlayer_params(prefix, cross: bool):
+    def tlayer_params(prefix):
+        cross = f"{prefix}.cross_attn.in_proj_weight" in sd
         attn = "cross_attn" if cross else "self_attn"
         in_w = arr(f"{prefix}.{attn}.in_proj_weight")  # [3D, D]
         in_b = arr(f"{prefix}.{attn}.in_proj_bias")
@@ -567,8 +586,8 @@ def convert_torch_state_dict(state_dict: dict, audio_channels: int = 2) -> dict:
             lp["norm3_b"] = arr(f"{prefix}.norm3.bias")
         return lp
 
-    p["tlayers"] = [tlayer_params(f"crosstransformer.layers.{i}", cross=i % 2 == 0) for i in range(T_LAYERS)]
-    p["tlayers_t"] = [tlayer_params(f"crosstransformer.layers_t.{i}", cross=i % 2 == 0) for i in range(T_LAYERS)]
+    p["tlayers"] = [tlayer_params(f"crosstransformer.layers.{i}") for i in range(T_LAYERS)]
+    p["tlayers_t"] = [tlayer_params(f"crosstransformer.layers_t.{i}") for i in range(T_LAYERS)]
     return p
 
 
@@ -625,6 +644,19 @@ def _up2(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], M * 256)[..., : 2 * L]
 
 
+def _through_net(model: HTDemucs, windows: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """Windows [N, ch, seg] → stems [N, S, ch, seg], ``_FWD_CHUNK`` windows a
+    forward call (span ``separation/net``), counted as ``separation_windows``
+    and ``separation_chunks``."""
+    stems = []
+    for i in range(0, windows.shape[0], _FWD_CHUNK):
+        with span("separation/net"):
+            stems.append(model(windows[i : i + _FWD_CHUNK], bf16=bf16))
+    count("separation_windows", windows.shape[0])
+    count("separation_chunks", len(stems))
+    return torch.cat(stems)
+
+
 def _segment_windows(length: int, seg: int, stride: int) -> list[int]:
     return list(range(0, max(1, length - seg + stride), stride))
 
@@ -643,36 +675,38 @@ def separate_program(model: HTDemucs, y: torch.Tensor, sr: int, seg: int, stride
     song's overlap-add is the one-song order, so a row of a batch is the
     one-song result up to the GEMM blocking of the net."""
     single = y.dim() == 1
-    y44 = y if sr == MODEL_SR else _up2(y)
-    y44 = y44[None] if single else y44
-    n_songs, L44 = y44.shape
-    mix = torch.stack([y44, y44], dim=1)  # pseudo-stereo [B, 2, L44]
+    with span("separation/windows"):
+        y44 = y if sr == MODEL_SR else _up2(y)
+        y44 = y44[None] if single else y44
+        n_songs, L44 = y44.shape
+        mix = torch.stack([y44, y44], dim=1)  # pseudo-stereo [B, 2, L44]
 
-    # deterministic shift offsets, as the JAX program
-    max_shift = int(0.5 * MODEL_SR)
-    shift_offs = [0] + [(i * max_shift) // shifts for i in range(1, max(1, shifts))]
-    windows, metas = [], []
-    for soff in shift_offs:
-        offs = _segment_windows(L44 + soff, seg, stride)
-        # every window fits: the shifted signal carries seg zeros at its end
-        windows.append(F.pad(mix, (soff, seg)).unfold(-1, seg, stride)[:, :, : len(offs)].transpose(1, 2))
-        metas += [o - soff for o in offs]
-    batch = torch.cat(windows, dim=1).reshape(-1, 2, seg)  # [B·W, 2, seg], song-major
-    stems = torch.cat([model(batch[i : i + _FWD_CHUNK], bf16=bf16) for i in range(0, batch.shape[0], _FWD_CHUNK)])
+        # deterministic shift offsets, as the JAX program
+        max_shift = int(0.5 * MODEL_SR)
+        shift_offs = [0] + [(i * max_shift) // shifts for i in range(1, max(1, shifts))]
+        windows, metas = [], []
+        for soff in shift_offs:
+            offs = _segment_windows(L44 + soff, seg, stride)
+            # every window fits: the shifted signal carries seg zeros at its end
+            windows.append(F.pad(mix, (soff, seg)).unfold(-1, seg, stride)[:, :, : len(offs)].transpose(1, 2))
+            metas += [o - soff for o in offs]
+        batch = torch.cat(windows, dim=1).reshape(-1, 2, seg)  # [B·W, 2, seg], song-major
+    stems = _through_net(model, batch, bf16)
 
     # triangular-weighted overlap-add of every window of a song in one index_add_
-    n_sources = stems.shape[1]
-    stems = stems.reshape(n_songs, len(metas), n_sources, 2, seg)
-    tri = _triangle(seg, y.device)
-    lead = max(0, -min(metas))
-    pos = uploaded(torch.tensor(metas, device=y.device)) + lead
-    idx = (pos[:, None] + torch.arange(seg, device=y.device)).reshape(-1)
-    src = (stems * tri).permute(0, 2, 3, 1, 4).reshape(n_songs, n_sources, 2, -1)
-    acc = stems.new_zeros(n_songs, n_sources, 2, lead + L44 + seg).index_add_(-1, idx, src)
-    wacc = tri.new_zeros(lead + L44 + seg).index_add_(0, idx, tri.repeat(len(metas)))
-    out44 = acc[..., lead : lead + L44] / torch.clamp(wacc[lead : lead + L44], min=1e-8)
-    mono = out44.mean(dim=2)  # [B, S, L44]
-    mono = mono if sr == MODEL_SR else _down2(mono)
+    with span("separation/overlap_add"):
+        n_sources = stems.shape[1]
+        stems = stems.reshape(n_songs, len(metas), n_sources, 2, seg)
+        tri = _triangle(seg, y.device)
+        lead = max(0, -min(metas))
+        pos = uploaded(torch.tensor(metas, device=y.device)) + lead
+        idx = (pos[:, None] + torch.arange(seg, device=y.device)).reshape(-1)
+        src = (stems * tri).permute(0, 2, 3, 1, 4).reshape(n_songs, n_sources, 2, -1)
+        acc = stems.new_zeros(n_songs, n_sources, 2, lead + L44 + seg).index_add_(-1, idx, src)
+        wacc = tri.new_zeros(lead + L44 + seg).index_add_(0, idx, tri.repeat(len(metas)))
+        out44 = acc[..., lead : lead + L44] / torch.clamp(wacc[lead : lead + L44], min=1e-8)
+        mono = out44.mean(dim=2)  # [B, S, L44]
+        mono = mono if sr == MODEL_SR else _down2(mono)
     return mono[0] if single else mono
 
 
@@ -769,7 +803,7 @@ def apply_model(net: HTDemucs, mix: np.ndarray, sr: int, *, shifts: int = 2, ove
         offsets = _segment_windows(L + offset, seg, stride)
         windows = uploaded(torch.from_numpy(np.stack([padded[:, o : o + seg] for o in offsets]).astype(np.float32)).to(device), "song")
         with torch.inference_mode():
-            stems = torch.cat([net(windows[i : i + _FWD_CHUNK]) for i in range(0, len(offsets), _FWD_CHUNK)]).cpu().numpy()
+            stems = _through_net(net, windows).cpu().numpy()
         for o, st in zip(offsets, stems):
             a = o - offset
             lo, hi = max(0, a), min(L, a + seg)
