@@ -14,18 +14,21 @@ Cost model (same shape as the reference):
 Span limit 5 frets (6 above fret 12); ≤6 note candidates, ≤14 chord
 candidates from open-shape match or per-pitch backtracking.
 
-The port's copy of ``audiotabs_tpu/tab/optimizer.py``: host code, arithmetic unchanged.
+The port's copy of ``audiotabs_tpu/tab/optimizer.py``, with the same outputs bit for bit: within one
+call each distinct (pitches, label) builds its candidates once, chord candidates are enumerated
+depth first in ``product``'s order with a branch cut as soon as it repeats a string or outgrows
+every span limit, and the DP reads float64 arrays kept per candidate set, every expression in the
+JAX package's order.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from itertools import product
+from dataclasses import dataclass, field, replace
 from typing import Iterable
 
 import numpy as np
 
-from ..tracing import traced
+from ..tracing import count, traced
 from .fretboard import STANDARD_TUNING, pitch_to_fret_options
 from .open_chords import matches_open_chord
 
@@ -68,7 +71,7 @@ class TabOptimizationResult:
     impossible_transitions: list[tuple[int, int]]
 
 
-@dataclass
+@dataclass(frozen=True)
 class _Candidate:
     positions: list[tuple[int, int]]  # (string, fret) aligned with input pitches
     base_fret: int
@@ -86,7 +89,13 @@ def _geometry(positions: list[tuple[int, int]]) -> tuple[int, int]:
     return base, max(fretted) - base
 
 
-def _candidate_from_positions(pitches: list[int], positions: list[tuple[int, int]], tuning) -> _Candidate | None:
+def _mean(xs: list[int]) -> float:
+    """``np.mean`` of a short list of small ints, bit for bit: their float64 sum is exact, one division rounds it."""
+    return float(sum(xs)) / len(xs)
+
+
+def _candidate_from_positions(positions: list[tuple[int, int]], order: list[int]) -> _Candidate | None:
+    """``order``: the indices of the input pitches from lowest to highest (stable)."""
     base, span = _geometry(positions)
     max_span = MAX_FRET_SPAN_HIGH if base >= 12 else MAX_FRET_SPAN
     if span > max_span:
@@ -102,8 +111,7 @@ def _candidate_from_positions(pitches: list[int], positions: list[tuple[int, int
     #  fret == pitch - open_pitch, so no register term is needed here; the
     #  base-fret and open-bonus terms above carry the low-position preference)
     # string-order penalty: higher pitches should sit on higher strings
-    if len(pitches) >= 2:
-        order = sorted(range(len(pitches)), key=lambda i: pitches[i])
+    if len(order) >= 2:
         strings = [positions[i][0] for i in order]
         cost += 0.8 * sum(1 for a, b in zip(strings, strings[1:]) if b > a)
 
@@ -114,8 +122,8 @@ def _candidate_from_positions(pitches: list[int], positions: list[tuple[int, int
         base_fret=base,
         span=span,
         cost=float(cost),
-        avg_string=float(np.mean(ss)) if ss else 0.0,
-        avg_fret=float(np.mean(fs)) if fs else 0.0,
+        avg_string=_mean(ss) if ss else 0.0,
+        avg_fret=_mean(fs) if fs else 0.0,
     )
 
 
@@ -124,19 +132,44 @@ def _note_candidates(pitch: int, tuning) -> list[_Candidate]:
     ranked = sorted(options, key=lambda sf: sf[1] * 0.05 - (0.5 if sf[1] == 0 else 0.0))
     out = []
     for pos in ranked[:CANDIDATES_PER_NOTE]:
-        c = _candidate_from_positions([pitch], [pos], tuning)
+        c = _candidate_from_positions([pos], [0])
         if c is not None:
             out.append(c)
     return out
 
 
+def _chord_combos(per_pitch: list[list[tuple[int, int]]]) -> list[list[tuple[int, int]]]:
+    """``product(*per_pitch)`` in its order, less every combination that repeats a string or whose
+    fretted span passes ``MAX_FRET_SPAN_HIGH``: a branch is cut at the first such choice, since a
+    span only grows as frets are added and no candidate's limit is above that one."""
+    out: list[list[tuple[int, int]]] = []
+    combo: list[tuple[int, int]] = []
+
+    def walk(depth: int, used: int, lo: int, hi: int) -> None:
+        if depth == len(per_pitch):
+            out.append(list(combo))
+            return
+        for s, f in per_pitch[depth]:
+            if used >> s & 1:
+                continue
+            nlo, nhi = (min(lo, f), max(hi, f)) if f > 0 else (lo, hi)
+            if nhi - nlo > MAX_FRET_SPAN_HIGH:
+                continue
+            combo.append((s, f))
+            walk(depth + 1, used | 1 << s, nlo, nhi)
+            combo.pop()
+
+    walk(0, 0, MAX_FRET, 0)
+    return out
+
+
 def _chord_candidates(pitches: list[int], chord_label: str, tuning) -> list[_Candidate]:
+    order = sorted(range(len(pitches)), key=lambda i: pitches[i])
     matched, open_positions = matches_open_chord(pitches, chord_label, tuning=tuning)
     if matched:
-        c = _candidate_from_positions(pitches, open_positions, tuning)
+        c = _candidate_from_positions(open_positions, order)
         if c is not None:
-            c.cost -= 1.0  # canonical open shapes win ties
-            return [c]
+            return [replace(c, cost=c.cost - 1.0)]  # canonical open shapes win ties
 
     per_pitch: list[list[tuple[int, int]]] = []
     for p in pitches:
@@ -147,11 +180,8 @@ def _chord_candidates(pitches: list[int], chord_label: str, tuning) -> list[_Can
         per_pitch.append(ranked[:4])
 
     cands: list[_Candidate] = []
-    for combo in product(*per_pitch):
-        strings = [s for s, _ in combo]
-        if len(set(strings)) != len(strings):
-            continue
-        c = _candidate_from_positions(pitches, list(combo), tuning)
+    for combo in _chord_combos(per_pitch):
+        c = _candidate_from_positions(combo, order)
         if c is not None:
             cands.append(c)
     cands.sort(key=lambda c: c.cost)
@@ -166,26 +196,30 @@ def _build_candidates(pitches: list[int], chord_label: str, tuning) -> list[_Can
     return _chord_candidates(pitches, chord_label, tuning)
 
 
-def _transition_penalty_matrix(
-    prev: list[_Candidate], cur: list[_Candidate], time_gap_s: float, tempo_bpm: float
-) -> np.ndarray:
-    """[K_prev, K_cur] movement + fast-transition infeasibility penalties."""
-    pb = np.array([c.base_fret for c in prev], dtype=np.float64)
-    ps = np.array([c.avg_string for c in prev], dtype=np.float64)
-    cb = np.array([c.base_fret for c in cur], dtype=np.float64)
-    cs = np.array([c.avg_string for c in cur], dtype=np.float64)
-    move = 0.6 * np.abs(cb[None, :] - pb[None, :].T) + 0.4 * np.abs(cs[None, :] - ps[None, :].T)
+class _CandidateSet:
+    """One event's candidates (never changed once built, as several events share them) and the
+    float64 arrays the DP reads: base fret, mean string, cost, and the mean fretted fret (NaN
+    where no string is fretted) that the fast-transition penalty compares."""
 
-    tempo = tempo_bpm if tempo_bpm and tempo_bpm > 0 else 120.0
-    fast = time_gap_s < min(0.2, 0.35 * 60.0 / tempo)
+    __slots__ = ("cands", "base", "avg_string", "cost", "fret_mean", "index")
+
+    def __init__(self, cands: list[_Candidate]):
+        self.cands = cands
+        self.base = np.array([c.base_fret for c in cands], dtype=np.float64)
+        self.avg_string = np.array([c.avg_string for c in cands], dtype=np.float64)
+        self.cost = np.array([c.cost for c in cands], dtype=np.float64)
+        fretted = [[f for _, f in c.positions if f > 0] for c in cands]
+        self.fret_mean = np.array([_mean(fs) if fs else np.nan for fs in fretted], dtype=np.float64)
+        self.index = np.arange(len(cands))
+
+
+def _transition_penalty_matrix(prev: _CandidateSet, cur: _CandidateSet, fast: bool) -> np.ndarray:
+    """[K_prev, K_cur] movement + fast-transition infeasibility penalties."""
+    move = 0.6 * np.abs(cur.base[None, :] - prev.base[:, None]) + 0.4 * np.abs(
+        cur.avg_string[None, :] - prev.avg_string[:, None]
+    )
     if fast:
-        pf = np.array(
-            [np.mean([f for _, f in c.positions if f > 0]) if any(f > 0 for _, f in c.positions) else np.nan for c in prev]
-        )
-        cf = np.array(
-            [np.mean([f for _, f in c.positions if f > 0]) if any(f > 0 for _, f in c.positions) else np.nan for c in cur]
-        )
-        fret_move = np.abs(cf[None, :] - pf[:, None])
+        fret_move = np.abs(cur.fret_mean[None, :] - prev.fret_mean[:, None])
         penalty = np.where(np.isnan(fret_move), 0.0, np.maximum(0.0, fret_move - 5.0) * 4.0)
         move = move + penalty
     return move
@@ -212,24 +246,34 @@ def optimize_tab_positions_for_events(
     if not normalized:
         return TabOptimizationResult([], 0.0, 0, [])
 
-    per_event: list[list[_Candidate]] = []
+    # candidates depend on the pitches in their order and the label alone (the tuning is the call's);
+    # the dict lives for this call only
+    built: dict[tuple[tuple[int, ...], str], _CandidateSet] = {}
+    per_event: list[_CandidateSet] = []
     for _t, pitches, label in normalized:
-        cands = _build_candidates(pitches, label, tuning)
-        if not cands:
-            cands = [_Candidate([], 0, 0, 50.0, 0.0, 0.0)]
+        key = (tuple(pitches), label)
+        cands = built.get(key)
+        if cands is None:
+            cands = built[key] = _CandidateSet(
+                _build_candidates(pitches, label, tuning) or [_Candidate([], 0, 0, 50.0, 0.0, 0.0)]
+            )
         per_event.append(cands)
+    count("tab_events", len(normalized))
+    count("tab_builds", len(built))
 
     # vectorized Viterbi over candidate indices
-    costs = np.array([c.cost for c in per_event[0]], dtype=np.float64)
+    tempo = tempo_bpm if tempo_bpm and tempo_bpm > 0 else 120.0
+    fast_below = min(0.2, 0.35 * 60.0 / tempo)
+    costs = per_event[0].cost
+    steps: list[np.ndarray] = []
     backptrs: list[np.ndarray] = []
     for i in range(1, len(normalized)):
         gap = normalized[i][0] - normalized[i - 1][0]
-        trans = _transition_penalty_matrix(per_event[i - 1], per_event[i], gap, tempo_bpm)
+        trans = _transition_penalty_matrix(per_event[i - 1], per_event[i], gap < fast_below)
         total = costs[:, None] + trans  # [K_prev, K_cur]
         backptrs.append(np.argmin(total, axis=0))
-        costs = total[backptrs[-1], np.arange(trans.shape[1])] + np.array(
-            [c.cost for c in per_event[i]]
-        )
+        costs = total[backptrs[-1], per_event[i].index] + per_event[i].cost
+        steps.append(trans)
 
     idx = int(np.argmin(costs))
     path = [idx]
@@ -242,15 +286,14 @@ def optimize_tab_positions_for_events(
     impossible: list[tuple[int, int]] = []
     position_changes = 0
     for i, (t, pitches, _lbl) in enumerate(normalized):
-        cand = per_event[i][path[i]]
+        cand = per_event[i].cands[path[i]]
         fingers = _fingers(cand)
         positions = [FretPosition(s, f, fingers.get(s)) for s, f in cand.positions]
         if i > 0:
-            prev = per_event[i - 1][path[i - 1]]
+            prev = per_event[i - 1].cands[path[i - 1]]
             if cand.base_fret != prev.base_fret:
                 position_changes += 1
-            gap = t - normalized[i - 1][0]
-            pen = _transition_penalty_matrix([prev], [cand], gap, tempo_bpm)[0, 0]
+            pen = steps[i - 1][path[i - 1], path[i]]
             base_move = 0.6 * abs(cand.base_fret - prev.base_fret) + 0.4 * abs(
                 cand.avg_string - prev.avg_string
             )
