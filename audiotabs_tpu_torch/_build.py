@@ -10,6 +10,12 @@ to ``build/<name>-<hash>/`` and put on the include path. The hash covers the
 source, the generated headers and the flags, so an edited source or schedule
 never loads a stale library. ptxas's report of registers and spills for each
 kernel is kept beside the library. Nothing here runs at import time.
+
+Every op with a hand kernel goes through two functions here. ``plain_or_kernel``
+holds the port's device rule: a CPU tensor takes the op's plain PyTorch
+version, a CUDA tensor its kernel, any other device raises. ``launch`` is the
+one launch of a kernel: on the device's current stream, its return checked,
+and counted in the tracer as ``<name>_launches``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
+
+from . import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build"
@@ -106,6 +116,30 @@ def check_launch(rc: int, what: str, refused: dict[int, str] | None = None) -> N
         raise ValueError(f"the {what} kernel does not take these arguments: {(refused or {}).get(rc, f'code {rc}')}")
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed (cudaError {rc})")
+
+
+def launch(name: str, symbol: str, argtypes: list, device: torch.device, *args, refused: dict[int, str] | None = None,
+           headers=None) -> None:
+    """One launch of ``symbol`` of csrc/<name>.cu (``function``) on ``device``'s
+    current stream, which it takes last: a tensor passes as its data pointer,
+    anything else as it is. Raises for a nonzero return (``check_launch``) and
+    counts ``<name>_launches`` in the tracer."""
+    fn = function(name, symbol, argtypes, headers)
+    with torch.cuda.device(device):
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), torch.cuda.current_stream(device).cuda_stream)
+    check_launch(rc, name, refused)
+    tracing.count(f"{name}_launches")
+
+
+def plain_or_kernel(op: str, plain, kernel, *args):
+    """``op`` on its first argument's device: ``plain(*args)`` for a CPU
+    tensor, ``kernel(*args)`` for a CUDA tensor; ValueError for any other."""
+    device = args[0].device
+    if device.type == "cpu":
+        return plain(*args)
+    if device.type == "cuda":
+        return kernel(*args)
+    raise ValueError(f"{op} runs on cuda or cpu, got {device}")
 
 
 def build_native(src: Path, compiler: str, flags: tuple[str, ...], libs: tuple[str, ...] = ()) -> Path:

@@ -26,10 +26,6 @@ from .. import _build
 from ..device import on_device
 from ..tracing import uploaded
 
-# Launches of the CUDA kernel (csrc/dbn_viterbi.cu) in this process; only
-# _launch adds to it.
-LAUNCHES = 0
-
 
 @lru_cache(maxsize=8)
 def _tempo_grid(min_bpm: float, max_bpm: float, fps: int) -> np.ndarray:
@@ -139,11 +135,6 @@ _REFUSED = {-1: "a batch, length, tempo count or phase count out of range",
             -2: "the per-tempo vectors (5 floats a tempo) do not fit one block's shared memory: more than about 11,500 tempi"}
 
 
-def build():
-    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
-    return _build.function("dbn_viterbi", "dbn_viterbi_f32", _ARGTYPES)
-
-
 def _launch_args(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda) -> tuple:
     """The kernel's arguments for activations [B, T] on the card: what torch
     computes for it (the tempo grid's tensors from the per-device cache), the
@@ -163,24 +154,12 @@ def _launch_args(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, ob
     )
 
 
-def _launch(*args: torch.Tensor) -> None:
-    """One launch of csrc/dbn_viterbi.cu on ``_launch_args``' tensors, one block per song."""
-    global LAUNCHES
-    init, lo_beat, score = args[0], args[1], args[7]
-    (B, n_tempi, max_int), T = init.shape, lo_beat.shape[1]
-    dev = init.device
-    with torch.cuda.device(dev):
-        rc = build()(*(a.data_ptr() for a in args), B, T, n_tempi, max_int, score.shape[1],
-                     torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "dbn_viterbi", _REFUSED)
-    LAUNCHES += 1
-
-
 def _dbn_forward_cuda(act: torch.Tensor, fps, min_bpm, max_bpm, transition_lambda, observation_lambda):
     """[B, T] on the card → (phases, intervals) [B, T] int32: one launch of
-    csrc/dbn_viterbi.cu."""
+    csrc/dbn_viterbi.cu, one block per song."""
     args = _launch_args(act, fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
-    _launch(*args)
+    (B, n_tempi, max_int), T, n_states = args[0].shape, act.shape[1], args[7].shape[1]
+    _build.launch("dbn_viterbi", "dbn_viterbi_f32", _ARGTYPES, act.device, *args, B, T, n_tempi, max_int, n_states, refused=_REFUSED)
     return args[-2], args[-1]
 
 
@@ -201,13 +180,8 @@ def _dbn_forward(
     if activations.ndim not in (1, 2):
         raise ValueError(f"_dbn_forward takes [T] or [B, T], got shape {tuple(activations.shape)}")
     act = activations.reshape(1, -1) if activations.ndim == 1 else activations
-    args = (fps, min_bpm, max_bpm, transition_lambda, observation_lambda)
-    if act.device.type == "cpu":
-        phases, intervals = _dbn_forward_plain(act, *args)
-    elif act.device.type == "cuda":
-        phases, intervals = _dbn_forward_cuda(act, *args)
-    else:
-        raise ValueError(f"_dbn_forward runs on cuda or cpu, got {act.device}")
+    phases, intervals = _build.plain_or_kernel("_dbn_forward", _dbn_forward_plain, _dbn_forward_cuda, act, fps, min_bpm, max_bpm,
+                                               transition_lambda, observation_lambda)
     return (phases, intervals) if activations.ndim == 2 else (phases[0], intervals[0])
 
 

@@ -20,12 +20,6 @@ import torch
 
 from .. import _build
 
-# Launches of the CUDA kernels in this process: csrc/dense_viterbi.cu
-# (only _launch adds to LAUNCHES) and csrc/constant_switch_viterbi.cu (only
-# _switch_launch adds to SWITCH_LAUNCHES).
-LAUNCHES = 0
-SWITCH_LAUNCHES = 0
-
 
 def viterbi_constant_switch_plain(emissions: torch.Tensor, switch_penalty: float):
     """The plain version on [B, S, T]: a loop over frames, then over them backwards."""
@@ -52,11 +46,6 @@ def viterbi_constant_switch_plain(emissions: torch.Tensor, switch_penalty: float
 _SWITCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
 
-def build_switch():
-    """Compile and load the constant-switch kernel now (it is otherwise built at first use); returns its launcher."""
-    return _build.function("constant_switch_viterbi", "constant_switch_viterbi_f32", _SWITCH_ARGTYPES)
-
-
 def _switch_launch_args(emissions: torch.Tensor, switch_penalty: float) -> tuple:
     """The kernel's arguments for [B, S, T] float32 emissions on the card:
     the costs -log(clamp(emissions, 1e-9, 1)) from torch, the emissions (the
@@ -77,23 +66,12 @@ def _switch_launch_args(emissions: torch.Tensor, switch_penalty: float) -> tuple
     )
 
 
-def _switch_launch(logp: torch.Tensor, emissions: torch.Tensor, scratch: torch.Tensor, path: torch.Tensor, conf: torch.Tensor,
-                   switch_penalty: float) -> None:
-    """One launch of csrc/constant_switch_viterbi.cu on ``_switch_launch_args``' tensors, one warp per sequence."""
-    global SWITCH_LAUNCHES
-    B, S, T = logp.shape
-    dev = logp.device
-    with torch.cuda.device(dev):
-        rc = build_switch()(logp.data_ptr(), emissions.data_ptr(), scratch.data_ptr(), path.data_ptr(), conf.data_ptr(),
-                            B, T, S, switch_penalty, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "constant_switch_viterbi", {-1: f"{B} sequences of {T} frames and {S} states (at most 64)"})
-    SWITCH_LAUNCHES += 1
-
-
 def _viterbi_constant_switch_cuda(emissions: torch.Tensor, switch_penalty: float):
-    """[B, S, T] on the card: one launch, which gathers the confidences too."""
-    args = _switch_launch_args(emissions, switch_penalty)
-    _switch_launch(*args)
+    """[B, S, T] on the card: one launch, one warp per sequence, which gathers the confidences too."""
+    *args, penalty = _switch_launch_args(emissions, switch_penalty)
+    B, S, T = emissions.shape
+    _build.launch("constant_switch_viterbi", "constant_switch_viterbi_f32", _SWITCH_ARGTYPES, emissions.device, *args, B, T, S,
+                  penalty, refused={-1: f"{B} sequences of {T} frames and {S} states (at most 64)"})
     return args[3], args[4]
 
 
@@ -106,12 +84,8 @@ def viterbi_constant_switch(emissions: torch.Tensor, switch_penalty: float):
     if emissions.ndim not in (2, 3):
         raise ValueError(f"viterbi_constant_switch takes [S, T] or [B, S, T], got shape {tuple(emissions.shape)}")
     em = emissions[None] if emissions.ndim == 2 else emissions
-    if em.device.type == "cpu":
-        path, conf = viterbi_constant_switch_plain(em, switch_penalty)
-    elif em.device.type == "cuda":
-        path, conf = _viterbi_constant_switch_cuda(em, switch_penalty)
-    else:
-        raise ValueError(f"viterbi_constant_switch runs on cuda or cpu, got {em.device}")
+    path, conf = _build.plain_or_kernel("viterbi_constant_switch", viterbi_constant_switch_plain, _viterbi_constant_switch_cuda,
+                                        em, switch_penalty)
     return (path, conf) if emissions.ndim == 3 else (path[0], conf[0])
 
 
@@ -136,11 +110,6 @@ def viterbi_log_dense_plain(log_emissions: torch.Tensor, log_transition: torch.T
 
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-
-
-def build():
-    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
-    return _build.function("dense_viterbi", "dense_viterbi_f32", _ARGTYPES)
 
 
 # the most states the kernel takes; up to 32 run in its warp layout (one warp per sequence)
@@ -171,22 +140,10 @@ def _launch_args(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_
     )
 
 
-def _launch(*args: torch.Tensor) -> None:
-    """One launch of csrc/dense_viterbi.cu on ``_launch_args``' tensors: a warp
-    per sequence up to 32 states, else a block per sequence."""
-    global LAUNCHES
-    B, T, S = args[0].shape
-    dev = args[0].device
-    with torch.cuda.device(dev):
-        rc = build()(*(a.data_ptr() for a in args), B, T, S, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "dense_viterbi")
-    LAUNCHES += 1
-
-
 def _viterbi_log_dense_cuda(log_emissions: torch.Tensor, log_transition: torch.Tensor, log_initial: torch.Tensor):
-    """[B, T, S] on the card: one launch."""
+    """[B, T, S] on the card: one launch, a warp per sequence up to 32 states, else a block per sequence."""
     args = _launch_args(log_emissions, log_transition, log_initial)
-    _launch(*args)
+    _build.launch("dense_viterbi", "dense_viterbi_f32", _ARGTYPES, log_emissions.device, *args, *log_emissions.shape)
     return args[-2], args[-1]
 
 
@@ -202,10 +159,6 @@ def viterbi_log_dense(log_emissions: torch.Tensor, log_transition: torch.Tensor,
     em = log_emissions[None] if log_emissions.ndim == 2 else log_emissions
     if log_initial is None:
         log_initial = torch.full((em.shape[-1],), -math.log(em.shape[-1]), device=em.device)
-    if em.device.type == "cpu":
-        path, best = viterbi_log_dense_plain(em, log_transition, log_initial)
-    elif em.device.type == "cuda":
-        path, best = _viterbi_log_dense_cuda(em, log_transition, log_initial)
-    else:
-        raise ValueError(f"viterbi_log_dense runs on cuda or cpu, got {em.device}")
+    path, best = _build.plain_or_kernel("viterbi_log_dense", viterbi_log_dense_plain, _viterbi_log_dense_cuda, em, log_transition,
+                                        log_initial)
     return (path, best) if log_emissions.ndim == 3 else (path[0], best[0])

@@ -44,10 +44,6 @@ ENVELOPE_STRIDE = 64
 ENVELOPE_DECAY = 0.6
 ENVELOPE_FLOOR = 0.05
 
-# Launches of the CUDA kernel (csrc/salience_envelope.cu) in this process;
-# only _launch adds to it.
-LAUNCHES = 0
-
 
 def hcqt(y: torch.Tensor, sr: int) -> torch.Tensor:
     """Harmonic CQT [H, n_bins, T] at 3 bins/semitone from A0."""
@@ -174,11 +170,6 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + 
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def build():
-    """Compile and load the envelope kernel now (it is otherwise built at first use); returns its launcher."""
-    return _build.function("salience_envelope", "salience_envelope_f32", _ARGTYPES)
-
-
 def _launch_args(sal: torch.Tensor, stride: int, decay: float) -> tuple:
     """The kernel's arguments for float32 salience [R, 88, T] on the card: the
     contiguous input, the scratch of its 32-frame segment maxima [R, ceil(T /
@@ -199,25 +190,15 @@ def _tickets(device: torch.device, stream: int, R: int) -> torch.Tensor:
     return ticket
 
 
-def _launch(sal: torch.Tensor, seg: torch.Tensor, norm: torch.Tensor, stride: int, decay: float) -> None:
-    """One launch of csrc/salience_envelope.cu on ``_launch_args``' tensors: a warp per 32-frame segment of every row."""
-    global LAUNCHES
-    R, rows, T = sal.shape
-    with torch.cuda.device(sal.device):
-        stream = torch.cuda.current_stream(sal.device).cuda_stream
-        ticket = _tickets(sal.device, stream, R)
-        rc = build()(sal.data_ptr(), seg.data_ptr(), ticket.data_ptr(), norm.data_ptr(), R, rows, T, stride, decay,
-                     ENVELOPE_FLOOR, stream)
-    _build.check_launch(rc, "salience_envelope", {-1: f"{R} rows of {rows} x {T} (at most 65,535 rows)",
-                                                  -2: f"a stride of {stride} frames (the kernel takes {ENVELOPE_STRIDE})"})
-    LAUNCHES += 1
-
-
 def _salience_envelope_cuda(sal: torch.Tensor, stride: int, decay: float) -> torch.Tensor:
-    """[R, 88, T] on the card: one launch."""
-    args = _launch_args(sal, stride, decay)
-    _launch(*args)
-    return args[2]
+    """[R, 88, T] on the card: one launch, a warp per 32-frame segment of every row."""
+    sal, seg, norm, stride, decay = _launch_args(sal, stride, decay)
+    R, rows, T = sal.shape
+    ticket = _tickets(sal.device, torch.cuda.current_stream(sal.device).cuda_stream, R)
+    _build.launch("salience_envelope", "salience_envelope_f32", _ARGTYPES, sal.device, sal, seg, ticket, norm, R, rows, T, stride,
+                  decay, ENVELOPE_FLOOR, refused={-1: f"{R} rows of {rows} x {T} (at most 65,535 rows)",
+                                                  -2: f"a stride of {stride} frames (the kernel takes {ENVELOPE_STRIDE})"})
+    return norm
 
 
 def salience_envelope(sal: torch.Tensor, stride: int = ENVELOPE_STRIDE, decay: float = ENVELOPE_DECAY) -> torch.Tensor:
@@ -227,11 +208,8 @@ def salience_envelope(sal: torch.Tensor, stride: int = ENVELOPE_STRIDE, decay: f
     device raises."""
     if sal.ndim not in (2, 3):
         raise ValueError(f"salience_envelope takes [88, T] or [R, 88, T], got shape {tuple(sal.shape)}")
-    if sal.device.type == "cpu":
-        return salience_envelope_plain(sal, stride, decay)
-    if sal.device.type != "cuda":
-        raise ValueError(f"salience_envelope runs on cuda or cpu, got {sal.device}")
-    norm = _salience_envelope_cuda(sal[None] if sal.ndim == 2 else sal, stride, decay)
+    rows = sal[None] if sal.ndim == 2 else sal
+    norm = _build.plain_or_kernel("salience_envelope", salience_envelope_plain, _salience_envelope_cuda, rows, stride, decay)
     return norm[0] if sal.ndim == 2 else norm
 
 

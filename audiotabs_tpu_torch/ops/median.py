@@ -30,9 +30,6 @@ import torch.nn.functional as F
 
 from .. import _build
 
-# Launches of the CUDA kernel in this process; only median_filter adds to it.
-LAUNCHES = 0
-
 # Windows with a selection network in the kernel, and the adjacent outputs each
 # thread computes for them. More outputs share more of the sort but need more
 # registers and round a short axis up further; these were the fastest on the
@@ -204,11 +201,6 @@ def _headers() -> dict[str, str]:
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def build():
-    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
-    return _build.function("median_filter", "median_filter_f32", _ARGTYPES, _headers)
-
-
 def ptxas_usage() -> dict[str, dict[str, int]]:
     """Registers and spill bytes of each kernel instantiation, from the build's ``-Xptxas -v``."""
     return _build.ptxas_usage("median_filter", _headers())
@@ -247,23 +239,17 @@ def median_filter(x: torch.Tensor, win: int, axis: int = -1) -> torch.Tensor:
     median_filter_plain. Any other device raises, and so does a device
     tensor that requires grad: the kernel has no backward (the JAX Pallas
     kernel has no VJP either, and no trainer differentiates through HPSS)."""
-    global LAUNCHES
     axis = _check(x, win, axis)
-    if x.device.type == "cpu":
-        return median_filter_plain(x, win, axis)
-    if x.requires_grad and torch.is_grad_enabled():
+    if x.device.type != "cpu" and x.requires_grad and torch.is_grad_enabled():
         raise RuntimeError("median_filter has no backward: detach the input or run under torch.no_grad()")
-    if x.device.type != "cuda":
-        raise ValueError(f"median_filter runs on cuda or cpu, got {x.device}")
+    return _build.plain_or_kernel("median_filter", median_filter_plain, _median_filter_cuda, x, win, axis)
+
+
+def _median_filter_cuda(x: torch.Tensor, win: int, axis: int) -> torch.Tensor:
+    """The median on the card: one launch."""
     if not x.is_contiguous():
         raise ValueError("median_filter needs a contiguous tensor")
-    batch = x.shape[0] if x.ndim == 3 else 1
-    n_slow, n_fast = x.shape[-2], x.shape[-1]
     y = torch.empty_like(x)
-    fn = build()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), batch, n_slow, n_fast, win, int(axis == x.ndim - 1), stream)
-    _build.check_launch(rc, "median_filter")
-    LAUNCHES += 1
+    _build.launch("median_filter", "median_filter_f32", _ARGTYPES, x.device, x, y, x.shape[0] if x.ndim == 3 else 1,
+                  x.shape[-2], x.shape[-1], win, int(axis == x.ndim - 1), headers=_headers)
     return y

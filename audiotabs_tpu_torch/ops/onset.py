@@ -19,10 +19,6 @@ from .. import _build
 from .features import melspectrogram
 from .spectral import power_to_db
 
-# Launches of the CUDA kernel (csrc/onset_wait.cu) in this process; only
-# _launch adds to it.
-LAUNCHES = 0
-
 
 def onset_strength(y: torch.Tensor, sr: int, hop: int = 512, n_fft: int = 2048, n_mels: int = 128, lag: int = 1):
     """Half-wave-rectified dB mel flux, mean over bands → [..., T]."""
@@ -78,13 +74,6 @@ def _wait_plain(cand: torch.Tensor, wait: int) -> torch.Tensor:
 
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-
-
-def build():
-    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
-    return _build.function("onset_wait", "onset_wait_u8", _ARGTYPES)
-
-
 INT32_MAX = 2**31 - 1
 
 
@@ -109,21 +98,13 @@ def _launch_args(cand: torch.Tensor, wait: int) -> tuple:
     return c, torch.empty_like(c), wait
 
 
-def _launch(cand: torch.Tensor, fired: torch.Tensor, wait: int) -> None:
-    """One launch of csrc/onset_wait.cu on ``_launch_args``' tensors, one warp per row."""
-    global LAUNCHES
-    rows, T = cand.numel() // cand.shape[-1], cand.shape[-1]
-    with torch.cuda.device(cand.device):
-        rc = build()(cand.data_ptr(), fired.data_ptr(), rows, T, wait, torch.cuda.current_stream(cand.device).cuda_stream)
-    _build.check_launch(rc, "onset_wait")
-    LAUNCHES += 1
-
-
 def _wait_cuda(cand: torch.Tensor, wait: int) -> torch.Tensor:
-    """The rule on the card: one launch."""
-    args = _launch_args(cand, wait)
-    _launch(*args)
-    return args[1]
+    """The rule on the card: one launch, one warp per row; none for an empty input."""
+    if cand.numel() == 0:
+        return torch.zeros_like(cand)
+    c, fired, wait = _launch_args(cand, wait)
+    _build.launch("onset_wait", "onset_wait_u8", _ARGTYPES, c.device, c, fired, c.numel() // c.shape[-1], c.shape[-1], wait)
+    return fired
 
 
 def _wait(cand: torch.Tensor, wait: int) -> torch.Tensor:
@@ -131,10 +112,4 @@ def _wait(cand: torch.Tensor, wait: int) -> torch.Tensor:
     CUDA tensor, the plain loop for a CPU tensor; any other device raises."""
     if cand.dtype != torch.bool:
         raise TypeError(f"the wait rule takes bool candidates, got {cand.dtype}")
-    if cand.device.type == "cpu":
-        return _wait_plain(cand, wait)
-    if cand.device.type != "cuda":
-        raise ValueError(f"onset_detect_frames runs on cuda or cpu, got {cand.device}")
-    if cand.numel() == 0:
-        return torch.zeros_like(cand)
-    return _wait_cuda(cand, wait)
+    return _build.plain_or_kernel("onset_detect_frames", _wait_plain, _wait_cuda, cand, wait)

@@ -24,10 +24,6 @@ import torch.nn.functional as F
 from .. import _build
 from .spectral import as_device, frame
 
-# Launches of the CUDA kernel (csrc/banded_viterbi.cu) in this process; only
-# _launch adds to it.
-LAUNCHES = 0
-
 
 @lru_cache(maxsize=4)
 def _beta_pmf(n_thresholds: int = 100, a: int = 2, b: int = 18) -> np.ndarray:
@@ -175,11 +171,6 @@ def _banded_viterbi_plain(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def build():
-    """Compile and load the kernel now (it is otherwise built at first use); returns its launcher."""
-    return _build.function("banded_viterbi", "banded_viterbi_f32", _ARGTYPES)
-
-
 def _launch_args(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, switch_prob: float) -> tuple:
     """The kernel's arguments for [..., T, B] on the card: the [rows, T, B]
     float32 observations, the transition values torch computes, the scratch
@@ -198,27 +189,14 @@ def _launch_args(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, sw
     return ov, ou, log_tri, log_stay, log_switch, init, records, bins, voiced, band
 
 
-def _launch(ov, ou, log_tri, log_stay, log_switch, init, *rest) -> None:
-    """One launch of csrc/banded_viterbi.cu on ``_launch_args``' values, one block per row, a group of 4 lanes per 4 bins."""
-    global LAUNCHES
-    *buffers, band = rest
-    rows, T, B = ov.shape
-    dev = ov.device
-    with torch.cuda.device(dev):
-        rc = build()(ov.data_ptr(), ou.data_ptr(), log_tri.data_ptr(), log_stay, log_switch, init,
-                     *(a.data_ptr() for a in buffers), rows, T, B, band, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "banded_viterbi")
-    LAUNCHES += 1
-
-
 def _banded_viterbi_cuda(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int, switch_prob: float):
-    """The Viterbi on the card: one launch."""
+    """The Viterbi on the card: one launch, one block per row, a group of 4 lanes per 4 bins."""
     T, B = log_obs_v.shape[-2:]
     if B > 1024 or not 1 <= band <= 127:
         raise ValueError(f"the banded Viterbi kernel takes at most 1024 bins and a band of 1 to 127, got {B} and {band}")
-    args = _launch_args(log_obs_v, log_obs_u, band, switch_prob)
-    _launch(*args)
-    bins, voiced = args[-3], args[-2]
+    *args, band = _launch_args(log_obs_v, log_obs_u, band, switch_prob)
+    bins, voiced = args[-2], args[-1]
+    _build.launch("banded_viterbi", "banded_viterbi_f32", _ARGTYPES, bins.device, *args, bins.shape[0], T, B, band)
     lead = log_obs_v.shape[:-2]
     return bins.reshape(*lead, T), voiced.reshape(*lead, T)
 
@@ -229,11 +207,8 @@ def _banded_viterbi(log_obs_v: torch.Tensor, log_obs_u: torch.Tensor, band: int,
     Returns (bin path [..., T] int64, voiced path [..., T] bool). A CUDA
     tensor launches csrc/banded_viterbi.cu, a CPU tensor takes the plain
     loop; any other device raises."""
-    if log_obs_v.device.type == "cpu":
-        return _banded_viterbi_plain(log_obs_v, log_obs_u, band, switch_prob)
-    if log_obs_v.device.type != "cuda":
-        raise ValueError(f"_banded_viterbi runs on cuda or cpu, got {log_obs_v.device}")
-    return _banded_viterbi_cuda(log_obs_v, log_obs_u, band, switch_prob)
+    return _build.plain_or_kernel("_banded_viterbi", _banded_viterbi_plain, _banded_viterbi_cuda, log_obs_v, log_obs_u, band,
+                                  switch_prob)
 
 
 def pyin(

@@ -27,7 +27,7 @@
    achieved TFLOP/s; holds each card stem against the port's CPU stem.
 5. The main path: the CLI (``runtime/cli.py::main``, what a user runs) on
    the clip with the shipped settings, cold and then twice warm, each song
-   with every kernel's launch count set to 0 just before it: 8 median
+   with every kernel's launches counted from just before it: 8 median
    launches per song and, of the decoder kernels, 1 DBN, 2 onset wait-rule
    (content windows, calibration), 1 banded Viterbi (pYIN of the content
    windows), 1 dense Viterbi (CRF) and 1 salience envelope launch, no
@@ -54,7 +54,7 @@
    a free port with a data directory in build/: ``heldout_strum_band.wav``
    inline and ``heldout_picked_melody.wav`` queued and drained by
    ``worker.main(["--once"])`` on the card, 8 median launches and the
-   decoder launches of a CLI song each (the counts set to 0 just before each
+   decoder launches of a CLI song each (counted from just before each
    job); every artifact route of both jobs
    answers 200 with its content type; the inline job's ``result.json``
    equals the CLI's (``job_id`` aside).
@@ -91,7 +91,7 @@
     parameters and the bytes in each shard, the 30 s bucket's separation
     within STEM_TOL of the unsharded module's, both warm times by events.
 9b. bench.py's batch (after 9a, ``batch8_phase``): eight 30 s songs
-    (``make_test_audio(30)``, this script's copy of bench.py's generator,
+    (``make_test_audio(30)``, bench.py's generator,
     plus 0.01 N(0, 1) noise from ``default_rng(7)``) through
     ``transcribe_batch``, two chunks of 4, cold then three times warm: 8
     median launches and a CLI song's decoder launches per chunk, 1
@@ -109,9 +109,10 @@
     package's error, with no launch of any kernel. A library that
     is absent is printed and only its check skipped.
 11. The settings the fused features do not cover alone, each through the
-    CLI on the clip under the shipped settings with one change, every launch
-    count set to 0 just before it: ``TRANSCRIPTION_MODE=notes`` (8 median
-    launches, the decoders' of a CLI song), ``CHORD_DETECTION_BACKEND=template``
+    CLI on the clip under the shipped settings with one change, every
+    kernel's launches counted from just before it:
+    ``TRANSCRIPTION_MODE=notes`` (8 median launches, the decoders' of a CLI
+    song), ``CHORD_DETECTION_BACKEND=template``
     with ``CHORD_VOCAB`` majmin7 and majmin7plus (8 each, no CRF decode; one
     constant-switch decode in the fused analysis, and for majmin7plus the
     tail's own chroma and decode: a second salience envelope and a second
@@ -134,9 +135,9 @@
 13a. The long song (``long_phase``): bench.py's 180 s song
     (``make_test_audio(180)``, six 30 s buckets) under the shipped settings
     through the CLI, cold and then warm as bench.py runs it (up to 3
-    warm-ups, then the minimum of 3), every count set to 0 just before each
-    song: 8 median launches and a CLI song's decoder launches, the guitar
-    stem and the drums beat source, no stage error (a separation error,
+    warm-ups, then the minimum of 3), every kernel's launches counted from
+    just before each song: 8 median launches and a CLI song's decoder
+    launches, the guitar stem and the drums beat source, no stage error (a separation error,
     which the pipeline passes over to analyse the mix, fails the phase),
     the CLI song's artifact set, a score with measures, every profile.json
     stage; one warm song traced (device ops, busy share, 1 device-to-host
@@ -178,8 +179,8 @@
     dataset function (finite losses), then ``train()`` at a few steps and
     clips. The launches of each trainer are counted, of the median and of
     each decoder kernel (the gates decode beats with the DBN and chords with
-    the CRF), and must be the counts in TRAIN_LAUNCHES and
-    TRAIN_DECODER_LAUNCHES (and the salience envelope's: the trainers'
+    the CRF), and must be the counts in MEDIAN_LAUNCHES_BY_TRAINER and
+    DECODER_LAUNCHES_BY_TRAINER (and the salience envelope's: the trainers'
     salience baselines); the median kernel is held exactly on the first 4
     launched inputs of every site and at each new shape (random and
     tie-heavy), and each is timed.
@@ -248,13 +249,19 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
+if str(REPO) not in sys.path:
+    sys.path.insert(0, str(REPO))
+from bench import make_test_audio  # noqa: E402  (bench.py imports only numpy at its top)
+
 CLIP = REPO / "tests" / "data" / "heldout" / "heldout_strum_band.wav"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # float min/max per SM per clock on compute capability 9.0 (CUDA C++
@@ -273,7 +280,7 @@ MAIN_PATH_MEDIANS = [
     ((20, 513, 130), 17, -1), ((20, 513, 130), 17, -2),
     ((513, 1292), 17, -1), ((513, 1292), 17, -2),
 ]
-SEPARATED_LAUNCHES = len(MAIN_PATH_MEDIANS) + 2
+MEDIAN_LAUNCHES_PER_SONG = len(MAIN_PATH_MEDIANS) + 2
 # the batch runner's chunks: the same sites on [B, ...] (the content windows
 # of B songs as one [B·20, ...] batch), 8 launches per chunk whatever B is
 CHUNK_SONGS = (4, 2)
@@ -327,18 +334,16 @@ STAGES = ("decode", "separation", "analysis", "beats", "calibration", "transcrip
           "mode", "quantize", "artifacts", "export")
 
 
-# The sequential decoders' kernels: name (that of its source, csrc/<name>.cu)
-# → (port module, its CUDA launcher, the JAX package's lax.scan the kernel
-# replaces, the module's prefix for it: "" where the kernel is the module's
-# only one, else its count is <PREFIX>_LAUNCHES and its functions
-# _<prefix>_launch_args, _<prefix>_launch and build_<prefix>)
+# The sequential decoders' kernels: name (that of its source, csrc/<name>.cu,
+# and of its launch count, <name>_launches) → (port module, the JAX package's
+# lax.scan the kernel replaces)
 DECODERS = {
-    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "_dbn_forward_cuda", "audiotabs_tpu/decode/dbn_beats.py:90", ""),
-    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "_wait_cuda", "audiotabs_tpu/ops/onset.py:70", ""),
-    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "_banded_viterbi_cuda", "audiotabs_tpu/ops/pyin.py:171", ""),
-    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "_viterbi_log_dense_cuda", "audiotabs_tpu/decode/viterbi.py:79", ""),
-    "salience_envelope": ("audiotabs_tpu_torch.models.basicpitch", "_salience_envelope_cuda", "audiotabs_tpu/models/basicpitch.py:201", ""),
-    "constant_switch_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "_viterbi_constant_switch_cuda", "audiotabs_tpu/decode/viterbi.py:46", "switch"),
+    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "audiotabs_tpu/decode/dbn_beats.py:90"),
+    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "audiotabs_tpu/ops/onset.py:70"),
+    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "audiotabs_tpu/ops/pyin.py:171"),
+    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "audiotabs_tpu/decode/viterbi.py:79"),
+    "salience_envelope": ("audiotabs_tpu_torch.models.basicpitch", "audiotabs_tpu/models/basicpitch.py:201"),
+    "constant_switch_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "audiotabs_tpu/decode/viterbi.py:46"),
 }
 # launches per song of the CLI under the shipped settings: the DBN, the onset
 # wait rule of the content windows and of the calibration, pYIN's Viterbi of
@@ -369,37 +374,6 @@ DBN_GRID_CASES = ("random", "constant", "two levels", "one NaN", "NaN row")
 LONG_JOBS = REPO / "build" / "chip_smoke_long"  # git-ignored
 BATCH8_JOBS = REPO / "build" / "chip_smoke_batch8"
 BATCH8_SONGS = 8  # bench.py's batch: eight 30 s songs through transcribe_batch
-
-
-def make_test_audio(duration_s: float = 30.0, sr: int = 22050) -> np.ndarray:
-    """bench.py's synthetic mix (chord pad, melody, percussive clicks), the
-    same numpy operations, so the same bytes (tests/test_torch_long_song.py
-    holds the two equal at 30 s and 180 s); a copy, since the port does not
-    import bench.py."""
-    rng = np.random.default_rng(0)
-    n = int(duration_s * sr)
-    t = np.arange(n) / sr
-    y = np.zeros(n, dtype=np.float64)
-    # chord pad: G D Am C loop, 2 s each
-    chords = [(55, 59, 62), (50, 54, 57), (57, 60, 64), (48, 52, 55)]
-    for i in range(int(duration_s // 2)):
-        pitches = chords[i % 4]
-        seg = slice(int(i * 2 * sr), int(min((i + 1) * 2, duration_s) * sr))
-        ts = t[seg]
-        for p in pitches:
-            f = 440.0 * 2 ** ((p - 69) / 12)
-            y[seg] += 0.12 * np.sin(2 * np.pi * f * ts)
-    # melody: quarter notes at 120 bpm, G major scale walk
-    scale = [67, 69, 71, 72, 74, 72, 71, 69]
-    for i in range(int(duration_s * 2)):
-        p = scale[i % 8]
-        f = 440.0 * 2 ** ((p - 69) / 12)
-        a, b = int(i * 0.5 * sr), int(min((i + 1) * 0.5, duration_s) * sr)
-        ts = t[a:b] - t[a]
-        y[a:b] += 0.3 * np.sin(2 * np.pi * f * ts) * np.exp(-ts * 3)
-        y[a : a + 300] += 0.25 * rng.standard_normal(min(300, b - a))
-    y /= np.abs(y).max() + 1e-9
-    return (0.9 * y).astype(np.float32)
 
 
 def beat_frames(seconds: float, sr: int = 22050, fps: int = 100) -> int:
@@ -739,25 +713,23 @@ def check_outputs(feats: dict, beats: np.ndarray, keys: set) -> None:
     print(f"beats: {beats.size}, first {beats[:4].tolist()}, crf states {np.unique(feats['crf_path']).tolist()}, key argmax {int(np.argmax(feats['key_probs']))}")
 
 
-def drive(median, settings, expect_launches: int) -> tuple:
-    """run_analysis on the card: cold, then twice warm, each song with every
-    kernel's launch count set to 0 just before it (the decoders' per song as
-    the CLI's)."""
+def drive(settings, expect_launches: int) -> tuple:
+    """run_analysis on the card: cold, then twice warm, each song's launches
+    counted from just before it (the decoders' per song as the CLI's)."""
     from audiotabs_tpu_torch.runtime.pipeline import run_analysis
 
-    mods = decoder_modules()
     times = []
     for _ in range(3):
-        zero_counts(median, mods)
+        count = Launches()
         t0 = time.perf_counter()
         feats, beats, info = run_analysis(CLIP, device="cuda", settings=settings)
         times.append(time.perf_counter() - t0)
-        if median.LAUNCHES != expect_launches:
-            raise AssertionError(f"median kernel launched {median.LAUNCHES} times in one song, expected {expect_launches}")
-        decoders = expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, "run_analysis song")
+        if count.median != expect_launches:
+            raise AssertionError(f"median kernel launched {count.median} times in one song, expected {expect_launches}")
+        decoders = count.expect(DECODER_LAUNCHES_PER_SONG, "run_analysis song")
     print(f"run_analysis on {CLIP.name} (ENABLE_DEMUCS={settings.ENABLE_DEMUCS}): cold {times[0]:.3f} s, "
-          f"warm {times[1]:.3f} s / {times[2]:.3f} s, median launches per song {median.LAUNCHES}, decoder launches {decoders}, {info}")
-    return feats, beats, info, median.LAUNCHES
+          f"warm {times[1]:.3f} s / {times[2]:.3f} s, median launches per song {count.median}, decoder launches {decoders}, {info}")
+    return feats, beats, info, count.median
 
 
 def read_out(job: Path) -> dict:
@@ -921,10 +893,10 @@ def traced_copies(run, what: str) -> tuple[dict, int]:
     return traced, 1 + bool(passes.calls)
 
 
-def cli_phase(median, mods: dict, recorder: RecordDecoders, card: str) -> dict:
+def cli_phase(recorder: RecordLaunches, card: str) -> dict:
     """The main path: the port's CLI on the card under the shipped settings,
-    cold and then twice warm, every kernel's launch count set to 0 just
-    before each song and read just after it; the artifacts checked, one warm
+    cold and then twice warm, every kernel's launches counted from just
+    before each song to just after it; the artifacts checked, one warm
     song profiled, and the CPU tail run on the card's own host features."""
     from audiotabs_tpu_torch.config import Settings
     from audiotabs_tpu_torch.io.wav import decode_for_analysis, peak_normalize
@@ -935,20 +907,18 @@ def cli_phase(median, mods: dict, recorder: RecordDecoders, card: str) -> dict:
     with Capture(pipeline, "features_to_host") as feats, Capture(pipeline, "run_pipeline") as result:
         for run in range(3):
             job = JOBS / f"cli{run}"
-            median.LAUNCHES = 0
-            zero_decoders(mods)
+            count = Launches()
             recorder.tag = job.name
             t0 = time.perf_counter()
             rc = cli.main([str(CLIP), "--job-dir", str(job), "--keep"])
             cli_walls.append(time.perf_counter() - t0)
-            launches = median.LAUNCHES
-            decoder_launches = decoder_counts(mods)
+            launches, decoder_launches = count.median, count.decoders
             recorder.tag = None
             walls.append(result.seconds)
             if rc != 0:
                 raise AssertionError(f"cli exited {rc}")
-            if launches != SEPARATED_LAUNCHES:
-                raise AssertionError(f"median kernel launched {launches} times in one CLI song, expected {SEPARATED_LAUNCHES}")
+            if launches != MEDIAN_LAUNCHES_PER_SONG:
+                raise AssertionError(f"median kernel launched {launches} times in one CLI song, expected {MEDIAN_LAUNCHES_PER_SONG}")
             if decoder_launches != DECODER_LAUNCHES_PER_SONG:
                 raise AssertionError(f"decoder kernels launched {decoder_launches} times in one CLI song, expected {DECODER_LAUNCHES_PER_SONG}")
             out = read_out(job)
@@ -999,7 +969,7 @@ def cli_phase(median, mods: dict, recorder: RecordDecoders, card: str) -> dict:
         if a != b:
             raise AssertionError(f"{name}: the CPU tail on the card's features writes other bytes")
     print(f"cpu _pipeline_tail on the card's host features: {len(names)} artifacts byte-equal ({', '.join(names)})")
-    song_shapes = {name: [shape for n, tag, shape, _ in recorder.launches if (n, tag) == (name, job.name)] for name in DECODERS}
+    song_shapes = {name: [r.shape for r in recorder.launches if (r.kernel, r.tag) == (name, job.name)] for name in DECODERS}
     return {"walls": walls, "launches": launches, "decoder_launches": decoder_launches, "decoder_shapes": song_shapes,
             "traced": traced, "out": read_out(job)}
 
@@ -1142,32 +1112,32 @@ def note_rows(out: dict) -> collections.Counter:
 
 
 class CountChunks(Capture):
-    """``batch_runner._analyse_chunk`` with every kernel's launch count set to
-    0 just before each chunk; each chunk's median launches (``launches``) and
-    decoder launches (``decoders``) read just after it."""
+    """``batch_runner._analyse_chunk`` with each chunk's median launches
+    (``launches``) and decoder launches (``decoders``) counted from just
+    before it to just after it."""
 
-    def __init__(self, median, mods: dict):
+    def __init__(self):
         from audiotabs_tpu_torch.runtime import batch_runner
 
         super().__init__(batch_runner, "_analyse_chunk")
-        self.median, self.mods, self.launches, self.decoders = median, mods, [], []
+        self.launches, self.decoders = [], []
 
     def __enter__(self):
         super().__enter__()
         keep = getattr(self.module, self.name)
 
         def counted(*args, **kwargs):
-            zero_counts(self.median, self.mods)
+            count = Launches()
             out = keep(*args, **kwargs)
-            self.launches.append(self.median.LAUNCHES)
-            self.decoders.append(decoder_counts(self.mods))
+            self.launches.append(count.median)
+            self.decoders.append(count.decoders)
             return out
 
         setattr(self.module, self.name, counted)
         return self
 
 
-def counted_batch(median, mods: dict, paths: list, out_root: Path, s, chunks: tuple) -> tuple:
+def counted_batch(paths: list, out_root: Path, s, chunks: tuple) -> tuple:
     """One ``transcribe_batch`` on the card, counted by chunk: it must run in
     chunks of ``chunks`` songs, each with 8 median launches and a CLI song's
     decoder launches (one DBN, one CRF, one salience envelope, two onset and
@@ -1177,14 +1147,14 @@ def counted_batch(median, mods: dict, paths: list, out_root: Path, s, chunks: tu
     from audiotabs_tpu_torch.models import htdemucs
     from audiotabs_tpu_torch.runtime import batch_runner
 
-    with CountChunks(median, mods) as counts, Capture(htdemucs, "separate_program") as sep, \
+    with CountChunks() as counts, Capture(htdemucs, "separate_program") as sep, \
             Capture(batch_runner, "features_to_host") as host:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results = batch_runner.transcribe_batch(paths, out_root, device="cuda", settings=s)
         wall = time.perf_counter() - t0
-    if counts.launches != [SEPARATED_LAUNCHES] * len(chunks):
-        raise AssertionError(f"median launches per chunk {counts.launches}, expected {SEPARATED_LAUNCHES} in each of {len(chunks)}")
+    if counts.launches != [MEDIAN_LAUNCHES_PER_SONG] * len(chunks):
+        raise AssertionError(f"median launches per chunk {counts.launches}, expected {MEDIAN_LAUNCHES_PER_SONG} in each of {len(chunks)}")
     if [args[1].shape[0] for args, _, _ in sep.calls] != list(chunks):
         raise AssertionError(f"chunks of {[args[1].shape[0] for args, _, _ in sep.calls]} songs, expected {list(chunks)}")
     expect = [DECODER_LAUNCHES_PER_SONG] * len(chunks)
@@ -1234,7 +1204,7 @@ def check_batch_rows(sep: Capture, host: Capture, true_lens: list, sr: int, s) -
           f"every one of the {a} rows against fused_analysis on the row: discrete equal, floats within {FLOAT_TOL}, f16 within {F16_TOL}")
 
 
-def batch_phase(median, mods: dict, card: str) -> dict:
+def batch_phase(card: str) -> dict:
     """The batch runner under the shipped settings: the six held-out clips
     (all in the 30 s bucket) in chunks of 4 and 2 songs, cold then warm;
     8 median launches and 1 device-to-host copy per chunk; each row's stems
@@ -1251,30 +1221,30 @@ def batch_phase(median, mods: dict, card: str) -> dict:
     shutil.rmtree(BATCH_JOBS, ignore_errors=True)
     walls = []
     for run in range(2):
-        results, sep, host, counts, wall = counted_batch(median, mods, HELDOUT, BATCH_JOBS, s, CHUNK_SONGS)
+        results, sep, host, counts, wall = counted_batch(HELDOUT, BATCH_JOBS, s, CHUNK_SONGS)
         walls.append(wall)
         print(f"batch run {run} ({'cold' if run == 0 else 'warm'}): {len(HELDOUT)} songs in {walls[-1]:.3f} s, "
               f"median launches per chunk {counts.launches}, decoder launches per chunk {counts.decoders} [{card}]")
     batch, true_lens, sr = batch_runner._load_and_bucket(HELDOUT, s.PAD_SECONDS_BUCKET)
     audio_s = sum(true_lens) / sr
     print(f"batch: {audio_s:.2f} s of audio in {walls[1]:.3f} s warm = {audio_s / walls[1]:.3f} audio-s per wall s (cold {walls[0]:.3f} s) [{card}]")
-    template_chunk = template_chunk_check(median, mods, s, batch, true_lens, sr, card)
+    template_chunk = template_chunk_check(s, batch, true_lens, sr, card)
     check_batch_jobs(results, HELDOUT, BATCH_JOBS)
     warm_rows = {k: np.concatenate([res[k] for _, _, res in host.calls]) for k in host.calls[0][2]}
     check_batch_rows(sep, host, true_lens, sr, s)
 
     # profiler: the whole warm batch, then one chunk of each size alone
     prof = profiled_counts(lambda: batch_runner.transcribe_batch(HELDOUT, BATCH_JOBS / "profiled", device="cuda", settings=s),
-                           SEPARATED_LAUNCHES * len(CHUNK_SONGS), len(CHUNK_SONGS))
+                           MEDIAN_LAUNCHES_PER_SONG * len(CHUNK_SONGS), len(CHUNK_SONGS))
     print(f"batch profile: {json.dumps(prof)} [{card}]")
-    if (prof["median_launches"], prof["dtoh"]) != (SEPARATED_LAUNCHES * len(CHUNK_SONGS), len(CHUNK_SONGS)):
+    if (prof["median_launches"], prof["dtoh"]) != (MEDIAN_LAUNCHES_PER_SONG * len(CHUNK_SONGS), len(CHUNK_SONGS)):
         raise AssertionError(f"profiled batch: {prof['median_launches']} median launches and {prof['dtoh']} device-to-host copies")
     chunks = {}
     for b, rows in zip(CHUNK_SONGS, (batch[:4], batch[4:])):
         lens = true_lens[:4] if b == 4 else true_lens[4:]
-        chunks[b] = profiled_counts(lambda: batch_runner.batched_fused_analysis(rows, sr, lens, device="cuda", settings=s), SEPARATED_LAUNCHES, 1)
+        chunks[b] = profiled_counts(lambda: batch_runner.batched_fused_analysis(rows, sr, lens, device="cuda", settings=s), MEDIAN_LAUNCHES_PER_SONG, 1)
         print(f"chunk of {b} songs alone: {json.dumps(chunks[b])} [{card}]")
-        if (chunks[b]["median_launches"], chunks[b]["dtoh"]) != (SEPARATED_LAUNCHES, 1):
+        if (chunks[b]["median_launches"], chunks[b]["dtoh"]) != (MEDIAN_LAUNCHES_PER_SONG, 1):
             raise AssertionError(f"chunk of {b}: {chunks[b]['median_launches']} median launches, {chunks[b]['dtoh']} device-to-host copies")
 
     # the same six songs one at a time (warm), printed against the batch
@@ -1299,7 +1269,7 @@ def batch_phase(median, mods: dict, card: str) -> dict:
             "profile": prof, "chunks": chunks, "single_s": single, "rows": warm_rows, "template_chunk_decoders": template_chunk}
 
 
-def template_chunk_check(median, mods: dict, s, batch: np.ndarray, true_lens, sr: int, card: str) -> dict:
+def template_chunk_check(s, batch: np.ndarray, true_lens, sr: int, card: str) -> dict:
     """The template chord backend on the batch's first chunk (the first 4
     held-out clips): the decoder launches of a template song for the whole
     chunk (one constant-switch launch), and each row's outputs against
@@ -1312,9 +1282,9 @@ def template_chunk_check(median, mods: dict, s, batch: np.ndarray, true_lens, sr
     b = CHUNK_SONGS[0]
     template = dataclasses.replace(s, CHORD_DETECTION_BACKEND="template")
     with Capture(htdemucs, "separate_program") as sep:
-        zero_counts(median, mods)
+        count = Launches()
         got = batch_runner.batched_fused_analysis(batch[:b], sr, true_lens[:b], device="cuda", settings=template)
-        launches = expect_decoders(mods, TEMPLATE, f"a template chunk of {b} songs")
+        launches = count.expect(TEMPLATE, f"a template chunk of {b} songs")
     if got["chord_path"].shape[0] != b or not np.isfinite(got["chord_conf"]).all():
         raise AssertionError(f"template chunk: chord path {got['chord_path'].shape}, confidences finite {np.isfinite(got['chord_conf']).all()}")
     cfg = htdemucs.program_config(htdemucs.load_params(), s.DEMUCS_MODEL, s.stem_priority())
@@ -1383,14 +1353,14 @@ def compare_long_with_cpu(what: str, cpu: dict, card: dict, stems: tuple, sr: in
     return edges
 
 
-def long_phase(median, mods: dict, recorder: RecordMedians, card: str) -> dict:
+def long_phase(recorder: RecordLaunches, card: str) -> dict:
     """The JAX package's north-star song, bench.py's 180 s synthetic mix
     (``make_test_audio``; ``long_song_wall_s``), under the shipped settings:
 
     - the CLI (``cli.main``, which calls ``run_pipeline``) cold, then warm as
       bench.py runs it (up to 3 warm-ups, then the minimum of 3), every
-      kernel's count set to 0 just before each song: 8 median launches and
-      a CLI song's decoder launches, the guitar stem and the drums as beat
+      kernel's launches counted from just before each song: 8 median
+      launches and a CLI song's decoder launches, the guitar stem and the drums as beat
       source, no stage error, the 30 s CLI song's artifact set, a
       result.json whose score has measures, every stage in profile.json;
     - one warm song traced (device ops, busy share, 1 device-to-host copy,
@@ -1419,15 +1389,15 @@ def long_phase(median, mods: dict, recorder: RecordMedians, card: str) -> dict:
     shipped = Settings.from_env()
 
     with Capture(pipeline, "features_to_host") as feats, Capture(pipeline, "run_pipeline") as result:
-        def run(tag: str, rec: RecordMedians | None = None) -> float:
+        def run(tag: str, rec: RecordLaunches | None = None) -> float:
             job = LONG_JOBS / tag
-            zero_counts(median, mods)
+            count = Launches()
             with rec or contextlib.nullcontext():
                 rc = cli.main([str(wav), "--job-dir", str(job), "--keep"])
-            launches, decoders = median.LAUNCHES, decoder_counts(mods)
+            launches, decoders = count.median, count.decoders
             if rc != 0:
                 raise AssertionError(f"cli exited {rc} on the {LONG_SONG_S} s song")
-            if launches != SEPARATED_LAUNCHES or decoders != DECODER_LAUNCHES_PER_SONG:
+            if launches != MEDIAN_LAUNCHES_PER_SONG or decoders != DECODER_LAUNCHES_PER_SONG:
                 raise AssertionError(f"the {LONG_SONG_S} s song launched the median kernel {launches} times and the decoders {decoders}")
             out = read_out(job)
             bt, res = out["beat_times.json"], out["result.json"]
@@ -1529,10 +1499,10 @@ def long_phase(median, mods: dict, recorder: RecordMedians, card: str) -> dict:
     return {"cold_s": cold, "warmups_s": warmups[1:], "walls_s": walls, "stages": stages, "traced": traced,
             "peak_gib": peak / 2**30, "run_analysis_s": analysis_s, "separation_ms": sep_ms, "separation_peak_gib": sep_peak / 2**30,
             "cpu_separation_s": cpu_sep_s, "stem_err_over_peak": errs, "knife_edges": edges,
-            "launches": SEPARATED_LAUNCHES, "decoder_launches": dict(DECODER_LAUNCHES_PER_SONG)}
+            "launches": MEDIAN_LAUNCHES_PER_SONG, "decoder_launches": dict(DECODER_LAUNCHES_PER_SONG)}
 
 
-def batch8_phase(median, mods: dict, card: str) -> dict:
+def batch8_phase(card: str) -> dict:
     """bench.py's batch: eight 30 s songs (``make_test_audio(30)`` plus
     0.01 N(0, 1) noise from ``default_rng(7)``) through ``transcribe_batch``
     under the shipped settings, two chunks of ``BATCH_SONGS_PER_DEVICE``,
@@ -1560,14 +1530,14 @@ def batch8_phase(median, mods: dict, card: str) -> dict:
         write_wav(paths[-1], y.astype(np.float32), sr)
     walls = []
     for run in range(4):
-        results, sep, host, counts, wall = counted_batch(median, mods, paths, BATCH8_JOBS / f"run{run}", s, chunks)
+        results, sep, host, counts, wall = counted_batch(paths, BATCH8_JOBS / f"run{run}", s, chunks)
         walls.append(wall)
         print(f"batch of {BATCH8_SONGS} run {run} ({'cold' if run == 0 else 'warm'}): {wall:.3f} s, median launches per chunk "
               f"{counts.launches}, decoder launches per chunk {counts.decoders} [{card}]")
     check_batch_jobs(results, paths, BATCH8_JOBS / "run3")
     _, true_lens, _ = batch_runner._load_and_bucket(paths, s.PAD_SECONDS_BUCKET)
     check_batch_rows(sep, host, true_lens, sr, s)
-    launches, dtoh = SEPARATED_LAUNCHES * len(chunks), len(chunks)
+    launches, dtoh = MEDIAN_LAUNCHES_PER_SONG * len(chunks), len(chunks)
     prof = profiled_counts(lambda: batch_runner.transcribe_batch(paths, BATCH8_JOBS / "profiled", device="cuda", settings=s), launches, dtoh)
     if (prof["median_launches"], prof["dtoh"]) != (launches, dtoh):
         raise AssertionError(f"profiled batch of {BATCH8_SONGS}: {prof['median_launches']} median launches and {prof['dtoh']} device-to-host copies")
@@ -1581,7 +1551,7 @@ def batch8_phase(median, mods: dict, card: str) -> dict:
 MESH_JOBS = REPO / "build" / "chip_smoke_mesh"  # git-ignored
 
 
-def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
+def mesh_phase(card: str, batch: dict) -> dict:
     """The device mesh (parallel/), on the machine's one card:
 
     a. ``transcribe_batch`` over the six held-out clips with
@@ -1614,11 +1584,11 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
             keep = getattr(self.module, self.name)
 
             def counted(*args, **kwargs):
-                zero_counts(median, mods)
+                count = Launches()
                 out = keep(*args, **kwargs)
-                per_shard.append((args[0].shape[0], median.LAUNCHES))
+                per_shard.append((args[0].shape[0], count.median))
                 # one DBN, one CRF, one salience envelope, two onset and one banded Viterbi launch per shard
-                expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, f"a device shard of {args[0].shape[0]} rows")
+                count.expect(DECODER_LAUNCHES_PER_SONG, f"a device shard of {args[0].shape[0]} rows")
                 return out
 
             setattr(self.module, self.name, counted)
@@ -1635,8 +1605,8 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
         t0 = time.perf_counter()
         results = batch_runner.transcribe_batch(HELDOUT, MESH_JOBS, mesh=mesh, settings=s)
         wall = time.perf_counter() - t0
-    if per_shard != [(b, SEPARATED_LAUNCHES) for b in CHUNK_SONGS]:
-        raise AssertionError(f"default mesh: (songs, median launches) per device shard {per_shard}, expected {SEPARATED_LAUNCHES} for each of {list(CHUNK_SONGS)}")
+    if per_shard != [(b, MEDIAN_LAUNCHES_PER_SONG) for b in CHUNK_SONGS]:
+        raise AssertionError(f"default mesh: (songs, median launches) per device shard {per_shard}, expected {MEDIAN_LAUNCHES_PER_SONG} for each of {list(CHUNK_SONGS)}")
     rows = {k: np.concatenate([res[k] for _, _, res in host.calls]) for k in host.calls[0][2]}
     for i, (clip, r) in enumerate(zip(HELDOUT, results)):
         compare_with_cpu(f"mesh row {i} vs batch row", {k: v[i] for k, v in batch["rows"].items()}, {k: v[i] for k, v in rows.items()}, quiet=True)
@@ -1655,13 +1625,13 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
     two = make_mesh((2,), ("data",), devices=[torch.device("cuda:0")] * 2)
     data, true_lens, sr = batch_runner._load_and_bucket(HELDOUT, s.PAD_SECONDS_BUCKET)
     two_way = {}
-    with RecordMedians(keep=2) as recorder:
+    with RecordLaunches(["median_filter"], keep=2) as recorder:
         for b in (6, 5):
             n_dev = two.shape["data"]
             rows_padded = b + (-b) % n_dev
             chunk = n_dev * s.BATCH_SONGS_PER_DEVICE
             shards = [min(chunk, rows_padded - a) // n_dev for a in range(0, rows_padded, chunk) for _ in range(n_dev)]
-            expect = [(n, SEPARATED_LAUNCHES) for n in shards]  # counted from the code: 8 per device shard
+            expect = [(n, MEDIAN_LAUNCHES_PER_SONG) for n in shards]  # counted from the code: 8 per device shard
             per_shard.clear()
             with CountShards(batch_runner, "_analyse_chunk"):
                 torch.cuda.synchronize()
@@ -1677,7 +1647,7 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
             two_way[b] = sum(n for _, n in per_shard)
             print(f"mesh b (2-way data mesh on one card, B = {b}, {(-b) % n_dev} pad rows): {wall:.3f} s, (rows, median launches) per device shard "
                   f"{per_shard}; every row equal to the 1-way mesh's (discrete equal, floats within {FLOAT_TOL}) [{card}]")
-    shapes = new_shape_kernel_check(median, recorder)
+    shapes = new_shape_kernel_check(recorder)
 
     # c. the model axis: the shipped checkpoint's weights over "model" = 2
     params = htdemucs.load_params()
@@ -1712,11 +1682,11 @@ def mesh_phase(median, mods: dict, card: str, batch: dict) -> dict:
     return {"launches_default_mesh_per_chunk": launches_default, "launches_two_way": two_way, "new_shapes": shapes, "model_axis": model_axis}
 
 
-def serving_phase(median, mods: dict, card: str, cli_result: dict) -> list[int]:
+def serving_phase(card: str, cli_result: dict) -> list[int]:
     """The job API on the card: an inline job and a queued job drained by
-    the worker, each with every launch count set to 0 just before it (8 median
-    launches each, the decoders' as a CLI song's); every artifact route; the
-    inline result.json against the CLI's. Returns the two jobs' median launch counts."""
+    the worker, each with every kernel's launches counted from just before
+    it (8 median launches each, the decoders' as a CLI song's); every
+    artifact route; the inline result.json against the CLI's. Returns the two jobs' median launch counts."""
     import http.client
     import socket
 
@@ -1743,12 +1713,12 @@ def serving_phase(median, mods: dict, card: str, cli_result: dict) -> list[int]:
             raise AssertionError("health check failed")
         clip, queued = CLIP, REPO / "tests" / "data" / "heldout" / "heldout_picked_melody.wav"
         launches = []
-        zero_counts(median, mods)
+        count = Launches()
         t0 = time.perf_counter()
         status, _, data = request("POST", "/v1/jobs?inline=1", body=clip.read_bytes(), headers={"X-Filename": clip.name})
         inline_s = time.perf_counter() - t0
-        launches.append(median.LAUNCHES)
-        expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, "the inline job")
+        launches.append(count.median)
+        count.expect(DECODER_LAUNCHES_PER_SONG, "the inline job")
         inline = json.loads(data)
         if status != 200 or inline["status"] != "done":
             raise AssertionError(f"inline job: {status} {inline}")
@@ -1756,15 +1726,15 @@ def serving_phase(median, mods: dict, card: str, cli_result: dict) -> list[int]:
         job = json.loads(data)
         if status != 200 or job["status"] != "queued":
             raise AssertionError(f"queued job: {status} {job}")
-        zero_counts(median, mods)
+        count = Launches()
         t0 = time.perf_counter()
         if worker.main(["--data-dir", str(SERVE_DATA), "--once"]) != 0:
             raise AssertionError("worker exited non-zero")
         worker_s = time.perf_counter() - t0
-        launches.append(median.LAUNCHES)
-        expect_decoders(mods, DECODER_LAUNCHES_PER_SONG, "the queued job")
-        if launches != [SEPARATED_LAUNCHES] * 2:
-            raise AssertionError(f"median launches of the inline and the queued job {launches}, expected {SEPARATED_LAUNCHES} each")
+        launches.append(count.median)
+        count.expect(DECODER_LAUNCHES_PER_SONG, "the queued job")
+        if launches != [MEDIAN_LAUNCHES_PER_SONG] * 2:
+            raise AssertionError(f"median launches of the inline and the queued job {launches}, expected {MEDIAN_LAUNCHES_PER_SONG} each")
         deadline = time.perf_counter() + 60
         while True:
             info = json.loads(request("GET", f"/v1/jobs/{job['job_id']}")[2])
@@ -1792,38 +1762,6 @@ def serving_phase(median, mods: dict, card: str, cli_result: dict) -> list[int]:
           f"median launches {launches}, decoder launches {DECODER_LAUNCHES_PER_SONG} each; {len(ROUTES)} artifact routes of both jobs 200 with their content types; "
           f"inline result.json equals the CLI's [{card}]")
     return launches
-
-
-class RecordMedians:
-    """Records every median launch on the card made through ops/hpss.py (the
-    HPSS and mask sites): its (shape, window, axis) and a copy of its input,
-    or with ``keep`` a copy of the first ``keep`` inputs of each site only."""
-
-    def __init__(self, keep: int | None = None):
-        self.launches: list[tuple[tuple, int, int, torch.Tensor | None]] = []
-        self.keep = keep
-
-    def __enter__(self):
-        # the module: audiotabs_tpu_torch.ops re-exports the hpss function under its name
-        hpss = importlib.import_module("audiotabs_tpu_torch.ops.hpss")
-        self.hpss, self.fn = hpss, hpss.median_filter
-
-        def record(x, win, axis=-1):
-            if x.is_cuda:
-                site = (tuple(x.shape), win, -1 if axis % x.ndim == x.ndim - 1 else -2)
-                kept = sum(1 for launch in self.launches if launch[:3] == site and launch[3] is not None)
-                self.launches.append((*site, x.detach().clone() if self.keep is None or kept < self.keep else None))
-            return self.fn(x, win, axis)
-
-        hpss.median_filter = record
-        return self
-
-    def __exit__(self, *exc):
-        self.hpss.median_filter = self.fn
-        return False
-
-    def sites(self) -> list[tuple[tuple, int, int]]:
-        return [(shape, win, axis) for shape, win, axis, _ in self.launches]
 
 
 def encode_mp3(path: Path, pcm: np.ndarray, sr: int, kbps: int = 192) -> bool:
@@ -1856,7 +1794,7 @@ def encode_mp3(path: Path, pcm: np.ndarray, sr: int, kbps: int = 192) -> bool:
     return True
 
 
-def decode_phase(median, mods: dict, card: str, cli_result: dict) -> dict:
+def decode_phase(card: str, cli_result: dict) -> dict:
     """Which decoders the machine has; the native resampler against scipy's;
     uploads of other formats as inline jobs on the card (see step 10)."""
     import ctypes
@@ -1914,16 +1852,16 @@ def decode_phase(median, mods: dict, card: str, cli_result: dict) -> dict:
     jobs = {}
     try:
         for name, body in uploads.items():
-            zero_counts(median, mods)
+            count = Launches()
             t0 = time.perf_counter()
             conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
             conn.request("POST", "/v1/jobs?inline=1", body=body, headers={"X-Filename": name})
             resp = conn.getresponse()
             info = json.loads(resp.read())
             conn.close()
-            jobs[name] = (resp.status, info, time.perf_counter() - t0, median.LAUNCHES)
+            jobs[name] = (resp.status, info, time.perf_counter() - t0, count.median)
             # an upload no decoder takes launches nothing; the others as a CLI song
-            expect_decoders(mods, dict.fromkeys(DECODERS, 0) if name == "noise.ogg" else DECODER_LAUNCHES_PER_SONG, f"upload {name}")
+            count.expect(dict.fromkeys(DECODERS, 0) if name == "noise.ogg" else DECODER_LAUNCHES_PER_SONG, f"upload {name}")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1941,7 +1879,7 @@ def decode_phase(median, mods: dict, card: str, cli_result: dict) -> dict:
             print(f"undecodable upload {name}: job error {err!r}, no median or decoder launch")
             continue
         result = json.loads((job / "out" / "result.json").read_text()) if info["status"] == "done" else {}
-        if status != 200 or info["status"] != "done" or launches != SEPARATED_LAUNCHES or result["transcription_error"] is not None:
+        if status != 200 or info["status"] != "done" or launches != MEDIAN_LAUNCHES_PER_SONG or result["transcription_error"] is not None:
             raise AssertionError(f"inline job {name}: {status} {info}, {launches} median launches, errors {result.get('transcription_error')}")
         labels = [c["label"] for c in result["chords"]], [c["label"] for c in cli_result["chords"]]
         if result["key_signature"]["name"] != cli_result["key_signature"]["name"] or labels[0] != labels[1]:
@@ -1989,15 +1927,15 @@ DEGRADED = DECODER_LAUNCHES_PER_SONG | {"salience_envelope": 0}
 SETTINGS_CASES = {
     # name: (environment, median launches per song, decoder launches per song,
     #        whether the tail decodes again on the device)
-    "notes": ({"TRANSCRIPTION_MODE": "notes"}, SEPARATED_LAUNCHES, DECODER_LAUNCHES_PER_SONG, False),
-    "template": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7"}, SEPARATED_LAUNCHES, TEMPLATE, False),
-    "template_majmin7plus": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7plus"}, SEPARATED_LAUNCHES,
+    "notes": ({"TRANSCRIPTION_MODE": "notes"}, MEDIAN_LAUNCHES_PER_SONG, DECODER_LAUNCHES_PER_SONG, False),
+    "template": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7"}, MEDIAN_LAUNCHES_PER_SONG, TEMPLATE, False),
+    "template_majmin7plus": ({"CHORD_DETECTION_BACKEND": "template", "CHORD_VOCAB": "majmin7plus"}, MEDIAN_LAUNCHES_PER_SONG,
                              TEMPLATE_OTHER_VOCAB, True),
-    "content": ({"CONTENT_ANALYSIS_WINDOW_SEC": "4.0", "CONTENT_ANALYSIS_HOP_SEC": "2.0"}, SEPARATED_LAUNCHES + 2, OWN_WINDOWS, True),
+    "content": ({"CONTENT_ANALYSIS_WINDOW_SEC": "4.0", "CONTENT_ANALYSIS_HOP_SEC": "2.0"}, MEDIAN_LAUNCHES_PER_SONG + 2, OWN_WINDOWS, True),
 }
 
 
-def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dict:
+def settings_phase(card: str, name: str, recorder: RecordLaunches) -> dict:
     """One setting through the CLI on the card; the CPU tail on its host features."""
     import os
 
@@ -2006,7 +1944,6 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
     from audiotabs_tpu_torch.runtime import cli, pipeline
 
     env, expect, expect_dec, redecodes = SETTINGS_CASES[name]
-    mods = decoder_modules()
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -2015,9 +1952,9 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
         shutil.rmtree(job, ignore_errors=True)
         n_before = len(recorder.launches)
         with Capture(pipeline, "features_to_host") as feats, Capture(pipeline, "run_pipeline") as result:
-            zero_counts(median, mods)
+            count = Launches()
             rc = cli.main([str(CLIP), "--job-dir", str(job), "--keep"])
-            launches, decoders = median.LAUNCHES, decoder_counts(mods)
+            launches, decoders = count.median, count.decoders
         sites = recorder.sites()[n_before:]
         traced = None
         if name == "template":  # the constant-switch Viterbi's path: one warm song traced
@@ -2066,7 +2003,7 @@ def settings_phase(median, card: str, name: str, recorder: RecordMedians) -> dic
     return {"launches": launches, "decoder_launches": decoders, "sites": sites, "wall_s": result.seconds, "profile": prof, "traced": traced}
 
 
-def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
+def degraded_phase(card: str, recorder: RecordLaunches) -> dict:
     """fused_analysis made to raise: run_pipeline on the card recomputes every
     stage; against a CPU run of the same path on the card's stems."""
     from audiotabs_tpu_torch.config import Settings
@@ -2076,7 +2013,6 @@ def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
         raise RuntimeError("forced")
 
     shipped = Settings()
-    mods = decoder_modules()
     runs = []
     real = pipeline.fused_analysis
     pipeline.fused_analysis = fail
@@ -2086,13 +2022,13 @@ def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
             shutil.rmtree(job, ignore_errors=True)
             n_before = len(recorder.launches)
             with Capture(pipeline, "separate_stems_device") as sep:
-                zero_counts(median, mods)
+                count = Launches()
                 t0 = time.perf_counter()
                 res = pipeline.run_pipeline(job, CLIP, device="cuda", settings=shipped)
                 wall = time.perf_counter() - t0
-                launches = median.LAUNCHES
+                launches = count.median
                 # each stage decodes again on the card: the decoder launches of a fused song but the salience's
-                decoders = expect_decoders(mods, DEGRADED, f"degraded run {run}")
+                decoders = count.expect(DEGRADED, f"degraded run {run}")
             out = read_out(job)
             sites = recorder.sites()[n_before:]
             print(f"degraded run {run} ({'cold' if run == 0 else 'warm'}): {wall:.3f} s, median launches {launches} at {sites}, decoder launches {decoders}, "
@@ -2129,17 +2065,19 @@ def degraded_phase(median, card: str, recorder: RecordMedians) -> dict:
     return {"runs": runs, "cpu_s": cpu_s}
 
 
-def new_shape_kernel_check(median, recorder: RecordMedians) -> dict:
+def new_shape_kernel_check(recorder: RecordLaunches) -> dict:
     """The kernel exactly against its plain version on every launch the new
     paths made (the launched inputs), and at each new shape on random and
     tie-heavy inputs; each new shape timed as check_kernel times the others."""
+    from audiotabs_tpu_torch.ops import median
+
     rng = np.random.default_rng(1)
     known = {(shape, win, axis) for shape, win, axis in MAIN_PATH_MEDIANS}
     err = 0.0
-    for shape, win, axis, x in recorder.launches:
-        if x is None:
+    for (shape, win, axis), launch in zip(recorder.sites(), recorder.launches):
+        if launch.args is None:
             continue
-        got, ref = median.median_filter(x, win, axis), median.median_filter_plain(x, win, axis)
+        got, ref = median.median_filter(*launch.args), median.median_filter_plain(*launch.args)
         if not torch.equal(got, ref):
             raise AssertionError(f"median kernel differs from the plain version on a launched input {shape} win {win} axis {axis}")
     rows = {}
@@ -2158,7 +2096,7 @@ def new_shape_kernel_check(median, recorder: RecordMedians) -> dict:
         )
         rows[f"{'x'.join(map(str, shape))} win {win} axis {axis}"] = row
         print("median new shape", json.dumps(dict(shape=list(shape), win=win, axis=axis, **row)))
-    kept = sum(1 for launch in recorder.launches if launch[3] is not None)
+    kept = sum(1 for launch in recorder.launches if launch.args is not None)
     print(f"median exact on the {kept} kept of the {len(recorder.launches)} launched inputs of the new paths "
           f"(all of them unless the recorder keeps fewer) and at {len(rows)} new shapes (random and tie-heavy)")
     return {"max_abs_err": err, "rows": rows}
@@ -2167,74 +2105,95 @@ def new_shape_kernel_check(median, recorder: RecordMedians) -> dict:
 
 
 def decoder_modules() -> dict:
-    return {name: importlib.import_module(mod) for name, (mod, _, _, _) in DECODERS.items()}
+    return {name: importlib.import_module(mod) for name, (mod, _) in DECODERS.items()}
 
 
-def decoder_api(mods: dict, name: str) -> tuple:
-    """(the name of its launch count, _launch_args, _launch, build) of a decoder kernel in its module."""
-    m, prefix = mods[name], DECODERS[name][3]
-    if not prefix:
-        return "LAUNCHES", m._launch_args, m._launch, m.build
-    return f"{prefix.upper()}_LAUNCHES", getattr(m, f"_{prefix}_launch_args"), getattr(m, f"_{prefix}_launch"), getattr(m, f"build_{prefix}")
+class Launches:
+    """The kernels' launches since it was made, from the tracer's counters
+    (``<kernel>_launches``, which ``_build.launch`` adds to): ``median`` and
+    ``decoders`` (by kernel)."""
+
+    def __init__(self):
+        from audiotabs_tpu_torch import tracing
+
+        self.tracing, self.start = tracing, tracing.counters()
+
+    def of(self, name: str) -> int:
+        key = f"{name}_launches"
+        return self.tracing.counters().get(key, 0) - self.start.get(key, 0)
+
+    @property
+    def median(self) -> int:
+        return self.of("median_filter")
+
+    @property
+    def decoders(self) -> dict[str, int]:
+        return {name: self.of(name) for name in DECODERS}
+
+    def expect(self, expect: dict, what: str) -> dict[str, int]:
+        """The decoder kernels' launches, which must be ``expect``."""
+        got = self.decoders
+        if got != expect:
+            raise AssertionError(f"{what}: decoder kernels launched {got} times, expected {expect}")
+        return got
 
 
-def zero_decoders(mods: dict) -> None:
-    for name, m in mods.items():
-        setattr(m, decoder_api(mods, name)[0], 0)
+class Launch(NamedTuple):
+    kernel: str
+    tag: str | None  # the tag the recorder's caller set
+    shape: tuple  # the shape of the op's first argument
+    scalars: tuple  # the op's arguments that are not tensors
+    args: tuple | None  # a copy of the op's arguments, or None
 
 
-def decoder_counts(mods: dict) -> dict:
-    return {name: getattr(m, decoder_api(mods, name)[0]) for name, m in mods.items()}
+class RecordLaunches:
+    """Records every launch of the kernels ``kernels`` made while it is
+    entered (``launches``), with a copy of the op's arguments for the first
+    ``keep`` launches at each (kernel, shape, scalars), every launch's where
+    ``keep`` is None. It wraps the port's two seams of a hand kernel:
+    ``_build.plain_or_kernel``, which every op calls with its arguments, and
+    ``_build.launch``, which names the kernel."""
 
-
-def zero_counts(median, mods: dict) -> None:
-    """Every kernel's launch count to 0."""
-    median.LAUNCHES = 0
-    zero_decoders(mods)
-
-
-def expect_decoders(mods: dict, expect: dict, what: str) -> dict:
-    """The decoder kernels' launch counts, which must be ``expect``."""
-    got = decoder_counts(mods)
-    if got != expect:
-        raise AssertionError(f"{what}: decoder kernels launched {got} times, expected {expect}")
-    return got
-
-
-class RecordDecoders:
-    """Records every launch of the decoder kernels: which kernel, the tag the
-    caller set (``tag``), the input's shape, and a copy of the first ``keep``
-    inputs at each (kernel, shape)."""
-
-    def __init__(self, mods: dict, keep: int = 2):
-        self.mods, self.keep, self.tag = mods, keep, None
-        self.launches: list[tuple[str, str | None, tuple, tuple | None]] = []
-        self.saved = {}
+    def __init__(self, kernels, keep: int | None = None):
+        self.kernels, self.keep, self.tag = set(kernels), keep, None
+        self.launches: list[Launch] = []
+        self._op = threading.local()
 
     def __enter__(self):
-        for name, (_, launcher, _, _) in DECODERS.items():
-            m = self.mods[name]
-            fn = getattr(m, launcher)
-            self.saved[name] = fn
+        from audiotabs_tpu_torch import _build
 
-            def record(*args, name=name, fn=fn):
-                shape = tuple(args[0].shape)
-                kept = sum(1 for n, _, s, a in self.launches if (n, s) == (name, shape) and a is not None)
-                copy = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args) if kept < self.keep else None
-                self.launches.append((name, self.tag, shape, copy))
-                return fn(*args)
+        self._build, self._saved = _build, (_build.plain_or_kernel, _build.launch)
+        dispatch, launch = self._saved
 
-            setattr(m, launcher, record)
+        def on_op(op, plain, kernel, *args):
+            self._op.args = args
+            return dispatch(op, plain, kernel, *args)
+
+        def on_launch(name, *rest, **kwargs):
+            if name in self.kernels:
+                args = self._op.args
+                shape, scalars = tuple(args[0].shape), tuple(a for a in args if not isinstance(a, torch.Tensor))
+                kept = sum(1 for r in self.launches if (r.kernel, r.shape, r.scalars) == (name, shape, scalars) and r.args is not None)
+                copy = None
+                if self.keep is None or kept < self.keep:
+                    copy = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args)
+                self.launches.append(Launch(name, self.tag, shape, scalars, copy))
+            return launch(name, *rest, **kwargs)
+
+        _build.plain_or_kernel, _build.launch = on_op, on_launch
         return self
 
     def __exit__(self, *exc):
-        for name, (_, launcher, _, _) in DECODERS.items():
-            setattr(self.mods[name], launcher, self.saved[name])
+        self._build.plain_or_kernel, self._build.launch = self._saved
         return False
+
+    def sites(self) -> list[tuple[tuple, int, int]]:
+        """(shape, window, axis: -1 or -2) of each median launch."""
+        return [(r.shape, r.scalars[0], -1 if r.scalars[1] == len(r.shape) - 1 else -2) for r in self.launches]
 
 
 def decoder_calls(mods: dict) -> dict:
-    """For each kernel: (the wrapper that launches it, its plain version), both taking the launcher's arguments."""
+    """For each kernel: (the op that launches it, its plain version), both taking the op's arguments."""
     dbn, onset, pyin, vit, bp = (mods[n] for n in ("dbn_viterbi", "onset_wait", "banded_viterbi", "dense_viterbi", "salience_envelope"))
     return {
         "dbn_viterbi": (dbn._dbn_forward, dbn._dbn_forward_plain),
@@ -2393,7 +2352,7 @@ def decoder_work(name: str, args: tuple, mods: dict) -> tuple[int, int, int]:
     return adds, compares, em.numel() * 4 + S * S * 4 + S * 4 + B * T * 4 + B * 4
 
 
-def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
+def decoders_phase(mods: dict, recorder: RecordLaunches, mhz: float) -> dict:
     """Each decoder kernel bit-equal to its plain version on the card at
     every shape the paths launched it at (their own inputs, random and
     tie-heavy ones): the DBN on the 30 s bucket ([1, 3007]; batch chunks of
@@ -2401,8 +2360,8 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
     analysis) and on the trainers' validation clips, the onset rule and pYIN
     on the calibration and content-window batches, the CRF on every song and
     training clip. Each shape timed: the kernel by CUDA events on inputs
-    prepared once (``_launch_args``, then ``_launch`` alone) and in the
-    profiler, the wrapper with torch's preparation, the plain loop on the
+    prepared once (the op's one ``_build.launch``, made again alone) and in
+    the profiler, the wrapper with torch's preparation, the plain loop on the
     card; beside the bound at ``mhz``."""
     from audiotabs_tpu_torch import _build
     from audiotabs_tpu_torch.config import Settings
@@ -2415,10 +2374,10 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
     rng = np.random.default_rng(2)
     calls = decoder_calls(mods)
     shapes: dict[str, dict[tuple, list]] = {name: {} for name in DECODERS}
-    for name, tag, shape, args in recorder.launches:
-        kept = shapes[name].setdefault(shape, [])
-        if args is not None:
-            kept.append(args)
+    for r in recorder.launches:
+        kept = shapes[r.kernel].setdefault(r.shape, [])
+        if r.args is not None:
+            kept.append(r.args)
     bucket = decoder_shapes_at(Settings().PAD_SECONDS_BUCKET)
     for name, at in bucket.items():
         one_song = next(iter(at))
@@ -2435,7 +2394,6 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
     out, spills = {}, []
     for name, by_shape in shapes.items():
         kernel, plain = calls[name]
-        _, launch_args, launch, _ = decoder_api(mods, name)
         rows, err = {}, 0.0
         # shapes no path launched: the 180 s song's (the long phase launches
         # them at [1, ...]; the rest are held here), another layout's; and
@@ -2472,18 +2430,20 @@ def decoders_phase(mods: dict, recorder: RecordDecoders, mhz: float) -> dict:
                 continue
             args = next(iter(cases.values())) if held else like
             once = held or long_song  # plain loops of seconds: timed once, after the checks' runs
-            prepared = launch_args(*args)
+            with Capture(_build, "launch") as op_launch:
+                kernel(*args)
+            (launch_args, launch_kw, _), = op_launch.calls
             adds, compares, nbytes = decoder_work(name, args, mods)
             row = dict(
-                ms=cuda_ms(lambda: launch(*prepared), reps=20),
-                single_ms=cuda_ms(lambda: launch(*prepared), reps=10, spin=False),
-                device_ms=device_ms(lambda: launch(*prepared), reps=10, key=f"{name}_kernel"),
+                ms=cuda_ms(lambda: _build.launch(*launch_args, **launch_kw), reps=20),
+                single_ms=cuda_ms(lambda: _build.launch(*launch_args, **launch_kw), reps=10, spin=False),
+                device_ms=device_ms(lambda: _build.launch(*launch_args, **launch_kw), reps=10, key=f"{name}_kernel"),
                 wrapper_ms=cuda_ms(lambda: kernel(*args), reps=10),
                 plain_ms=cuda_ms(lambda: plain(*args), reps=1, warmup=0) if once else cuda_ms(lambda: plain(*args), reps=3, warmup=1),
                 adds=adds, compares=compares, bytes=nbytes,
                 ops_bound_ms=max(adds / add_rate, compares / compare_rate) * 1e3, byte_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 frames=shape[-2] if name in ("banded_viterbi", "dense_viterbi") else shape[-1],
-                cases=sorted(cases), launched=sum(1 for n, _, s, _ in recorder.launches if (n, s) == (name, shape)),
+                cases=sorted(cases), launched=sum(1 for r in recorder.launches if (r.kernel, r.shape) == (name, shape)),
                 long_song=long_song, other_layout=held and not long_song and grid is None, grid=list(grid) if grid else None,
             )
             row["bound_ms"] = max(row["ops_bound_ms"], row["byte_bound_ms"])
@@ -2519,7 +2479,7 @@ def decoder_entry(name: str, measured: dict, main_path: dict, batch: dict, by_pa
         "name": name,
         "route": "cuda",
         "source": f"audiotabs_tpu_torch/csrc/{name}.cu",
-        "replaces": DECODERS[name][2],
+        "replaces": DECODERS[name][1],
         "path": path,
         "launches": main_path["decoder_launches"][name],
         "launches_per_batch_chunk": [c[name] for c in batch["decoder_launches_per_chunk"]],
@@ -2553,7 +2513,7 @@ TRAIN_DIR = REPO / "build" / "chip_smoke_train"  # git-ignored: checkpoint copie
 HTDEMUCS_TRAIN = dict(n_clips=8, steps=10, batch=4, seed=0, sources=6, n_val=2)
 GRAD_RTOL = 1e-3  # card against CPU: step-0 loss and global gradient norm
 # median launches per trainer in the train phase, counted from the code (PERF.md §6)
-TRAIN_LAUNCHES = {"htdemucs": 8, "beat_rnn": 20, "key_cnn": 124, "deepchroma": 36, "crf_chords": 140, "basicpitch": 24}
+MEDIAN_LAUNCHES_BY_TRAINER = {"htdemucs": 8, "beat_rnn": 20, "key_cnn": 124, "deepchroma": 36, "crf_chords": 140, "basicpitch": 24}
 # decoder launches per trainer, counted from the code: htdemucs' gates decode
 # the beats of 2 validation clips from the separated and from the HPSS drums
 # (4); the BLSTM's three evaluations (its epoch, the ensemble, the onset
@@ -2565,7 +2525,7 @@ TRAIN_LAUNCHES = {"htdemucs": 8, "beat_rnn": 20, "key_cnn": 124, "deepchroma": 3
 # (chords/extract.py::chroma_features), DeepChroma's salience chroma of its 10
 # validation clips, Basic Pitch's salience baseline on its 12 validation and
 # the 6 held-out clips (18)
-TRAIN_DECODER_LAUNCHES = {
+DECODER_LAUNCHES_BY_TRAINER = {
     "htdemucs": {"dbn_viterbi": 4},
     "beat_rnn": {"dbn_viterbi": 24},
     "key_cnn": {"salience_envelope": 24},
@@ -2594,7 +2554,7 @@ def timed_steps(name: str, step, dev: torch.device, n: int = 6) -> dict:
     return row
 
 
-def train_phase(median, recorder: RecordMedians, dev: torch.device = torch.device("cuda")) -> dict:
+def train_phase(recorder: RecordLaunches, dev: torch.device = torch.device("cuda")) -> dict:
     """``train_trainers`` in a fresh ``TRAIN_DIR``, with the trainers' dataset
     caches (under ``tempfile.gettempdir()``) kept in it, so that every run
     builds its datasets on this device and makes the same median launches."""
@@ -2602,18 +2562,18 @@ def train_phase(median, recorder: RecordMedians, dev: torch.device = torch.devic
     (TRAIN_DIR / "tmp").mkdir(parents=True)
     old_tmp, tempfile.tempdir = tempfile.tempdir, str(TRAIN_DIR / "tmp")
     try:
-        out = train_trainers(median, recorder, dev)
+        out = train_trainers(recorder, dev)
     finally:
         tempfile.tempdir = old_tmp
-    if out["launches"] != TRAIN_LAUNCHES:
-        raise AssertionError(f"median launches by trainer {out['launches']}, counted from the code {TRAIN_LAUNCHES}")
-    expect = {t: dict.fromkeys(DECODERS, 0) | n for t, n in TRAIN_DECODER_LAUNCHES.items()}
+    if out["launches"] != MEDIAN_LAUNCHES_BY_TRAINER:
+        raise AssertionError(f"median launches by trainer {out['launches']}, counted from the code {MEDIAN_LAUNCHES_BY_TRAINER}")
+    expect = {t: dict.fromkeys(DECODERS, 0) | n for t, n in DECODER_LAUNCHES_BY_TRAINER.items()}
     if out["decoder_launches"] != expect:
         raise AssertionError(f"decoder launches by trainer {out['decoder_launches']}, counted from the code {expect}")
     return out
 
 
-def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
+def train_trainers(recorder: RecordLaunches, dev: torch.device) -> dict:
     """The port's trainers on the card (all six), with the median launches they make.
 
     htdemucs at the shipped width: resumed from a copy of the shipped
@@ -2630,7 +2590,6 @@ def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
     from audiotabs_tpu_torch.train import htdemucs_train, key_cnn_train
     from audiotabs_tpu_torch.train.optim import Trainer
 
-    mods = decoder_modules()
     launches, decoders, result = {}, {}, {}
 
     def gates(name: str, res: dict) -> None:
@@ -2684,12 +2643,12 @@ def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
         if not abs(a - b) <= GRAD_RTOL * abs(b):
             raise AssertionError(f"htdemucs step-0 {what} on the card {a} is not within rtol {GRAD_RTOL} of the CPU's {b}")
 
-    zero_counts(median, mods)
+    count = Launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = htdemucs_train.train(out_path=str(ckpt), resume=True, device=dev, **cfg)
     wall = time.perf_counter() - t0
-    launches["htdemucs"], decoders["htdemucs"] = median.LAUNCHES, decoder_counts(mods)
+    launches["htdemucs"], decoders["htdemucs"] = count.median, count.decoders
     losses = res["losses"]
     if len(losses) != cfg["steps"] or not all(np.isfinite(losses)):
         raise AssertionError(f"htdemucs training losses: {losses}")
@@ -2708,13 +2667,13 @@ def train_trainers(median, recorder: RecordMedians, dev: torch.device) -> dict:
     rng = np.random.default_rng(0)
 
     def run(name: str, steps_fn, train_fn) -> None:
-        zero_counts(median, mods)
+        count = Launches()
         t0 = time.perf_counter()
         row = timed_steps(name, steps_fn(), dev)
         res = train_fn()
         row["wall_s"] = time.perf_counter() - t0
         row["saved"] = bool(res.get("saved"))
-        launches[name], decoders[name] = median.LAUNCHES, decoder_counts(mods)
+        launches[name], decoders[name] = count.median, count.decoders
         gates(name, res)
         result[name] = row
 
@@ -2832,9 +2791,6 @@ def main() -> int:
         builds = [pool.submit(_build.build, "median_filter", median._headers())] + [pool.submit(_build.build, n) for n in DECODERS]
         for b in builds:
             b.result()
-    median.build()
-    for name in DECODERS:
-        decoder_api(mods, name)[3]()
     print(f"build: median_filter.cu, {', '.join(f'{n}.cu' for n in DECODERS)} in {time.perf_counter() - t0:.2f} s (in parallel)")
     if sys.argv[1:] == ["strum"]:
         t0 = time.perf_counter()
@@ -2844,7 +2800,7 @@ def main() -> int:
 
     t_run = time.perf_counter()
 
-    dec_recorder = RecordDecoders(mods)
+    dec_recorder = RecordLaunches(DECODERS, keep=2)
 
     def run_phase(name, fn):
         t0 = time.perf_counter()
@@ -2864,12 +2820,12 @@ def main() -> int:
     # recorded (its shape, and its first inputs at each shape), for the decoders phase
     with dec_recorder:
         # the main path: the CLI under the shipped settings
-        main_path = run_phase("cli", lambda: cli_phase(median, mods, dec_recorder, card))
+        main_path = run_phase("cli", lambda: cli_phase(dec_recorder, card))
         # the job plane and the batch runner under the shipped settings
-        serve_launches = run_phase("serve", lambda: serving_phase(median, mods, card, main_path["out"]["result.json"]))
-        batch = run_phase("batch", lambda: batch_phase(median, mods, card))
-        mesh = run_phase("mesh", lambda: mesh_phase(median, mods, card, batch))
-        batch8 = run_phase("batch8", lambda: batch8_phase(median, mods, card))
+        serve_launches = run_phase("serve", lambda: serving_phase(card, main_path["out"]["result.json"]))
+        batch = run_phase("batch", lambda: batch_phase(card))
+        mesh = run_phase("mesh", lambda: mesh_phase(card, batch))
+        batch8 = run_phase("batch8", lambda: batch8_phase(card))
 
         def analysis_phase():
             """run_analysis under the shipped settings, separation on; the stems it
@@ -2887,7 +2843,7 @@ def main() -> int:
 
             pipeline.separate_stems_device = keep_stems
             try:
-                feats, beats, info, launches = drive(median, shipped, SEPARATED_LAUNCHES)
+                feats, beats, info, launches = drive(shipped, MEDIAN_LAUNCHES_PER_SONG)
             finally:
                 pipeline.separate_stems_device = separate
             if info != {"stem_source": "guitar", "errors": []}:
@@ -2924,7 +2880,7 @@ def main() -> int:
         def mix_phase():
             """The ENABLE_DEMUCS=False path, as before."""
             off = dataclasses.replace(Settings(), ENABLE_DEMUCS=False)
-            off_feats, off_beats, off_info, off_launches = drive(median, off, len(MAIN_PATH_MEDIANS))
+            off_feats, off_beats, off_info, off_launches = drive(off, len(MAIN_PATH_MEDIANS))
             if off_info != {"stem_source": "mix", "errors": []}:
                 raise AssertionError(f"unexpected ENABLE_DEMUCS=False run: {off_info}")
             check_outputs(off_feats, off_beats, FUSED_DEEP_KEYS)
@@ -2939,25 +2895,25 @@ def main() -> int:
 
         launches = run_phase("analysis", analysis_phase)
         off_launches = run_phase("mix", mix_phase)
-        decode = run_phase("decode", lambda: decode_phase(median, mods, card, main_path["out"]["result.json"]))
-        with RecordMedians() as recorder:
-            cases = {name: run_phase(name, lambda name=name: settings_phase(median, card, name, recorder)) for name in SETTINGS_CASES}
-            degraded = run_phase("degraded", lambda: degraded_phase(median, card, recorder))
-        new_shapes = run_phase("new shapes", lambda: new_shape_kernel_check(median, recorder))
+        decode = run_phase("decode", lambda: decode_phase(card, main_path["out"]["result.json"]))
+        with RecordLaunches(["median_filter"]) as recorder:
+            cases = {name: run_phase(name, lambda name=name: settings_phase(card, name, recorder)) for name in SETTINGS_CASES}
+            degraded = run_phase("degraded", lambda: degraded_phase(card, recorder))
+        new_shapes = run_phase("new shapes", lambda: new_shape_kernel_check(recorder))
         run_phase("strum", lambda: strum_phase(card))
-        long_recorder = RecordMedians(keep=2)
-        long_song = run_phase("long", lambda: long_phase(median, mods, long_recorder, card))
-        long_shapes = run_phase("long shapes", lambda: new_shape_kernel_check(median, long_recorder))
-        with RecordMedians(keep=4) as train_recorder:
-            train = run_phase("train", lambda: train_phase(median, train_recorder))
-    train_shapes = run_phase("train shapes", lambda: new_shape_kernel_check(median, train_recorder))
+        long_recorder = RecordLaunches(["median_filter"], keep=2)
+        long_song = run_phase("long", lambda: long_phase(long_recorder, card))
+        long_shapes = run_phase("long shapes", lambda: new_shape_kernel_check(long_recorder))
+        with RecordLaunches(["median_filter"], keep=4) as train_recorder:
+            train = run_phase("train", lambda: train_phase(train_recorder))
+    train_shapes = run_phase("train shapes", lambda: new_shape_kernel_check(train_recorder))
     decoders = run_phase("decoders", lambda: decoders_phase(mods, dec_recorder, kernel["sm_clock_mhz"]))
     print(f"all phases: {time.perf_counter() - t_run:.2f} s")
 
     # each decoder kernel's own path: the CLI under the shipped settings, the
     # template backend (majmin7) for the constant-switch Viterbi (its counted song; the traced one came after)
     template = dict(cases["template"], decoder_shapes={
-        name: [shape for n, tag, shape, _ in dec_recorder.launches if (n, tag) == (name, "template")][: cases["template"]["decoder_launches"][name]]
+        name: [r.shape for r in dec_recorder.launches if (r.kernel, r.tag) == (name, "template")][: cases["template"]["decoder_launches"][name]]
         for name in DECODERS})
     own_path = {name: (main_path, "cli, shipped settings") for name in DECODERS}
     own_path["constant_switch_viterbi"] = (template, "cli, CHORD_DETECTION_BACKEND=template, CHORD_VOCAB=majmin7")

@@ -10,14 +10,13 @@ with their ``SPLIT`` marks defined: at each mark every thread reads
 counter of that mark's part: thread 0 of block 0 (``SPLIT_START``), or the
 thread a kernel names (``SPLIT_START_IF``, and ``SPLIT_FOLLOW`` from a point
 on, as the envelope's tail block does); ``SPLIT_SKIP`` restarts the count
-without adding (time that a called function's own marks counted). The modules' own launch functions
-(``_launch_args`` and ``_launch``, or the prefixed ones of a module with two
-kernels) then run these builds (their cached launchers are swapped for the
-marked ones), once to warm up and once counted, on random inputs at each
-kernel's shapes (``CASES``): the DBN at [1, 3007] (the 30 s bucket; on
-the shipped tempo grid, and on the grids of ``DBN_GRIDS``, which take its
-general layout), the
-banded Viterbi at [20, 130, 241] (the content windows of one song, band 25),
+without adding (time that a called function's own marks counted). Each
+kernel's op is called once on random inputs at each of its shapes
+(``CASES``), and its one launch (``_build.launch``, with the arguments the
+op prepared) is then made again on this build (the cached launcher swapped
+for the marked one), once to warm up and once counted: the DBN at [1, 3007]
+(the 30 s bucket; on the shipped tempo grid, and on the grids of
+``DBN_GRIDS``, which take its general layout), the banded Viterbi at [20, 130, 241] (the content windows of one song, band 25),
 the dense Viterbi at [1, 301, 25] (the CRF of the 30 s bucket) and
 [1, 1801, 25] (a 180 s song), the onset rule at [20, 130] (the content
 windows), [1, 1292] (the calibration) and [1, 7752] (a 180 s song's
@@ -76,16 +75,14 @@ extern "C" int split_reset() {{
   return static_cast<int>(cudaMemcpyToSymbol(g_split, zero, sizeof(zero)));
 }}
 """
-# name → (module, C symbol, the prefix of the module's launch functions: ""
-# for _ARGTYPES, _launch_args and _launch, else _<PREFIX>_ARGTYPES,
-# _<prefix>_launch_args and _<prefix>_launch)
+# name → (module, the op that launches the kernel)
 KERNELS = {
-    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "dbn_viterbi_f32", ""),
-    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "banded_viterbi_f32", ""),
-    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "dense_viterbi_f32", ""),
-    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "onset_wait_u8", ""),
-    "salience_envelope": ("audiotabs_tpu_torch.models.basicpitch", "salience_envelope_f32", ""),
-    "constant_switch_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "constant_switch_viterbi_f32", "switch"),
+    "dbn_viterbi": ("audiotabs_tpu_torch.decode.dbn_beats", "_dbn_forward"),
+    "banded_viterbi": ("audiotabs_tpu_torch.ops.pyin", "_banded_viterbi"),
+    "dense_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "viterbi_log_dense"),
+    "onset_wait": ("audiotabs_tpu_torch.ops.onset", "_wait"),
+    "salience_envelope": ("audiotabs_tpu_torch.models.basicpitch", "salience_envelope"),
+    "constant_switch_viterbi": ("audiotabs_tpu_torch.decode.viterbi", "viterbi_constant_switch"),
 }
 # the shapes each kernel is split at
 CASES = {
@@ -115,7 +112,7 @@ def build_marked(name: str) -> ctypes.CDLL:
 
 
 def inputs(name: str, shape: tuple, grid: tuple = (55.0, 215.0, 100)) -> tuple:
-    """The wrapper's arguments at ``shape`` on the card (the DBN's at the
+    """The op's arguments at ``shape`` on the card (the DBN's at the
     tempo grid ``grid``), and the frames of its frame loop."""
     rng = np.random.default_rng(0)
     if name == "dbn_viterbi":
@@ -147,23 +144,38 @@ def inputs(name: str, shape: tuple, grid: tuple = (55.0, 215.0, 100)) -> tuple:
     return (log_v, torch.from_numpy(log_u).cuda().expand(*shape), 25, 0.01), T
 
 
+def launch_of(op, args: tuple):
+    """``launch()``, the one ``_build.launch`` that ``op(*args)`` makes, on the
+    arguments that call prepared, and the kernel's C symbol and argtypes."""
+    calls, real = [], _build.launch
+
+    def keep(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    _build.launch = keep
+    try:
+        op(*args)
+    finally:
+        _build.launch = real
+    (a, kw), = calls
+    return lambda: _build.launch(*a, **kw), a[1], a[2]
+
+
 def split(name: str, lib: ctypes.CDLL, shape: tuple, *grid) -> dict:
-    module, symbol, prefix = KERNELS[name]
-    mod = importlib.import_module(module)
-    pre = f"_{prefix}" if prefix else ""
-    launch_args, launch = getattr(mod, f"{pre}_launch_args"), getattr(mod, f"{pre}_launch")
-    fn = getattr(lib, symbol)
-    fn.argtypes, fn.restype = getattr(mod, f"{pre.upper()}_ARGTYPES"), ctypes.c_int
-    _build._FUNCS[(name, symbol)] = fn  # the module's launch function now runs the marked build
+    module, op = KERNELS[name]
     args, frames = inputs(name, shape, *grid)
-    prepared = launch_args(*args)
-    launch(*prepared)
+    launch, symbol, argtypes = launch_of(getattr(importlib.import_module(module), op), args)
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    _build._FUNCS[(name, symbol)] = fn  # the launch now runs the marked build
+    launch()
     torch.cuda.synchronize()
     if lib.split_reset() != 0:
         raise RuntimeError("cudaMemcpyToSymbol failed")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    launch(*prepared)
+    launch()
     end.record()
     end.synchronize()
     counts = (ctypes.c_ulonglong * N_PARTS)()
@@ -174,13 +186,13 @@ def split(name: str, lib: ctypes.CDLL, shape: tuple, *grid) -> dict:
     ms = start.elapsed_time(end)
     total = sum(parts.values())
     # the port's own build (no marks): the median of 20 launches by events, a spin kernel ahead of each
-    launch(*prepared)
+    launch()
     times = []
     for _ in range(20):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        launch(*prepared)
+        launch()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))

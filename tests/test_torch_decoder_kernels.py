@@ -4,7 +4,8 @@
 ``viterbi_log_dense``, ``viterbi_constant_switch`` and ``salience_envelope``
 launch csrc/dbn_viterbi.cu, onset_wait.cu, banded_viterbi.cu,
 dense_viterbi.cu, constant_switch_viterbi.cu and salience_envelope.cu for a
-CUDA tensor; each launch must add one to its count and give exactly the
+CUDA tensor; each launch must add one to its count in the tracer
+(``<kernel>_launches``) and give exactly the
 plain loop's output, on random and tie-heavy inputs made from numpy seeds
 (the same inputs tests/test_torch_decoders.py and
 tests/test_torch_scan_kernels.py hold the plain loops against the JAX
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from audiotabs_tpu_torch import _build, tracing
 from audiotabs_tpu_torch.decode import dbn_beats as tdbn
 from audiotabs_tpu_torch.decode import viterbi as tvit
 from audiotabs_tpu_torch.models import basicpitch as tbp
@@ -174,11 +176,12 @@ def _same(got, ref) -> bool:
                if g.is_floating_point() else torch.equal(g, r) for g, r in pairs)
 
 
-def _launched(module, fn, counter: str = "LAUNCHES"):
-    before = getattr(module, counter)
+def _launched(kernel: str, fn):
+    """``fn()``, which must launch csrc/<kernel>.cu once: one more ``<kernel>_launches`` in the tracer."""
+    before = tracing.counters().get(f"{kernel}_launches", 0)
     out = fn()
     torch.cuda.synchronize()
-    assert getattr(module, counter) == before + 1
+    assert tracing.counters()[f"{kernel}_launches"] == before + 1
     return out
 
 
@@ -186,7 +189,7 @@ def _launched(module, fn, counter: str = "LAUNCHES"):
 @pytest.mark.parametrize("kind", ["random", "constant", "beats", "one NaN", "NaN row"])
 def test_cuda_dbn_kernel_equals_plain_version(cuda, kind):
     act = torch.from_numpy(_activations(kind)).to(cuda)
-    got = _launched(tdbn, lambda: tdbn._dbn_forward(act))
+    got = _launched("dbn_viterbi", lambda: tdbn._dbn_forward(act))
     ref = tdbn._dbn_forward_plain(act, 100, 55.0, 215.0, 100.0, 16)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
@@ -196,7 +199,7 @@ def test_cuda_dbn_kernel_equals_plain_version(cuda, kind):
 def test_cuda_onset_kernel_equals_plain_version(cuda, kind):
     env = torch.from_numpy(_envelopes(kind)).to(cuda)
     cand = env >= env.mean(dim=-1, keepdim=True)
-    got = _launched(tonset, lambda: tonset._wait(cand, 4))
+    got = _launched("onset_wait", lambda: tonset._wait(cand, 4))
     assert torch.equal(got, tonset._wait_plain(cand, 4))
 
 
@@ -209,7 +212,7 @@ def test_cuda_onset_kernel_equals_plain_version_at_path_shapes_and_waits(cuda, R
     rng = np.random.default_rng(R * T)
     for density in (0.1, 0.5, 1.0):
         cand = torch.from_numpy(rng.random((R, T)) < density).to(cuda)
-        got = _launched(tonset, lambda: tonset._wait(cand, wait))
+        got = _launched("onset_wait", lambda: tonset._wait(cand, wait))
         assert torch.equal(got, tonset._wait_plain(cand, wait)), density
 
 
@@ -217,7 +220,7 @@ def test_cuda_onset_kernel_equals_plain_version_at_path_shapes_and_waits(cuda, R
 @pytest.mark.parametrize("kind", ["random", "ties", "one NaN", "NaN row"])
 def test_cuda_banded_viterbi_kernel_equals_plain_version(cuda, kind):
     log_v, log_u = (torch.from_numpy(a).to(cuda) for a in _pyin_obs(kind))
-    got = _launched(tpyin, lambda: tpyin._banded_viterbi(log_v, log_u, 5, 0.01))
+    got = _launched("banded_viterbi", lambda: tpyin._banded_viterbi(log_v, log_u, 5, 0.01))
     ref = tpyin._banded_viterbi_plain(log_v, log_u, 5, 0.01)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
@@ -230,12 +233,12 @@ def test_cuda_dense_viterbi_kernel_equals_plain_version(cuda, kind, B, T, S):
     # up to 32 states the warp layout (the CRF's 25 at the 30 s bucket, a chunk of 4 and the 180 s song), then the block layout
     log_em, trans = (torch.from_numpy(a).to(cuda) for a in _emissions(kind, B, T, S))
     init = torch.full((S,), -float(np.log(S)), device=cuda)
-    got = _launched(tvit, lambda: tvit.viterbi_log_dense(log_em, trans, init))
+    got = _launched("dense_viterbi", lambda: tvit.viterbi_log_dense(log_em, trans, init))
     ref = tvit.viterbi_log_dense_plain(log_em, trans, init)
     assert _same(got, ref)
     if kind == "NaN row" and B > 1:
         assert bool(got[1][1].isnan()) and not bool(got[1][0].isnan())
-    one = _launched(tvit, lambda: tvit.viterbi_log_dense(log_em[0], trans, init))
+    one = _launched("dense_viterbi", lambda: tvit.viterbi_log_dense(log_em[0], trans, init))
     assert _same(one, (ref[0][0], ref[1][0]))
 
 
@@ -245,19 +248,19 @@ def test_cuda_kernels_at_main_path_shapes(cuda, name):
     rng = np.random.default_rng(19)
     if name.startswith("dbn"):
         act = torch.from_numpy(rng.random((4, 3000)).astype(np.float32)).to(cuda)
-        got = _launched(tdbn, lambda: tdbn._dbn_forward(act))
+        got = _launched("dbn_viterbi", lambda: tdbn._dbn_forward(act))
         ref = tdbn._dbn_forward_plain(act, 100, 55.0, 215.0, 100.0, 16)
     elif name.startswith("onset"):
         cand = torch.from_numpy(rng.random((80, 130)) < 0.3).to(cuda)
-        got, ref = _launched(tonset, lambda: tonset._wait(cand, 4)), tonset._wait_plain(cand, 4)
+        got, ref = _launched("onset_wait", lambda: tonset._wait(cand, 4)), tonset._wait_plain(cand, 4)
     elif name.startswith("banded"):
         log_v, log_u = (torch.from_numpy(a).to(cuda) for a in _pyin_obs("random", R=20, T=130, n_bins=241))
-        got = _launched(tpyin, lambda: tpyin._banded_viterbi(log_v, log_u, 25, 0.01))
+        got = _launched("banded_viterbi", lambda: tpyin._banded_viterbi(log_v, log_u, 25, 0.01))
         ref = tpyin._banded_viterbi_plain(log_v, log_u, 25, 0.01)
     else:
         log_em, trans = (torch.from_numpy(a).to(cuda) for a in _emissions("random", B=1, T=301, S=25))
         init = torch.full((25,), -float(np.log(25)), device=cuda)
-        got = _launched(tvit, lambda: tvit.viterbi_log_dense(log_em, trans, init))
+        got = _launched("dense_viterbi", lambda: tvit.viterbi_log_dense(log_em, trans, init))
         ref = tvit.viterbi_log_dense_plain(log_em, trans, init)
     assert all(torch.equal(g, r) for g, r in zip(got if isinstance(got, tuple) else (got,), ref if isinstance(ref, tuple) else (ref,)))
 
@@ -268,7 +271,7 @@ def test_cuda_dbn_kernel_equals_plain_version_on_both_layouts(cuda, min_bpm):
     # 55 BPM: the shipped grid (84 tempi, 110 phases, the layout with the
     # transitions in registers); 40 BPM: 124 tempi, 150 phases, the other layout
     act = torch.from_numpy(_activations("beats")).to(cuda)
-    got = _launched(tdbn, lambda: tdbn._dbn_forward(act, min_bpm=min_bpm))
+    got = _launched("dbn_viterbi", lambda: tdbn._dbn_forward(act, min_bpm=min_bpm))
     ref = tdbn._dbn_forward_plain(act, 100, min_bpm, 215.0, 100.0, 16)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
@@ -279,7 +282,7 @@ def test_cuda_banded_viterbi_kernel_equals_plain_version_at_other_widths(cuda, n
     # 301 bins: the melody fallback's pYIN (C2 to C7); the widest band and the most bins the kernel takes
     for kind in ("random", "ties"):
         log_v, log_u = (torch.from_numpy(a).to(cuda) for a in _pyin_obs(kind, R=2, T=40, n_bins=n_bins))
-        got = _launched(tpyin, lambda: tpyin._banded_viterbi(log_v, log_u, band, 0.01))
+        got = _launched("banded_viterbi", lambda: tpyin._banded_viterbi(log_v, log_u, band, 0.01))
         ref = tpyin._banded_viterbi_plain(log_v, log_u, band, 0.01)
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
@@ -292,7 +295,7 @@ def test_cuda_dbn_kernel_equals_plain_version_on_wide_tempo_grids(cuda, grid, ki
     # phases) was refused before the general layout
     min_bpm, max_bpm, fps = grid
     act = torch.from_numpy(_activations(kind)).to(cuda)
-    got = _launched(tdbn, lambda: tdbn._dbn_forward(act, fps=fps, min_bpm=min_bpm, max_bpm=max_bpm))
+    got = _launched("dbn_viterbi", lambda: tdbn._dbn_forward(act, fps=fps, min_bpm=min_bpm, max_bpm=max_bpm))
     ref = tdbn._dbn_forward_plain(act, fps, min_bpm, max_bpm, 100.0, 16)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
@@ -303,7 +306,7 @@ def test_cuda_dbn_launcher_refuses_more_tempi_than_shared_memory_holds(cuda):
     # the launcher refuses before it touches an argument
     n = P = 12_000
     args = [ctypes.c_void_p(0)] * 10 + [1, 2, n, P, n * P // 2, ctypes.c_void_p(0)]
-    assert tdbn.build()(*args) == -2
+    assert _build.function("dbn_viterbi", "dbn_viterbi_f32", tdbn._ARGTYPES)(*args) == -2
 
 
 @pytest.mark.cuda
@@ -314,10 +317,10 @@ def test_cuda_constant_switch_kernel_equals_plain_version(cuda, kind, B, S, T):
     # majmin7 (49 states) for one song, a chunk of 4 and the 180 s song; majmin7plus (61); one and two state words
     em = torch.from_numpy(_switch_emissions(kind, B, S, T)).to(cuda)
     penalty = float(-np.log(np.float32(0.5))) if kind == "at min + penalty" else 2.5
-    got = _launched(tvit, lambda: tvit.viterbi_constant_switch(em, penalty), "SWITCH_LAUNCHES")
+    got = _launched("constant_switch_viterbi", lambda: tvit.viterbi_constant_switch(em, penalty))
     ref = tvit.viterbi_constant_switch_plain(em, penalty)
     assert _same(got, ref)
-    one = _launched(tvit, lambda: tvit.viterbi_constant_switch(em[0], penalty), "SWITCH_LAUNCHES")
+    one = _launched("constant_switch_viterbi", lambda: tvit.viterbi_constant_switch(em[0], penalty))
     assert _same(one, (ref[0][0], ref[1][0]))
 
 
@@ -333,9 +336,9 @@ def test_cuda_constant_switch_kernel_refuses_too_many_states(cuda):
 def test_cuda_salience_envelope_kernel_equals_plain_version(cuda, kind, R, T):
     # the 30 s bucket for one song and a chunk of 4, the 180 s song; whole and partial blocks, 16-byte and scalar loads
     sal = torch.from_numpy(_salience(kind, R, T)).to(cuda)
-    got = _launched(tbp, lambda: tbp.salience_envelope(sal))
+    got = _launched("salience_envelope", lambda: tbp.salience_envelope(sal))
     assert _same(got, tbp.salience_envelope_plain(sal))
-    one = _launched(tbp, lambda: tbp.salience_envelope(sal[0]))
+    one = _launched("salience_envelope", lambda: tbp.salience_envelope(sal[0]))
     assert _same(one, got[0])
     if kind == "NaN row" and R > 1:
         assert bool(got[1].isnan().all()) and not bool(got[0].isnan().any())
@@ -349,7 +352,7 @@ def test_cuda_salience_envelope_kernel_on_a_row_off_16_bytes(cuda):
     buf[1:] = x
     sal = buf[1:].view(1, 88, 2584)
     assert sal.is_contiguous() and sal.data_ptr() % 16
-    got = _launched(tbp, lambda: tbp.salience_envelope(sal))
+    got = _launched("salience_envelope", lambda: tbp.salience_envelope(sal))
     assert _same(got, tbp.salience_envelope_plain(sal))
 
 

@@ -36,7 +36,9 @@ from audiotabs_tpu.ops import onset as jonset
 from audiotabs_tpu_torch import _build
 from audiotabs_tpu_torch.decode import dbn_beats as tdbn
 from audiotabs_tpu_torch.decode import viterbi as tvit
+from audiotabs_tpu_torch.models import basicpitch as tbp
 from audiotabs_tpu_torch.models import crf_chords as tcrf
+from audiotabs_tpu_torch.ops import median as tmed
 from audiotabs_tpu_torch.ops import onset as tonset
 from test_torch_decoder_kernels import WIDE_GRIDS, _activations, _emissions, _envelopes, _pyin_obs
 from test_torch_fused import torch_threads  # noqa: F401 (an autouse fixture)
@@ -292,8 +294,11 @@ def test_crf_decode_of_a_batch_is_its_rows(params):
         lambda x: tonset.onset_detect_frames(x[0]),
         lambda x: tpyin._banded_viterbi(x, x, 5, 0.01),
         lambda x: tvit.viterbi_log_dense(x, x[0, :8, :8]),
+        lambda x: tmed.median_filter(x, 5),
+        lambda x: tbp.salience_envelope(x),
+        lambda x: tvit.viterbi_constant_switch(x, 2.5),
     ],
-    ids=["dbn", "onset", "banded_viterbi", "dense_viterbi"],
+    ids=["dbn", "onset", "banded_viterbi", "dense_viterbi", "median", "salience_envelope", "constant_switch_viterbi"],
 )
 def test_wrappers_raise_on_a_device_that_is_neither_cuda_nor_cpu(call):
     with pytest.raises(ValueError, match="cuda or cpu"):

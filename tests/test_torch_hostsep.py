@@ -29,6 +29,7 @@ import audiotabs_tpu.models.htdemucs as jhd
 from audiotabs_tpu.decode.dbn_beats import beats_from_decoded as jax_beats
 from audiotabs_tpu.io.wav import write_wav
 from audiotabs_tpu.runtime.fused import fused_analysis as jax_fused
+from audiotabs_tpu_torch import tracing
 from audiotabs_tpu_torch.config import Settings
 from audiotabs_tpu_torch.io.wav import decode_for_analysis, load_wav, peak_normalize
 from audiotabs_tpu_torch.models import beat_rnn, htdemucs
@@ -160,10 +161,10 @@ def test_median_kernel_refuses_a_device_tensor_that_requires_grad():
     launch (a meta tensor stands in for a CUDA one here); under no_grad, or on
     the CPU's plain version, it does not."""
     x = torch.rand(8, 40, device="meta", requires_grad=True)
-    launches = median.LAUNCHES
+    launches = tracing.counters().get("median_filter_launches", 0)
     with pytest.raises(RuntimeError, match="no backward"):
         median.median_filter(x, 5)
-    assert median.LAUNCHES == launches
+    assert tracing.counters().get("median_filter_launches", 0) == launches
     with torch.no_grad(), pytest.raises(ValueError, match="cuda or cpu"):
         median.median_filter(x, 5)  # past the guard: the meta device is refused as before
     cpu = torch.rand(8, 40, requires_grad=True)

@@ -13,8 +13,8 @@ knife edge, not a fault: fed the same envelope the two onset pickers agree,
 but the window's envelopes differ by float32 rounding (at most 9.9e-4 on a
 scale of 72.6), and at one frame the envelope lies 3e-4 from its threshold,
 ``mean + delta``, above it in one package and below it in the other. The
-180 s shapes are pinned, and ``chip_smoke.py``'s copy of the generator
-(the port does not import ``bench.py``) must give bench.py's bytes.
+180 s shapes are pinned, and the generator ``chip_smoke.py`` runs (it
+imports ``bench.py``'s; the port does not) must give bench.py's bytes.
 
 Both analyses run once for the module: about 110 s of JAX (most of it XLA
 constant-folding the HPSS scatters) and 25 s of the port, two torch threads.

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 
 from audiotabs_tpu.decode import viterbi as jvit
 from audiotabs_tpu.models import basicpitch as jbp
+from audiotabs_tpu_torch import tracing
 from audiotabs_tpu_torch.decode import viterbi as tvit
 from audiotabs_tpu_torch.models import basicpitch as tbp
 from test_torch_decoder_kernels import _salience, _switch_emissions
@@ -205,11 +206,12 @@ def test_wrappers_on_a_cpu_tensor_take_the_plain_version(monkeypatch):
     for mod, name in ((tbp, "salience_envelope_plain"), (tvit, "viterbi_constant_switch_plain")):
         fn = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, fn=fn, name=name: calls.append(name) or fn(*a))
-    before = (tbp.LAUNCHES, tvit.SWITCH_LAUNCHES, tvit.LAUNCHES)
+    names = ("salience_envelope_launches", "constant_switch_viterbi_launches", "dense_viterbi_launches")
+    before = [tracing.counters().get(n, 0) for n in names]
     tbp.salience_envelope(torch.from_numpy(_salience("random", R=1, T=200)[0]))
     tvit.viterbi_constant_switch(torch.from_numpy(_switch_emissions("random", B=1, S=25, T=30)[0]), 2.5)
     assert calls == ["salience_envelope_plain", "viterbi_constant_switch_plain"]
-    assert (tbp.LAUNCHES, tvit.SWITCH_LAUNCHES, tvit.LAUNCHES) == before
+    assert [tracing.counters().get(n, 0) for n in names] == before
 
 
 @pytest.mark.parametrize(
