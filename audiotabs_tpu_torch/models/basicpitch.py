@@ -28,6 +28,7 @@ from .. import _build
 from ..device import on_device
 from ..ops.cqt import hybrid_cqt
 from ..theory.events import NoteEvent
+from ..tracing import count
 from . import convert
 from .params_io import load_pytree_npz, weights_path
 
@@ -260,13 +261,29 @@ def notes_from_posteriors(
     melodia_trick: bool = True,
     gap_tolerance_frames: int = 3,
 ) -> list[NoteEvent]:
-    """Posteriors [T, 88] → note events (Basic Pitch decoding semantics)."""
+    """Posteriors [T, 88] → note events (Basic Pitch decoding semantics).
+
+    A note runs from its first frame while the frame posterior stays at or
+    above ``frame_threshold``, through gaps of up to ``gap_tolerance_frames``
+    off frames; it ends one past its last on frame. Notes start at the
+    onset peaks (row-major order), then, with ``melodia_trick``, at the
+    loudest frame left (``np.argmax``'s order: NaN first, then by value, the
+    first of equals), walking back to its start under the same rule; each
+    frame of an accepted note is cleared. An event then loses to one a
+    semitone away that covers most of it and is clearly louder.
+
+    The walks are searches in a byte row per pitch that mirrors
+    ``remaining >= frame_threshold`` (numpy 2's promotion: the array
+    comparison is the scalar one); the seeds are one ordering of the frames
+    at or above the threshold, visited once, skipping the cleared; the
+    leakage rule compares each pitch with its two neighbours only. Counts
+    ``note_events`` (events before the leakage rule) and ``note_seeds``.
+    """
     onset = np.asarray(onset)
     frame = np.asarray(frame)
     T, P = frame.shape
     min_frames = max(1, int(round(min_note_ms / 1000.0 * fps)))
     remaining = frame.copy()
-    events: list[NoteEvent] = []
 
     # local onset peaks per pitch
     peaks = (
@@ -277,86 +294,104 @@ def notes_from_posteriors(
     peaks[0] = onset[0] >= onset_threshold
     peaks[-1] &= False
 
-    def track(t0: int, p: int) -> int:
-        """Extend a note from frame t0 while the frame posterior stays on.
-        Returns the EXCLUSIVE end frame (one past the last on-frame)."""
-        t = t0
-        gap = 0
-        while t < T:
-            if remaining[t, p] >= frame_threshold:
-                gap = 0
-            else:
-                gap += 1
-                if gap > gap_tolerance_frames:
-                    t += 1  # uniform exit: t is one past the examined frame
-                    break
-            t += 1
-        return t - gap
+    # byte p * T + t is 1 where remaining[t, p] is on
+    on = bytearray(P * T)
+    on_rows = np.frombuffer(on, np.uint8).reshape(P, T)
+    on_rows[...] = (remaining >= frame_threshold).T
+    cleared = int(remaining.dtype.type(0) >= frame_threshold)
+    off_run = b"\x00" * (max(gap_tolerance_frames, 0) + 1)  # the gap that ends a note
 
-    for t0, p in zip(*np.nonzero(peaks)):
+    def end_of(t0: int, p: int) -> int:
+        """The exclusive end of the note from frame t0: where the first off run
+        starts, or, where the song ends first, one past the last on frame (t0 if none)."""
+        row = p * T
+        t = on.find(off_run, row + t0, row + T)
+        if t < 0:
+            t = on.rfind(b"\x01", row + t0, row + T)
+            return t0 if t < 0 else t + 1 - row
+        return t - row
+
+    def start_of(t0: int, p: int) -> int:
+        """The first frame of the note whose frame t0 is on: one past the last
+        off run before t0, or the first on frame of the song (t0 if none)."""
+        row = p * T
+        t = on.rfind(off_run, row, row + t0)
+        if t < 0:
+            t = on.find(b"\x01", row, row + t0)
+            return t0 if t < 0 else t - row
+        return t + len(off_run) - row
+
+    notes: list[tuple[int, int, int]] = []  # (first frame, end frame, pitch)
+    ts, ps = np.nonzero(peaks)
+    for t0, p in zip(ts.tolist(), ps.tolist()):
         if remaining[t0, p] < frame_threshold and onset[t0, p] < onset_threshold:
             continue
-        t1 = track(t0, p)
+        t1 = end_of(t0, p)
         if t1 - t0 >= min_frames:
-            amp = float(np.clip(np.mean(frame[t0:t1, p]), 0.0, 1.0))
-            events.append(
-                NoteEvent(
-                    start_time_s=t0 / fps,
-                    end_time_s=t1 / fps,
-                    pitch_midi=MIDI_A0 + int(p),
-                    velocity=int(np.clip(40 + 87 * amp, 1, 127)),
-                    amplitude=amp,
-                )
-            )
+            notes.append((t0, t1, p))
             remaining[t0:t1, p] = 0.0
+            on_rows[p, t0:t1] = cleared
 
     if melodia_trick:
-        # recover onset-less notes from leftover frame energy, loudest first
-        masked = remaining.copy()
+        # recover onset-less notes from leftover frame energy, loudest first.
+        # From here ``remaining`` is read only through ``on``, so it is the
+        # seeds' mask: a frame is taken as a seed or cleared with a seed's note.
+        if not frame_threshold > 0:
+            raise ValueError("the melodia pass needs frame_threshold > 0: a cleared frame would seed again")
+        flat = remaining.reshape(-1)
+        seeds = np.flatnonzero(flat >= frame_threshold)
+        # by value, loudest first, then by index: one sort of (value's rank, index)
+        louder = np.unique(-flat[seeds], return_inverse=True)[1]
+        seeds = np.sort(louder * flat.size + seeds) % flat.size
+        seeds = np.concatenate([np.flatnonzero(np.isnan(flat)), seeds])
+        k, taken = 0, 0
         while True:
-            t0, p = np.unravel_index(np.argmax(masked), masked.shape)
-            if masked[t0, p] < frame_threshold:
+            step = 32  # skip the cleared seeds a block at a time
+            while k < len(seeds):
+                left = np.flatnonzero(flat[seeds[k : k + step]])
+                if left.size:
+                    k += int(left[0])
+                    break
+                k += step
+                step *= 2
+            if k >= len(seeds):
                 break
-            # walk backwards to the note start
-            s = t0
-            gap = 0
-            while s > 0:
-                if remaining[s - 1, p] >= frame_threshold:
-                    gap = 0
-                else:
-                    gap += 1
-                    if gap > gap_tolerance_frames:
-                        s -= 1  # uniform exit: s is one past the examined frame
-                        break
-                s -= 1
-            s = min(t0, s + gap)  # undo the tolerated gap, never past the seed
-            t1 = track(t0, p)
-            masked[s : max(t1, t0 + 1), p] = 0.0  # always clear the seed frame
+            t0, p = divmod(int(seeds[k]), P)
+            taken += 1
+            s = start_of(t0, p)
+            t1 = end_of(t0, p)
+            remaining[s : max(t1, t0 + 1), p] = 0.0  # always clear the seed frame
             if t1 - s >= min_frames:
-                amp = float(np.clip(np.mean(frame[s:t1, p]), 0.0, 1.0))
-                events.append(
-                    NoteEvent(
-                        start_time_s=s / fps,
-                        end_time_s=t1 / fps,
-                        pitch_midi=MIDI_A0 + int(p),
-                        velocity=int(np.clip(40 + 87 * amp, 1, 127)),
-                        amplitude=amp,
-                    )
-                )
-                remaining[s:t1, p] = 0.0
+                notes.append((s, t1, p))
+                on_rows[p, s:t1] = cleared
+        count("note_seeds", taken)
+    count("note_events", len(notes))
+
+    if not notes:
+        return []
+    first, last, pitch = np.array(notes, dtype=np.int64).T
+    start, end = first / fps, last / fps  # np.float64, as frame / fps
+    # each mean over the note's frames of ``frame`` as it came, then clipped
+    amp = np.clip(np.array([np.mean(frame[t0:t1, p]) for t0, t1, p in notes]), 0.0, 1.0).astype(np.float64)
+    velocity = np.clip(40 + 87 * amp, 1, 127)
+    events = [
+        NoteEvent(start_time_s=t0, end_time_s=t1, pitch_midi=MIDI_A0 + p, velocity=int(v), amplitude=a)
+        for t0, t1, p, v, a in zip(start, end, pitch.tolist(), velocity.tolist(), amp.tolist())
+    ]
 
     # suppress spectral-leakage neighbors: an event loses to a co-occurring
-    # event one semitone away with clearly higher amplitude
-    keep = [True] * len(events)
-    for i, a in enumerate(events):
-        for j, b in enumerate(events):
-            if i == j or abs(a.pitch_midi - b.pitch_midi) != 1:
-                continue
-            ov = min(a.end_time_s, b.end_time_s) - max(a.start_time_s, b.start_time_s)
-            if ov > 0.8 * (a.end_time_s - a.start_time_s) and b.amplitude > 1.4 * a.amplitude:
-                keep[i] = False
-                break
-    events = [e for e, k in zip(events, keep) if k]
+    # event one semitone away with clearly higher amplitude. Python's min(x, y)
+    # is y only where y < x, and max(x, y) y only where y > x.
+    lost = np.zeros(len(events), dtype=bool)
+    for q in np.unique(pitch):
+        a = np.flatnonzero(pitch == q)
+        b = np.flatnonzero(np.abs(pitch - q) == 1)
+        if not b.size:
+            continue
+        ea, sa, eb, sb = end[a, None], start[a, None], end[b], start[b]
+        ov = np.where(eb < ea, eb, ea) - np.where(sb > sa, sb, sa)
+        lost[a] = ((ov > 0.8 * (ea - sa)) & (amp[b] > 1.4 * amp[a, None])).any(axis=1)
+    events = [e for e, out in zip(events, lost) if not out]
 
     return sorted(events, key=lambda e: e.start_time_s)
 

@@ -461,14 +461,17 @@ def _pipeline_tail(
                     frame_thr_eff = min(frame_thr, 0.35)
                 else:
                     onset_thr_eff, frame_thr_eff = onset_thr, frame_thr
-                base_events = notes_from_posteriors(
-                    np.asarray(feats["amt_onset"], dtype=np.float32)[:t_amt],
-                    np.asarray(feats["amt_frame"], dtype=np.float32)[:t_amt],
-                    fps=fps_amt,
-                    onset_threshold=onset_thr_eff,
-                    frame_threshold=frame_thr_eff,
-                    min_note_ms=s.BASIC_PITCH_MIN_NOTE_MS,
-                )
+                onset_post = np.asarray(feats["amt_onset"], dtype=np.float32)[:t_amt]
+                frame_post = np.asarray(feats["amt_frame"], dtype=np.float32)[:t_amt]
+                with span("transcription/notes"):
+                    base_events = notes_from_posteriors(
+                        onset_post,
+                        frame_post,
+                        fps=fps_amt,
+                        onset_threshold=onset_thr_eff,
+                        frame_threshold=frame_thr_eff,
+                        min_note_ms=s.BASIC_PITCH_MIN_NOTE_MS,
+                    )
                 # the JAX package's backend names: the artifact contract's values
                 base_backend = "basicpitch_jax_cnn" if bp_params is not None else "basicpitch_jax"
             else:

@@ -123,24 +123,236 @@ def test_schemas_coerce_and_dump_as_pydantic():
 
 # --------------------------------------------------------- note decoding --
 
+FPS = SR / 256
+MIDI_A0 = 21
+GAP = 3  # notes_from_posteriors' gap_tolerance_frames
 
-@pytest.mark.parametrize("seed,onset_thr,frame_thr,melodia", [(0, 0.5, 0.3, True), (1, 0.4, 0.25, True), (2, 0.62, 0.41, False), (3, 0.25, 0.15, True)])
-def test_notes_from_posteriors_matches_jax(seed, onset_thr, frame_thr, melodia):
+
+def _f16(*arrays):
+    """Rounded through f16, as the fused outputs are."""
+    return tuple(np.asarray(a).astype(np.float16).astype(np.float32) for a in arrays)
+
+
+def _walks(rng, T):
+    """Smooth posteriors with plateaus around the thresholds: most bins near them."""
+    frame = np.clip(np.cumsum(rng.normal(0, 0.08, (T, 88)), axis=0) * 0.2 + rng.uniform(0, 0.45, (1, 88)), 0, 1)
+    onset = np.where(rng.random((T, 88)) < 0.02, rng.uniform(0.2, 1.0, (T, 88)), 0.1 * rng.random((T, 88)))
+    return _f16(onset, frame)
+
+
+def _sparse(rng, T, levels=None):
+    """A few % of the bins on: notes of 3-120 frames, most with an onset, leaking into the
+    semitones beside them, over a floor of noise; ``levels`` quantises the frame posterior to
+    that many steps, so equal values tie across pitches and frames."""
+    frame = rng.uniform(0, 0.12, (T, 88))
+    onset = rng.uniform(0, 0.15, (T, 88))
+    for _ in range(int(0.03 * T * 88 / 40)):
+        p, t, d = rng.integers(0, 88), rng.integers(0, T), rng.integers(3, 120)
+        seg = rng.uniform(0.2, 1.0) * (1 - 0.4 * rng.random(min(d, T - t)))
+        frame[t : t + d, p] = np.maximum(frame[t : t + d, p], seg)
+        if rng.random() < 0.7:
+            onset[t, p] = rng.uniform(0.3, 1.0)
+        for q in (p - 1, p + 1):
+            if 0 <= q < 88 and rng.random() < 0.5:
+                frame[t : t + d, q] = np.maximum(frame[t : t + d, q], seg * rng.uniform(0.2, 0.8))
+    if levels:
+        frame = np.round(frame * levels) / levels
+    return _f16(onset, np.clip(frame, 0, 1))
+
+
+def _edges(rng, T):
+    """Notes that run to the last frame, off runs of exactly GAP frames inside notes and of GAP + 1
+    that end them, and onset-less notes whose walk back lands on a peak note's start frame."""
+    onset, frame = _sparse(rng, T)
+    frame, onset = frame * 0.5, onset * 0.5
+    for i, p in enumerate(range(5, 80, 6)):
+        t = int(rng.integers(T // 2, T - 40))
+        frame[t:, p] = 0.9  # to the last frame
+        onset[t, p] = 0.9 if i % 3 else 0.1  # some with an onset, some seeded
+        g = t + 10
+        frame[g : g + GAP, p] = 0.05  # tolerated
+        frame[g + GAP + 8 : g + 2 * GAP + 9, p] = 0.05 if i % 2 else 0.9  # GAP + 1: the note ends there
+        s = int(rng.integers(GAP + 2, T // 2 - 40))
+        frame[s - GAP - 1 : s + 30, p + 1 : p + 3] = 0.0
+        frame[s : s + 30, p + 1] = 0.8  # an onset: the peak pass
+        onset[s, p + 1] = 0.95
+        frame[s : s + 30, p + 2] = 0.7  # no onset: a seed walks back to s
+        frame[s + 12, p + 2] = 0.75
+    frame[-GAP:, 2] = 0.0
+    frame[-GAP - 20 : -GAP, 2] = 0.9  # an off run of GAP frames at the end
+    return onset, frame
+
+
+def _nan(rng, T, inside):
+    """NaN in the frame posterior: inside a note (its mean is NaN: the velocity raises), or as
+    seeds taken before every number: one among off frames, which makes no note, and one just past
+    a quiet onset-less note, which seeds it before a louder one that starts on the same frame."""
+    onset, frame = _sparse(rng, T)
+    if inside:
+        p = int(np.argmax(frame.max(axis=0)))
+        t = int(np.argmax(frame[:, p]))
+        frame[t + 1, p] = np.nan
+        return onset, frame
+    frame[T // 3 - 20 : T // 3 + 20, 40] = 0.0
+    frame[T // 3, 40] = np.nan
+    s = T // 2
+    for p in (59, 60, 61, 69, 70, 71):
+        frame[s - GAP - 1 : s + 60, p] = 0.0
+        onset[s - GAP - 1 : s + 60, p] = 0.0
+    frame[s : s + 20, 60] = 0.5
+    frame[s + 20, 60] = np.nan
+    frame[s : s + 30, 70] = 0.9
+    return onset, frame
+
+
+# (onset, frame) thresholds that the pipeline's calibration gave the benchmark's songs on the
+# card: a 180 s song of ``shipped``, a clip of ``mix``
+SONG = (0.2820666732788086, 0.24)
+CLIP = (0.4221331740349126, 0.37303623059632507)
+NOTE_CASES = [
+    pytest.param("walks", 0, 430, 0.5, 0.3, True, id="0-0.5-0.3-True"),
+    pytest.param("walks", 1, 430, 0.4, 0.25, True, id="1-0.4-0.25-True"),
+    pytest.param("walks", 2, 430, 0.62, 0.41, False, id="2-0.62-0.41-False"),
+    pytest.param("walks", 3, 430, 0.25, 0.15, True, id="3-0.25-0.15-True"),
+    pytest.param("sparse", 4, 2584, *SONG, True, id="sparse-2584-song"),
+    pytest.param("sparse", 5, 2584, *CLIP, True, id="sparse-2584-clip"),
+    pytest.param("sparse", 6, 15504, *SONG, True, id="sparse-15504-song"),
+    pytest.param("sparse", 7, 15504, *CLIP, True, id="sparse-15504-clip"),
+    pytest.param("plateaus", 8, 2584, *SONG, True, id="plateaus-2584"),
+    pytest.param("plateaus", 9, 430, 0.5, 0.3, True, id="plateaus-430"),
+    pytest.param("edges", 10, 2584, *CLIP, True, id="edges-2584"),
+    pytest.param("edges", 11, 430, 0.5, 0.3, False, id="edges-430-no-melodia"),
+    pytest.param("sparse", 12, 2584, *SONG, False, id="sparse-2584-no-melodia"),
+    pytest.param("silent", 13, 430, 0.5, 0.3, True, id="no-event"),
+    pytest.param("nan-inside", 14, 2584, *SONG, True, id="nan-inside-a-note"),
+    pytest.param("nan-seeds", 15, 2584, *CLIP, True, id="nan-seeds"),
+]
+
+
+def _posteriors(kind, seed, T):
+    rng = np.random.default_rng(seed)
+    if kind == "walks":
+        return _walks(rng, T)
+    if kind == "sparse":
+        return _sparse(rng, T)
+    if kind == "plateaus":
+        return _sparse(rng, T, levels=4)
+    if kind == "edges":
+        return _edges(rng, T)
+    if kind == "silent":
+        return _f16(rng.uniform(0, 0.2, (T, 88)), rng.uniform(0, 0.25, (T, 88)))
+    return _nan(rng, T, inside=kind == "nan-inside")
+
+
+def _outcome(fn, *args, **kw):
+    """The events, or the exception's type and message."""
+    try:
+        return fn(*args, **kw)
+    except Exception as exc:  # noqa: BLE001 (the exception is the outcome compared)
+        return type(exc).__name__, str(exc)
+
+
+@pytest.mark.parametrize("kind,seed,T,onset_thr,frame_thr,melodia", NOTE_CASES)
+def test_notes_from_posteriors_matches_jax(kind, seed, T, onset_thr, frame_thr, melodia):
+    """The same events in the same order, every field of the same value and type, or the same exception."""
     from audiotabs_tpu.models.basicpitch import notes_from_posteriors as jax_notes
     from audiotabs_tpu_torch.models.basicpitch import notes_from_posteriors
 
-    rng = np.random.default_rng(seed)
-    T = 430
-    # smooth posteriors with plateaus around the thresholds, rounded through f16 as the fused outputs are
-    frame = np.clip(np.cumsum(rng.normal(0, 0.08, (T, 88)), axis=0) * 0.2 + rng.uniform(0, 0.45, (1, 88)), 0, 1)
-    onset = np.where(rng.random((T, 88)) < 0.02, rng.uniform(0.2, 1.0, (T, 88)), 0.1 * rng.random((T, 88)))
-    onset = onset.astype(np.float16).astype(np.float32)
-    frame = frame.astype(np.float16).astype(np.float32)
-    kw = dict(fps=SR / 256, onset_threshold=onset_thr, frame_threshold=frame_thr, min_note_ms=127.7, melodia_trick=melodia)
-    ref = jax_notes(onset, frame, **kw)
-    got = notes_from_posteriors(onset, frame, **kw)
-    assert len(ref) > 5
+    onset, frame = _posteriors(kind, seed, T)
+    kw = dict(fps=FPS, onset_threshold=onset_thr, frame_threshold=frame_thr, min_note_ms=127.7, melodia_trick=melodia)
+    ref = _outcome(jax_notes, onset, frame, **kw)
+    got = _outcome(notes_from_posteriors, onset, frame, **kw)
+    if kind == "silent":
+        assert ref == []
+    elif kind == "nan-inside":
+        assert ref == ("ValueError", "cannot convert float NaN to integer")
+    else:
+        assert len(ref) > 5
     _same(ref, got)
+    if kind == "nan-seeds":  # the NaN's note first, the louder one after it
+        same = [e.pitch_midi for e in ref if e.start_time_s == (T // 2) / FPS]
+        assert same == [MIDI_A0 + 60, MIDI_A0 + 70]
+    if kind == "edges":  # the cases it was built for occur: a note to the last frame, and with
+        # the seeds a peak note and a seeded one that start on one frame
+        assert any(e.end_time_s == T / FPS for e in ref)
+        starts = [e.start_time_s for e in ref]
+        assert len(starts) > len(set(starts)) or not melodia
+
+
+@pytest.mark.parametrize("frame_thr", [0.0, -0.1, float("nan")])
+def test_the_melodia_pass_refuses_a_threshold_that_cleared_frames_meet(frame_thr):
+    """A cleared frame (0.0) would be taken as a seed again without end (the JAX package's loop
+    never ends there), so the melodia pass raises; without it the onset pass decodes as the JAX
+    package's does, cleared frames on where 0.0 meets the threshold."""
+    from audiotabs_tpu.models.basicpitch import notes_from_posteriors as jax_notes
+    from audiotabs_tpu_torch.models.basicpitch import notes_from_posteriors
+
+    onset, frame = _posteriors("sparse", 24, 430)
+    with pytest.raises(ValueError, match="frame_threshold > 0"):
+        notes_from_posteriors(onset, frame, fps=FPS, frame_threshold=frame_thr)
+    kw = dict(fps=FPS, frame_threshold=frame_thr, melodia_trick=False)
+    _same(jax_notes(onset, frame, **kw), notes_from_posteriors(onset, frame, **kw))
+
+
+def _old_loop_counts(onset, frame, **kw):
+    """(events before the leakage rule, melodia seeds) of the JAX package's decoder: its
+    NoteEvents made, and its argmax steps less the one that ends the loop."""
+    import audiotabs_tpu.models.basicpitch as jbp
+
+    made, steps = [], []
+    real_event, real_argmax = jbp.NoteEvent, np.argmax
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jbp, "NoteEvent", lambda **f: made.append(real_event(**f)) or made[-1])
+        mp.setattr(np, "argmax", lambda a, *args, **kws: steps.append(1) or real_argmax(a, *args, **kws))
+        jbp.notes_from_posteriors(onset, frame, **kw)
+    return len(made), len(steps) - 1
+
+
+@pytest.mark.parametrize("kind,seed,melodia", [("sparse", 20, True), ("walks", 21, True), ("sparse", 22, False)])
+def test_note_counters_count_the_old_loops_events_and_seeds(kind, seed, melodia):
+    from audiotabs_tpu_torch import tracing
+    from audiotabs_tpu_torch.models.basicpitch import notes_from_posteriors
+
+    onset, frame = _posteriors(kind, seed, 2584)
+    kw = dict(fps=FPS, onset_threshold=0.5, frame_threshold=0.3, min_note_ms=127.7, melodia_trick=melodia)
+    events, seeds = _old_loop_counts(onset, frame, **kw)
+    before = tracing.counters()
+    notes_from_posteriors(onset, frame, **kw)
+    after = tracing.counters()
+    grew = {k: after.get(k, 0) - before.get(k, 0) for k in ("note_events", "note_seeds")}
+    assert grew == {"note_events": events, "note_seeds": seeds if melodia else 0}
+    assert events > 20 and (seeds > 20 if melodia else seeds == -1)
+
+
+def test_the_benchmark_reads_the_kept_note_span(monkeypatch):
+    """Under a profiler the span ``transcription/notes`` (the pipeline opens it around the
+    decoder) and both counters are kept, and ``benchmarks/metrics/notes_ms.py`` reads the span a song."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiotabs_tpu_torch import tracing
+    from audiotabs_tpu_torch.models.basicpitch import notes_from_posteriors
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1] / "benchmarks"))
+    from core import cells, program
+
+    onset, frame = _posteriors("sparse", 23, 2584)
+    n_spans, before = len(tracing.recorded()[0]), tracing.recorded()[1]
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            with tracing.span("transcription/notes"):
+                notes_from_posteriors(onset, frame, fps=FPS)
+    spans, after = tracing.recorded()
+    kept = [s for s in spans[n_spans:] if s.name == "transcription/notes"]
+    assert len(kept) == 2
+    counts = {k: after[k] - before.get(k, 0) for k in ("note_events", "note_seeds")}
+    assert counts["note_events"] > 0 and counts["note_seeds"] > 0
+    monkeypatch.setattr(program, "recorded", lambda: (kept, counts))
+    run = SimpleNamespace(done=[None, None, None])
+    assert cells.reader("notes_ms")(run) == pytest.approx(sum(s.end_ns - s.start_ns for s in kept) / 1e6 / 3)
+    monkeypatch.setattr(program, "recorded", lambda: ([], {"const_uploads": 3}))  # a program without it
+    assert cells.reader("notes_ms")(run) is None
 
 
 # ---------------------------------------------------- quantize, beat grid --

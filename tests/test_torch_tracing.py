@@ -178,7 +178,7 @@ def test_profiler_trace_holds_the_spans_inside_the_request(pipeline_runs):
             and e["name"].startswith(tracing.PREFIX)]
     names = {e["name"] for e in ours}
     assert {"audiotabs/request", "audiotabs/analysis/fused", "audiotabs/analysis/transfer", "audiotabs/fused/nets",
-            "audiotabs/quantize/tab", "audiotabs/mode/content", "audiotabs/export/musicxml",
+            "audiotabs/quantize/tab", "audiotabs/transcription/notes", "audiotabs/mode/content", "audiotabs/export/musicxml",
             "audiotabs/export/lilypond"} <= names
     assert {f"audiotabs/{s}" for s in STAGES} <= names
     (req,) = [e for e in ours if e["name"] == "audiotabs/request"]
