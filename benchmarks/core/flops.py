@@ -1,9 +1,13 @@
 """Model FLOPs of a song, from the configuration's widths and the windows
 and frames that a song of its length makes: 2 per multiply-add of every
 convolution, transposed convolution, linear layer, LSTM gate product and
-attention product of htdemucs (per separation window), and of the fused
-analysis' nets: the hCQT's matrix product, the Basic Pitch CNN, the beat
-BLSTM ensemble (its overlapped windows), DeepChroma and the key CNN.
+attention product of the separation net, and of the fused analysis' nets:
+the hCQT's matrix product, the Basic Pitch CNN, the beat BLSTM ensemble
+(its overlapped windows), DeepChroma and the key CNN. The separation net is
+the one ``nets`` entry besides the analysis' four, counted by the
+``song(widths, n)`` of its own file ``benchmarks/nets/<net>.py``
+(``nets/htdemucs.py`` calls ``htdemucs_song``), so a second net adds a file
+and edits none here.
 Norms, activations, FFTs, resampling and the decoders are not counted. The
 count depends on the shapes alone, never on what the program launches, so
 it reads the same work whatever implements it. A song counts at its true
@@ -14,9 +18,14 @@ doing less."""
 from __future__ import annotations
 
 import math
+from collections.abc import Callable
+from pathlib import Path
+
+from .cells import ROOT, net_count
 
 ANALYSIS_SR = 22050
 MODEL_SR = 44100
+ANALYSIS_NETS = ("basicpitch", "beat_rnn", "deepchroma", "key_cnn")  # the fused analysis' nets; any other separates
 
 
 def samples(seconds: float, sr: int = ANALYSIS_SR) -> int:
@@ -102,13 +111,33 @@ def key_cnn(k: dict, frames: int) -> int:
     return 2 * frames * (8 * 25 * bands + 16 * 8 * 9 * (bands // 2) + 32 * 16 * 9 * (bands // 4)) + 2 * (bands // 4) * 32 * 24
 
 
-def song_flops(config: dict, seconds: float) -> float:
-    """Model FLOPs of one song of ``seconds`` (its true length) under ``config``."""
+def separation_net(config: dict, root: Path = ROOT) -> tuple[str, Callable] | None:
+    """(name, ``song``) of the net that ``config`` separates with, None where
+    it does not separate. Raises ValueError, naming the nets, where it
+    separates and its ``nets`` name no separation net, or more than one, or
+    one without a count file ``benchmarks/nets/<net>.py``."""
+    if not config.get("settings", {}).get("ENABLE_DEMUCS", True):
+        return None
+    found = sorted(set(config.get("nets", {})) - set(ANALYSIS_NETS))
+    if len(found) != 1:
+        raise ValueError(f"configuration {config.get('name')!r} separates: its nets name one separation net besides "
+                         f"{', '.join(ANALYSIS_NETS)}, and these name {', '.join(found) or 'none'}")
+    (net,) = found
+    if not (root / "benchmarks" / "nets" / f"{net}.py").is_file():
+        raise ValueError(f"configuration {config.get('name')!r} separates with {net!r}, which has no count file "
+                         f"benchmarks/nets/{net}.py")
+    return net, net_count(net, root)
+
+
+def song_flops(config: dict, seconds: float, separation: tuple[str, Callable] | None) -> float:
+    """Model FLOPs of one song of ``seconds`` (its true length) under ``config``;
+    ``separation`` is ``separation_net(config)``, resolved once a run."""
     nets = config["nets"]
     n = samples(seconds)
     total = 0
-    if config.get("settings", {}).get("ENABLE_DEMUCS", True):
-        total += htdemucs_song(nets["htdemucs"], n)
+    if separation is not None:
+        net, song = separation
+        total += song(nets[net], n)
     bp = nets["basicpitch"]
     cqt_flops, nf = hcqt(n, hop=bp["hop"], n_bins=bp["bins"])
     total += cqt_flops + basicpitch_cnn(nf, bp["harmonics"])

@@ -36,6 +36,8 @@ class RunData:
     device: list  # (name, start µs, end µs) of every device activity
     busy_s: float
     song_flops: float  # model FLOPs of the window's songs
+    config: dict  # the cell's configuration: the widths a reader reads
+    separation: tuple | None  # (net, its song(widths, n)): flops.separation_net of the configuration
 
 
 def forbidden_modules() -> list[str]:
@@ -75,6 +77,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t0
     """→ (the result line's object, the lines for standard error)."""
     from audiotabs_tpu_torch.config import Settings
 
+    separation = flops.separation_net(cell.config, cell.root)  # a net that cannot be counted fails here, before any song is made
     dev = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -136,7 +139,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str, t0
             device_info.update(busy_s=busy, window_s=window_s)
             breakdown = trace_mod.breakdown(tr)
             data = RunData(done, window_s, layer_ms, launches, tr.device, busy,
-                           sum(flops.song_flops(cell.config, d.song.seconds) for d in done))
+                           sum(flops.song_flops(cell.config, d.song.seconds, separation) for d in done), cell.config,
+                           separation)
             for m in cell.per_layer:
                 value = reader(m["name"], cell.root)(data)
                 if value is not None:

@@ -19,6 +19,7 @@ BENCH = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
 from core import check, songs  # noqa: E402
+from core.configured import configured  # noqa: E402
 from core.runner import run_cell  # noqa: E402
 from test_bench_harness import BIG_SEED, few_threads, tiny_cell  # noqa: E402,F401
 
@@ -116,19 +117,21 @@ def test_a_broken_timed_path_is_not_correct(fault, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["mix-clip30"])
+@pytest.mark.parametrize("workload", ["mix-clip30", "shipped-song180"])
 def test_the_tf32_control_fails_the_limits(workload, tmp_path):
     """The reference in TF32 in the program's place, against the reference in
-    float32, on a 4 s song: the numbers of the configuration it must fail."""
+    float32, on a 4 s song, with the configuration's own weights and reference
+    modules: the numbers of the configuration it must fail."""
     if not torch.cuda.is_available():
         pytest.skip("the control runs on the card: TF32 is a CUDA precision")
     cell = tiny_cell(workload, n=1)
-    (song,) = songs.make_songs(cell.traffic, BIG_SEED, tmp_path, "cuda")
     dev = torch.device("cuda")
-    ref = check.Reference(cell.config["settings"], dev, tmp=tmp_path)
-    low = check.Reference(cell.config["settings"], dev, tf32=True, tmp=tmp_path)
-    r, _ = ref.single(song.path, "song00", None)
-    c, _ = low.single(song.path, "song00", None)
+    with configured(cell.config, cell.root, tmp_path, dev):
+        (song,) = songs.make_songs(cell.traffic, BIG_SEED, tmp_path, "cuda")
+        ref = check.Reference(cell.config["settings"], dev, tmp=tmp_path)
+        low = check.Reference(cell.config["settings"], dev, tf32=True, tmp=tmp_path)
+        r, _ = ref.single(song.path, "song00", None)
+        c, _ = low.single(song.path, "song00", None)
     numbers = check.compare(c, r, None)
     limits = cell.config["limits"]
     assert any(v > limits[k] for k, v in numbers.items()), numbers

@@ -8,6 +8,7 @@ refusal without a card and the import rules.
 import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -39,10 +40,13 @@ def few_threads():
 
 def tiny_cell(workload: str, loop: str = "single", n: int = 2, root: Path = ROOT, **settings) -> cells.Cell:
     """A cell of the benchmark at a size a CPU test holds: ``n`` songs of 3.5 to 4.5 s in a 6 s bucket.
-    ``settings`` override the configuration's; with separation on, its stems are compared too."""
+    ``settings`` override the configuration's; with separation on, its stems are compared too, and a
+    configuration that names no separation net separates with the checked-in htdemucs, as the program does."""
     cell = cells.load_cell(workload, root)
     cell.config["settings"] = dict(cell.config.get("settings", {}), PAD_SECONDS_BUCKET=6.0, BATCH_SONGS_PER_DEVICE=2,
                                    **settings)
+    if cell.config["settings"].get("ENABLE_DEMUCS", True) and set(cell.config["nets"]) <= set(flops.ANALYSIS_NETS):
+        cell.config["nets"] = cell.config["nets"] | {"htdemucs": CHECKED_IN_HTDEMUCS}
     cell.traffic = {"loop": loop, "songs": n, "seconds": [3.5 + 0.5 * (i % 3) for i in range(n)],
                     "tempi_bpm": [96 + 8 * i for i in range(n)], "sample_rate": 44100, "checked": n, "content_seed": 17,
                     **({"batch": n} if loop == "batch" else {})}
@@ -110,6 +114,10 @@ def test_configs_traffic_and_metrics_are_found_by_name(tmp_path):
 
 
 TINY_HTDEMUCS = {"seed": 5, "widths": {"n_sources": 6, "audio_channels": 2, "channels": 8, "bottom": 32, "t_layers": 2}}
+# the widths core/flops.py takes for TINY_HTDEMUCS's net (the shared reference's order; a 7.8 s window)
+TINY_HTDEMUCS_NET = {"channels": [8, 16, 32, 64], "dconv_hidden": [[4, 4], [4, 4], [4, 4], [8, 8]], "audio_channels": 2,
+                     "sources": 6, "bottom_channels": 32, "transformer_ff": 128, "transformer_layers": 2, "segment": 344064,
+                     "stride": 258048, "shifts": 1}
 
 # a module standing in for reference.models.htdemucs: the shared one, noting which of its functions ran, and the
 # bottom width of the net that separate_program was given
@@ -133,10 +141,11 @@ separate_program = _marked(separate_program)
 def test_a_configuration_with_its_own_weights_and_reference_module_runs(tmp_path, monkeypatch):
     root, bench = checkout(tmp_path)
     own = root / "benchmarks" / "references" / "htdemucs_marked.py"
-    own.parent.mkdir()
+    own.parent.mkdir(exist_ok=True)
     own.write_text((BENCH / "reference" / "models" / "htdemucs.py").read_text() + MARKED_HTDEMUCS)
-    conf = {k: v for k, v in json.loads((BENCH / "configs" / "mix.json").read_text()).items() if k not in ("settings", "nets")}
+    conf = {k: v for k, v in json.loads((BENCH / "configs" / "mix.json").read_text()).items() if k != "settings"}
     conf |= {"name": "separated", "settings": {}, "weights": {"htdemucs": TINY_HTDEMUCS},
+             "nets": conf["nets"] | {"htdemucs": TINY_HTDEMUCS_NET},
              "reference_modules": {"models.htdemucs": "references/htdemucs_marked.py"}}
     (root / "benchmarks" / "configs" / "separated.json").write_text(json.dumps(conf))
     bench["configs"].append({"name": "separated", "source": "https://example.org", "file": "benchmarks/configs/separated.json",
@@ -184,6 +193,7 @@ def test_every_metric_of_every_cell_has_a_reader():
         for m in cell.per_layer:
             assert callable(cells.reader(m["name"]))
         assert {"audio_s_per_s", "setup_s"} <= {m["name"] for m in cell.end_to_end}
+        flops.separation_net(cell.config)  # every separating configuration's net has its count file
 
 
 def test_end_to_end_metrics_take_every_song_of_the_window():
@@ -262,7 +272,69 @@ def test_htdemucs_flops_match_the_counter(order):
 def test_a_song_counts_at_its_true_length():
     config = json.loads((BENCH / "configs" / "mix.json").read_text())
     # 20 s and 30 s share the 30 s bucket: padding counted, they would read alike
-    assert 0 < flops.song_flops(config, 20.0) < flops.song_flops(config, 25.0) < flops.song_flops(config, 30.0)
+    count = [flops.song_flops(config, s, flops.separation_net(config)) for s in (20.0, 25.0, 30.0)]
+    assert 0 < count[0] < count[1] < count[2]
+
+
+# song_flops as the harness counted it before a separation net was found by its count file
+PINNED_SONG_FLOPS = {
+    ("mix", 20.0): 60_311_453_200, ("mix", 25.0): 75_323_968_992, ("mix", 30.0): 90_399_799_552,
+    ("mix", 180.0): 542_187_070_592, ("shipped", 20.0): 1_381_517_213_200, ("shipped", 25.0): 1_396_529_728_992,
+    ("shipped", 30.0): 1_741_906_999_552, ("shipped", 180.0): 10_781_531_710_592,
+}
+
+
+@pytest.mark.parametrize("config,seconds", sorted(PINNED_SONG_FLOPS))
+def test_song_flops_are_as_pinned(config, seconds):
+    conf = json.loads((BENCH / "configs" / f"{config}.json").read_text())
+    assert flops.song_flops(conf, seconds, flops.separation_net(conf)) == float(PINNED_SONG_FLOPS[config, seconds])
+
+
+# the count file of a stand-in separation net: its widths give its FLOPs per sample at the analysis rate
+TOY_SEP = "def song(widths, n):\n    return widths['flops_per_sample'] * n\n"
+
+
+def with_toy_sep(tmp_path: Path) -> tuple[Path, dict]:
+    """A checkout whose only addition is the count file ``benchmarks/nets/toy_sep.py``, and ``mix`` separating with it."""
+    root, bench = checkout(tmp_path)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    (root / "benchmarks" / "nets" / "toy_sep.py").write_text(TOY_SEP)
+    mix = json.loads((BENCH / "configs" / "mix.json").read_text())
+    return root, mix | {"name": "toy", "settings": {"ENABLE_DEMUCS": True}, "nets": mix["nets"] | {"toy_sep": {"flops_per_sample": 3}}}
+
+
+def test_song_flops_count_a_separation_net_by_its_file(tmp_path):
+    root, toy = with_toy_sep(tmp_path)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    (root / "benchmarks" / "configs" / "toy.json").write_text(json.dumps(toy))
+    bench["configs"].append({"name": "toy", "source": "https://example.org", "file": "benchmarks/configs/toy.json",
+                             "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "toy-clip30", "config": "toy", "traffic": "clip30", "chips": 1, "why": "a test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    config = cells.load_cell("toy-clip30", root).config
+    separation = flops.separation_net(config, root)
+    assert separation[0] == "toy_sep"
+    mix = json.loads((BENCH / "configs" / "mix.json").read_text())
+    for seconds in (20.0, 25.0):
+        assert flops.song_flops(config, seconds, separation) == flops.song_flops(mix, seconds, None) + 3 * flops.samples(seconds)
+    assert sorted(p.name for p in (root / "benchmarks" / "core").glob("*.py")) == sorted(
+        p.name for p in (BENCH / "core").glob("*.py"))  # the harness itself is the checkout's, unedited
+
+
+@pytest.mark.parametrize("nets,names", [({}, "none"), ({"toy_sep": {"flops_per_sample": 3}, "htdemucs": {}}, "htdemucs, toy_sep"),
+                                        ({"bs_roformer": {}}, "'bs_roformer', which has no count file")],
+                         ids=["no-net", "two-nets", "no-count-file"])
+def test_a_separation_net_that_cannot_be_counted_fails_before_any_song(tmp_path, monkeypatch, nets, names):
+    root, toy = with_toy_sep(tmp_path)
+    cell = tiny_cell("mix-clip30", root=root, ENABLE_DEMUCS=True)
+    cell.config["nets"] = {k: v for k, v in toy["nets"].items() if k != "toy_sep"} | nets
+
+    def no_songs(*args, **kwargs):
+        raise AssertionError("a song was made")
+
+    monkeypatch.setattr(songs, "make_songs", no_songs)
+    with pytest.raises(ValueError, match=re.escape(names)):
+        run_cell(cell, BIG_SEED, 0.1, False, "cpu", 0.0)
 
 
 def test_fused_nets_flops_match_the_counter():
@@ -379,6 +451,7 @@ def test_the_harness_and_reference_import_no_jax():
         "import run\n"
         "from core import cells, check, drive, flops, runner, songs, trace, work\n"
         f"[cells.reader(p.stem) for p in pathlib.Path({str(BENCH / 'metrics')!r}).glob('*.py')]\n"
+        f"[cells.net_count(p.stem) for p in pathlib.Path({str(BENCH / 'nets')!r}).glob('*.py')]\n"
         "import reference.runtime.pipeline, reference.runtime.batch_runner, reference.models.htdemucs\n"
         "import audiotabs_tpu_torch.runtime.pipeline, audiotabs_tpu_torch.runtime.batch_runner\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}))\n"

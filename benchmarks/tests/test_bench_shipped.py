@@ -24,7 +24,7 @@ from core.configured import reference_modules  # noqa: E402
 from core.drive import Done  # noqa: E402
 from core.runner import run_cell  # noqa: E402
 from core.songs import Song  # noqa: E402
-from test_bench_harness import BIG_SEED, checkout, counted, few_threads, own_reference_modules, tiny_cell  # noqa: E402,F401
+from test_bench_harness import BIG_SEED, counted, few_threads, own_reference_modules, tiny_cell  # noqa: E402,F401
 
 SHIPPED = json.loads((BENCH / "configs" / "shipped.json").read_text())
 # the shipped net at a size the CPU holds: its order and LayerScale, narrower and with a shorter feed-forward
@@ -78,9 +78,11 @@ def test_htdemucs_flops_match_the_counter_at_the_shipped_order():
 
 
 class Run:
-    def __init__(self, seconds: list[float], sep_ms: float, songs: int):
+    def __init__(self, seconds: list[float], sep_ms: float, songs: int, config: dict = SHIPPED):
         self.done = [Done(Song(i, s, 120.0, Path("x")), 3.0, None) for i, s in enumerate(seconds)]
         self.layer_ms = {"separation": (sep_ms, songs)}
+        self.config = config
+        self.separation = flops.separation_net(config)
 
 
 def test_separation_mfu_reads_the_windows_work_over_the_separations_device_seconds():
@@ -99,22 +101,22 @@ def test_separation_mfu_reads_the_windows_work_over_the_separations_device_secon
     assert cells.reader("separation_ms")(Run([180.0, 180.0, 60.0], 1687.5, 3)) == pytest.approx(562.5)
 
 
-def test_separation_mfu_gives_nothing_where_its_cells_disagree(tmp_path):
-    root, bench = checkout(tmp_path)
-    wide = json.loads(json.dumps(SHIPPED)) | {"name": "shipped_other"}
-    wide["nets"]["htdemucs"]["cross_layers"] = [0, 2, 4]
-    (root / "benchmarks" / "configs" / "shipped_other.json").write_text(json.dumps(wide))
-    bench["configs"].append({"name": "shipped_other", "source": "https://example.org",
-                             "file": "benchmarks/configs/shipped_other.json", "reduced": [], "why": "a test"})
-    bench["workloads"].append({"name": "shipped_other-song180", "config": "shipped_other", "traffic": "song180",
-                               "chips": 1, "why": "a test"})
-    (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    run = Run([180.0], 562.5, 1)
-    assert cells.reader("separation_mfu", root)(run) is not None
-    entry = next(m for m in bench["per_layer"] if m["name"] == "separation_mfu")
-    entry["workloads"].append("shipped_other-song180")
-    (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    assert cells.reader("separation_mfu", root)(run) is None
+def test_separation_mfu_reads_its_own_cells_widths():
+    """Two separated configurations of other widths, on the same window, each
+    read their own work: ``shipped`` (cross-attention at 1 and 3) and one that
+    cross-attends at 0, 2 and 4."""
+    reader = cells.reader("separation_mfu")
+    other = json.loads(json.dumps(SHIPPED)) | {"name": "shipped_other"}
+    other["nets"]["htdemucs"]["cross_layers"] = [0, 2, 4]
+    # a window's branches: ns = 8 frequency rows x 336 frames = 2,688 tokens, nt = 344,064 / 4**4 = 1,344; a layer
+    # that cross-attends in place of self-attending changes both branches' key projections and attention products
+    # by 4 D (2 ns nt - ns**2 - nt**2) = -4 x 512 x 1,344**2, and the other order has one more such layer
+    other_window = 330_301_440_000 - 4 * 512 * 1344**2
+    assert other_window == 326_602_063_872 == flops.htdemucs_window(other["nets"]["htdemucs"], 344064)
+    for config, window in ((SHIPPED, 330_301_440_000), (other, other_window)):
+        by_hand = 100.0 * 31 * window / 0.5625 / 67e12  # one 180 s song, 31 windows, in 562.5 ms
+        assert reader(Run([180.0], 562.5, 1, config)) == pytest.approx(by_hand, rel=1e-12)
+    assert reader(Run([180.0], 562.5, 1, json.loads((BENCH / "configs" / "mix.json").read_text()))) is None
 
 
 def test_separation_windows_reads_the_programs_counter(monkeypatch):
@@ -171,6 +173,21 @@ def test_the_shipped_cell_runs_and_its_check_sees_the_transformer(monkeypatch, f
     else:
         assert line["correct"] is False
         assert stem_err["value"] > 10 * stem_err["limit"], line["compared"]
+
+
+@pytest.mark.parametrize("fault", ["unchanged_separation", "altered_result"])
+def test_a_broken_shipped_song_is_not_correct(monkeypatch, fault):
+    """``shipped-song180`` at the small widths with its timed path broken:
+    separation hands the mix back as every stem, or the tail's tempo is
+    altered where it is produced."""
+    from test_bench_check import FAULTS
+
+    FAULTS[fault][0](monkeypatch)
+    cell = tiny_cell("shipped-song180")
+    cell.config["weights"]["htdemucs"]["widths"] = SMALL
+    monkeypatch.delenv("HTDEMUCS_WEIGHTS", raising=False)
+    line, _ = run_cell(cell, BIG_SEED, 0.1, False, "cpu", 0.0)
+    assert line["correct"] is False, line["compared"]
 
 
 def test_launched_ms_places_device_time_in_the_spans_that_launched_it():
